@@ -1,0 +1,142 @@
+"""Where the time of the port's main path goes, on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_profile.py
+
+It drives the main path of ``chip_smoke.py`` (full-size EfficientNet-B0 on
+the four-platform chain, ``torch_nsga2`` at population 16384 for 10
+generations) four times:
+
+1. once to warm up (kernel build, allocator, lazy CUDA state);
+2. once untimed inside, for the wall time;
+3. once with synchronized host timers around each stage of the generation
+   loop (offspring, evaluation, the tiled domination kernel, front peeling,
+   the whole ranking, crowding, survivor selection, the final-front
+   kernel), plus the number of fronts each ranking peels;
+4. once under ``torch.profiler`` (CPU and CUDA activities): the device-busy
+   share of the wall time and the kernels with the most device time.
+
+The stage timers synchronize the device around every stage, so the third
+run can be slower than the second; its stage shares are what it is for.
+"""
+
+from __future__ import annotations
+
+import collections
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import chip_smoke  # noqa: E402
+
+STAGES = collections.OrderedDict()
+FRONTS = []
+
+
+def _timed(name, fn):
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        STAGES[name] = STAGES.get(name, 0.0) + time.perf_counter() - t
+        return out
+    return wrapper
+
+
+def instrument():
+    """Wrap the generation loop's stages in synchronized timers."""
+    from repro_torch.core import nsga2_torch, partition_torch
+    from repro_torch.kernels import ops
+
+    peel = nsga2_torch._peel
+
+    def counting_peel(*args):
+        out = peel(*args)
+        FRONTS.append(out[1])
+        return out
+
+    nsga2_torch._peel = _timed("peel fronts (popcount passes)",
+                               counting_peel)
+    ops.packed_domination = _timed("packed_domination kernel",
+                                   ops.packed_domination)
+    ops.domination_counts = _timed("domination_counts kernel (final front)",
+                                   ops.domination_counts)
+    rank = nsga2_torch.nondominated_rank
+    nsga2_torch.nondominated_rank = _timed("ranking total", rank)
+    for name in ("make_offspring", "crowding_by_rank", "survivors"):
+        setattr(nsga2_torch, name, _timed(name, getattr(nsga2_torch, name)))
+    make_eval = partition_torch.make_runtime_eval_fn
+
+    def timed_make_eval(*args, **kwargs):
+        return _timed("evaluation", make_eval(*args, **kwargs))
+
+    partition_torch.make_runtime_eval_fn = timed_make_eval
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.explore import run_spec
+
+    dev = torch.device("cuda", 0)
+    spec = chip_smoke.main_spec()
+    print(chip_smoke.card_line())
+
+    t = time.perf_counter()
+    run_spec(spec, device=str(dev))
+    torch.cuda.synchronize()
+    print(f"warm-up run (includes the kernel build): "
+          f"{time.perf_counter() - t:.3f} s")
+
+    t = time.perf_counter()
+    run_spec(spec, device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    print(f"untimed run: wall {wall:.3f} s")
+
+    instrument()
+    t = time.perf_counter()
+    run_spec(spec, device=str(dev))
+    torch.cuda.synchronize()
+    timed_wall = time.perf_counter() - t
+    print(f"stage-timed run: wall {timed_wall:.3f} s")
+    for name, s in STAGES.items():
+        print(f"  {name:42s} {s:8.3f} s  {100 * s / timed_wall:5.1f} %")
+    inner = sum(s for n, s in STAGES.items() if n != "ranking total")
+    print(f"  {'outside the timed stages (host set-up)':42s} "
+          f"{timed_wall - inner:8.3f} s")
+    print(f"  fronts peeled per ranking call: {FRONTS}")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run_spec(spec, device=str(dev))
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t
+    # device-side entries only: a CPU operator's device time repeats the
+    # time of the kernels it launched
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"profiled run: wall {prof_wall:.3f} s, device busy "
+          f"{device_s:.3f} s = {100 * device_s / prof_wall:.1f} % of wall, "
+          f"{sum(e.count for e in kernels)} kernel launches")
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    for e in top:
+        print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.2f} ms"
+              f"  x{e.count}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

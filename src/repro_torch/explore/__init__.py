@@ -1,0 +1,63 @@
+"""Declarative exploration API for automated DNN partitioning, on PyTorch.
+
+The paper's Fig.-1 framework as composable, declarative pieces — the
+counterpart of the JAX package's ``repro.explore``:
+
+========================================  ====================================
+Paper stage (Fig. 1)                      API piece
+========================================  ====================================
+DNN model → layer graph                   :class:`ModelRef` (``spec.py``)
+System description                        :class:`SystemSpec` /
+                                          :class:`PlatformSpec` /
+                                          :class:`LinkSpec`
+Linear schedule (§IV-A)                   ``schedule_policy`` on
+                                          :class:`ExplorationSpec`
+Candidate cuts + memory/link filtering    ``filters.candidate_positions``
+(§IV-B, Def. 1/3)                         + per-(link, position)
+                                          ``filters.link_feasibility``
+Metric evaluation (Table I)               ``repro_torch.core.partition``
+                                          ``PartitionEvaluator`` (shared by
+                                          all strategies)
+Search / NSGA-II (§IV)                    :class:`SearchStrategy` protocol —
+                                          :class:`ExhaustiveSearch`,
+                                          :class:`MultiCutScan`,
+                                          :class:`NSGA2Search`,
+                                          :class:`TorchNSGA2Search` (the same
+                                          search as tensor code on a device)
+Pareto front + Def.-2 selection           ``runner.run_search`` →
+                                          :class:`ExplorationResult`
+========================================  ====================================
+
+Specs are JSON-round-trippable (``ExplorationSpec.to_json``/``from_json``),
+and strategies are drop-in interchangeable through
+``SearchSettings.strategy``.  ``run_spec(spec, device=...)`` runs the tensor
+strategy on ``device`` (default ``"cuda"``).
+"""
+
+from repro_torch.explore.filters import (candidate_positions, feasible_cut_rows,
+                                         link_feasibility, link_filter,
+                                         memory_filter)
+from repro_torch.explore.result import (ExplorationResult, eval_from_dict,
+                                        eval_to_dict)
+from repro_torch.explore.runner import (DEFAULT_OBJECTIVES, explore_graph,
+                                        run_search, run_spec, select_weighted)
+from repro_torch.explore.spec import (AccuracySpec, ExplorationSpec, LinkSpec,
+                                      ModelRef, PlatformSpec, SearchSettings,
+                                      SweepSpec, SystemSpec)
+from repro_torch.explore.strategies import (ExhaustiveSearch, MultiCutScan,
+                                            NSGA2Search, SearchContext,
+                                            SearchStrategy, StrategyOutput,
+                                            TorchNSGA2Search,
+                                            register_strategy,
+                                            scaled_nsga_defaults)
+
+__all__ = [
+    "AccuracySpec", "DEFAULT_OBJECTIVES", "ExhaustiveSearch",
+    "ExplorationResult", "ExplorationSpec", "LinkSpec", "ModelRef",
+    "MultiCutScan", "NSGA2Search", "PlatformSpec", "SearchContext",
+    "SearchSettings", "SearchStrategy", "StrategyOutput", "SweepSpec",
+    "SystemSpec", "TorchNSGA2Search", "candidate_positions",
+    "eval_from_dict", "eval_to_dict", "explore_graph", "feasible_cut_rows",
+    "link_feasibility", "link_filter", "memory_filter", "register_strategy",
+    "run_search", "run_spec", "scaled_nsga_defaults", "select_weighted",
+]

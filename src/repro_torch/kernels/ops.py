@@ -1,0 +1,76 @@
+"""Kernel dispatch for the Pareto-ranking primitives.
+
+``impl`` resolution: ``'cuda'`` launches the hand-written kernel (the
+tensors must lie on a CUDA device, else it raises), ``'ref'`` runs the
+plain PyTorch version on whatever device the tensors are on, ``'auto'``
+picks the kernel for a CUDA tensor and ``ref`` for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import pareto_rank as _kern
+from repro_torch.kernels import ref as _ref
+
+_IMPLS = ("auto", "ref", "cuda")
+
+
+def resolve_impl(impl: str, x: torch.Tensor) -> str:
+    """The concrete impl (``'ref'`` or ``'cuda'``) for tensors like ``x``."""
+    if impl not in _IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; valid choices: "
+                         f"{', '.join(_IMPLS)}")
+    if impl == "auto":
+        return "cuda" if x.is_cuda else "ref"
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError(f"impl 'cuda' needs CUDA tensors, got a tensor on "
+                         f"{x.device}")
+    return impl
+
+
+# -- pareto_rank ----------------------------------------------------------------
+
+# column tile of the packed-domination thread block (one thread per column):
+# rows follow the caller's block (the knob trades per-block work against the
+# number of blocks) while the column width stays fixed at any row count
+_COL_TILE = 256
+
+
+def _row_tile(block: int) -> int:
+    return max(32, block // 32 * 32)
+
+
+def packed_domination(F, CV, *, block: int = 1024,
+                      impl: str = "auto") -> torch.Tensor:
+    """Bit-packed constrained-domination matrix, built tile by tile.
+
+    Returns (ceil(n/32), n) int32 words carrying the uint32 bit pattern of
+    the ``nsga2_torch._pack_bits`` layout — bit-identical to packing the
+    dense ``domination_matrix``, but the dense (n, n[, m]) temporaries never
+    exist.
+    """
+    F = torch.as_tensor(F, dtype=torch.float32).contiguous()
+    CV = torch.as_tensor(CV, dtype=torch.float32,
+                         device=F.device).contiguous()
+    if resolve_impl(impl, F) == "ref":
+        return _ref.packed_domination(F, CV, F, CV, block)
+    return _kern.packed_domination(F, CV, F, CV, bp=_row_tile(block),
+                                   bq=_COL_TILE)
+
+
+def domination_counts(F, CV, alive: Optional[torch.Tensor] = None, *,
+                      block: int = 1024, impl: str = "auto") -> torch.Tensor:
+    """(n,) int32 count of alive constrained dominators per individual.
+    ``counts == 0`` is the first constrained front."""
+    F = torch.as_tensor(F, dtype=torch.float32).contiguous()
+    CV = torch.as_tensor(CV, dtype=torch.float32,
+                         device=F.device).contiguous()
+    n = F.shape[0]
+    if alive is None:
+        alive = torch.ones(n, dtype=torch.bool, device=F.device)
+    if resolve_impl(impl, F) == "ref":
+        return _ref.domination_counts(F, CV, alive.to(torch.bool), block)
+    return _kern.domination_counts(F, CV, alive)

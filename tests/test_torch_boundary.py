@@ -1,0 +1,96 @@
+"""The import boundary of the port: nothing under ``src/repro_torch`` and
+nothing in ``chip_smoke.py`` or ``chip_profile.py`` imports JAX or the JAX
+package ``repro``, and a CPU search runs in a process where JAX cannot be
+imported at all."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _files():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "chip_profile.py"]
+    assert len(files) > 20 and all(f.exists() for f in files)
+    return files
+
+
+def _violations(path: Path, root: Path = ROOT):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        elif isinstance(node, ast.Attribute) and isinstance(
+                node.value, ast.Name) and node.value.id in FORBIDDEN:
+            names = [node.value.id]                    # e.g. jax.numpy
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            names = [str(node.args[0].value)]
+        else:
+            continue
+        bad += [f"{path.relative_to(root)}:{node.lineno}: {n}" for n in names
+                if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+def test_no_jax_or_repro_imports():
+    bad = [v for f in _files() for v in _violations(f)]
+    assert not bad, "\n".join(bad)
+
+
+def test_scanner_catches_forbidden_imports(tmp_path):
+    p = tmp_path / "m.py"
+    p.write_text("import jax.numpy as jnp\nfrom repro.core import graph\n"
+                 "import repro_torch\nx = jax.jit\n")
+    got = [v.split(": ")[1] for v in _violations(p, tmp_path)]
+    assert sorted(got) == ["jax", "jax.numpy", "repro.core"]
+
+
+def test_cpu_search_runs_with_jax_blocked():
+    code = """
+        import sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        import repro_torch
+        from repro_torch.explore import (ExplorationSpec, ModelRef,
+                                         PlatformSpec, SearchSettings,
+                                         SystemSpec, run_spec)
+        spec = ExplorationSpec(
+            model=ModelRef("cnn", "efficientnet_b0", {"in_hw": 64}),
+            system=SystemSpec(
+                platforms=(PlatformSpec("cam0", "eyr", bits=16),
+                           PlatformSpec("cam1", "eyr", bits=16),
+                           PlatformSpec("edge", "smb", bits=8),
+                           PlatformSpec("central", "smb", bits=8)),
+                links=("gige", "gige", "gige")),
+            objectives=("latency", "energy", "throughput"),
+            search=SearchSettings(strategy="torch_nsga2", pop_size=32,
+                                  n_gen=2, seed=0))
+        res = run_spec(spec, device="cpu")
+        assert res.strategy_used == "torch_nsga2" and res.pareto
+        leaked = sorted(m for m in sys.modules
+                        if m == "repro" or m.startswith("repro."))
+        assert not leaked, leaked
+        print("BOUNDARY_OK")
+    """
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="2")
+    out = subprocess.run([sys.executable, "-c", textwrap.dedent(code)],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(ROOT))
+    assert out.returncode == 0, f"STDOUT:\n{out.stdout}\nSTDERR:\n{out.stderr}"
+    assert "BOUNDARY_OK" in out.stdout

@@ -1,0 +1,158 @@
+"""The port's Pareto-domination kernels (``repro_torch.kernels``): their
+plain PyTorch versions against the JAX package's ``ops.packed_domination``
+/ ``ops.domination_counts`` (its ``ref`` and Pallas-interpret impls) and
+the dense ``nsga2_jax.domination_matrix``, bit for bit, at ragged sizes,
+with duplicated rows, all-infeasible populations and alive masks; the
+dispatch rules.  The CUDA kernels themselves are held against these plain
+versions in ``test_torch_cuda.py`` (on a card only)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import nsga2_jax  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.core import nsga2_torch  # noqa: E402
+from repro_torch.kernels import ops, pareto_rank, ref  # noqa: E402
+
+torch.set_num_threads(2)
+
+JAX_IMPLS = ("ref", "pallas")
+SIZES = (33, 97, 130)     # deliberately ragged vs the 32/64-row tiles
+
+
+def population(n, m=3, infeas=0.3, dup=False, seed=0):
+    rng = np.random.default_rng(seed)
+    F = rng.random((n, m)).astype(np.float32)
+    if dup:                      # duplicated objective vectors share fronts
+        F[n // 2:] = F[rng.integers(0, n // 2, n - n // 2)]
+    CV = np.where(rng.random(n) < infeas, (rng.random(n) * 3).round(1),
+                  0.0).astype(np.float32)
+    return F, CV
+
+
+def words_u32(t):
+    return t.numpy().view(np.uint32)
+
+
+# -- plain versions vs the JAX package ----------------------------------------
+
+@pytest.mark.parametrize("n", SIZES)
+def test_packed_domination_matches_jax(n):
+    F, CV = population(n, dup=True, seed=n)
+    got = words_u32(ops.packed_domination(torch.from_numpy(F),
+                                          torch.from_numpy(CV), block=32,
+                                          impl="ref"))
+    dense = np.asarray(nsga2_jax._pack_bits(nsga2_jax.domination_matrix(
+        jnp.asarray(F), jnp.asarray(CV))))
+    assert got.shape == dense.shape
+    assert (got == dense).all()
+    for impl in JAX_IMPLS:
+        want = np.asarray(jops.packed_domination(
+            jnp.asarray(F), jnp.asarray(CV), block=32, impl=impl))
+        assert (got == want).all(), impl
+
+
+def test_packed_domination_all_infeasible_and_all_feasible():
+    rng = np.random.default_rng(9)
+    F = rng.random((97, 2)).astype(np.float32)
+    for CV in ((rng.random(97) * 2 + 0.1).round(1).astype(np.float32),
+               np.zeros(97, np.float32)):
+        got = words_u32(ops.packed_domination(
+            torch.from_numpy(F), torch.from_numpy(CV), block=64, impl="ref"))
+        for impl in JAX_IMPLS:
+            want = np.asarray(jops.packed_domination(
+                jnp.asarray(F), jnp.asarray(CV), block=64, impl=impl))
+            assert (got == want).all(), impl
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_domination_counts_match_jax(n):
+    F, CV = population(n, dup=True, seed=n + 1)
+    alive = np.random.default_rng(n).random(n) < 0.5
+    D = np.asarray(nsga2_jax.domination_matrix(jnp.asarray(F),
+                                               jnp.asarray(CV)))
+    Ft, CVt = torch.from_numpy(F), torch.from_numpy(CV)
+    got = ops.domination_counts(Ft, CVt, block=32, impl="ref").numpy()
+    got_alive = ops.domination_counts(Ft, CVt, torch.from_numpy(alive),
+                                      block=32, impl="ref").numpy()
+    assert (got == D.sum(axis=0)).all()
+    assert (got_alive == D[alive].sum(axis=0)).all()
+    for impl in JAX_IMPLS:
+        assert (got == np.asarray(jops.domination_counts(
+            jnp.asarray(F), jnp.asarray(CV), block=32, impl=impl))).all()
+        assert (got_alive == np.asarray(jops.domination_counts(
+            jnp.asarray(F), jnp.asarray(CV), jnp.asarray(alive), block=32,
+            impl=impl))).all()
+
+
+def test_padding_rows_dominate_nothing():
+    Fr, cvr = ref._pad_rows(torch.zeros((5, 2)), torch.zeros(5), 32)
+    assert Fr.shape == (32, 2) and torch.isinf(cvr[5:]).all()
+    tile = ref.dominates_tile(Fr, cvr, torch.ones((7, 2)), torch.zeros(7))
+    assert tile[:5].all() and not tile[5:].any()
+
+
+def test_nan_compares_false():
+    F = torch.tensor([[0.0, float("nan")], [1.0, 1.0], [0.5, 0.5]])
+    CV = torch.tensor([0.0, 0.0, float("nan")])
+    tile = ref.dominates_tile(F, CV, F, CV)
+    want = np.asarray(nsga2_jax.domination_matrix(jnp.asarray(F.numpy()),
+                                                  jnp.asarray(CV.numpy())))
+    assert (tile.numpy() == want).all()
+
+
+# -- dispatch -----------------------------------------------------------------
+
+def test_resolve_impl_rules():
+    x = torch.zeros(3)
+    assert ops.resolve_impl("auto", x) == "ref"
+    assert ops.resolve_impl("ref", x) == "ref"
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.resolve_impl("cuda", x)
+    with pytest.raises(ValueError, match="valid choices"):
+        ops.resolve_impl("pallas", x)
+    F, CV = population(40, seed=2)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.packed_domination(torch.from_numpy(F), torch.from_numpy(CV),
+                              impl="cuda")
+
+
+def test_kernel_wrappers_run_plain_version_on_cpu():
+    F, CV = population(70, dup=True, seed=5)
+    Ft, CVt = torch.from_numpy(F), torch.from_numpy(CV)
+    before = (pareto_rank.packed_domination.launches,
+              pareto_rank.domination_counts.launches)
+    words = pareto_rank.packed_domination(Ft, CVt, Ft, CVt, bp=64)
+    counts = pareto_rank.domination_counts(Ft, CVt,
+                                           torch.ones(70, dtype=torch.int32))
+    assert (words_u32(words) == words_u32(ref.packed_domination(
+        Ft, CVt, Ft, CVt, 64))).all()
+    assert (counts == ref.domination_counts(Ft, CVt)).all()
+    assert (pareto_rank.packed_domination.launches,
+            pareto_rank.domination_counts.launches) == before
+
+
+def test_row_tile_legalization():
+    assert ops._row_tile(1) == 32
+    assert ops._row_tile(100) == 96
+    assert ops._row_tile(2048) == 2048
+    assert ops._COL_TILE == 256
+
+
+# -- popcount -----------------------------------------------------------------
+
+def test_popcount32_matches_numpy_including_bit31():
+    rng = np.random.default_rng(0)
+    u = np.concatenate([
+        rng.integers(0, 2 ** 32, size=4096, dtype=np.uint64),
+        np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 31 - 1, 2 ** 31 + 1,
+                  0x80000001, 0xAAAAAAAA, 0x55555555], dtype=np.uint64),
+    ]).astype(np.uint32)
+    got = nsga2_torch.popcount32(torch.from_numpy(u.view(np.int32))).numpy()
+    want = np.array([bin(int(v)).count("1") for v in u])
+    assert (got == want).all()
+    assert (got == np.bitwise_count(u)).all()
