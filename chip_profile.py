@@ -1,11 +1,11 @@
-"""Where the time of the port's main path goes, on one NVIDIA GPU.
+"""Where the time of the port's paths goes, on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
     python3 chip_profile.py
 
-It drives the main path of ``chip_smoke.py`` (full-size EfficientNet-B0 on
-the four-platform chain, ``torch_nsga2`` at population 16384 for 10
+It drives the search path of ``chip_smoke.py`` (full-size EfficientNet-B0
+on the four-platform chain, ``torch_nsga2`` at population 16384 for 10
 generations) four times:
 
 1. once to warm up (kernel build, allocator, lazy CUDA state);
@@ -19,6 +19,13 @@ generations) four times:
 
 The stage timers synchronize the device around every stage, so the third
 run can be slower than the second; its stage shares are what it is for.
+
+Then it drives the LM path of ``chip_smoke.py`` (smollm-360m at full width)
+under ``torch.profiler``, after one warm-up of each piece: the forward of
+two 8192-token prompts through the sliding-window kernel, and the
+generation of 32 tokens for 8 prompts of 128 (prefill and decode through
+the KV cache).  For each: wall time, device-busy share, kernel launches
+and the kernels with the most device time.
 """
 
 from __future__ import annotations
@@ -114,12 +121,20 @@ def main() -> int:
           f"{timed_wall - inner:8.3f} s")
     print(f"  fronts peeled per ranking call: {FRONTS}")
 
+    profiled("search run", lambda: run_spec(spec, device=str(dev)))
+    lm_profile(dev)
+    return 0
+
+
+def profiled(label, fn, top_n=12):
+    """Run ``fn`` once under ``torch.profiler``; print the wall time, the
+    device-busy share and the kernels with the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run_spec(spec, device=str(dev))
+        fn()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t
     # device-side entries only: a CPU operator's device time repeats the
@@ -127,15 +142,48 @@ def main() -> int:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     device_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"profiled run: wall {prof_wall:.3f} s, device busy "
+    print(f"{label} (profiled): wall {prof_wall:.3f} s, device busy "
           f"{device_s:.3f} s = {100 * device_s / prof_wall:.1f} % of wall, "
           f"{sum(e.count for e in kernels)} kernel launches")
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:12]
+                 reverse=True)[:top_n]
     for e in top:
         print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.2f} ms"
               f"  x{e.count}")
-    return 0
+
+
+def lm_profile(dev):
+    """The LM path's forward and generation under the profiler."""
+    import numpy as np
+
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import GenerationEngine
+
+    cfg = get_config(chip_smoke.LM_ARCH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(chip_smoke.SEED))
+    rng = np.random.default_rng(chip_smoke.SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (chip_smoke.LM_B, chip_smoke.LM_T))).to(dev)}
+    prompts = rng.integers(0, cfg.vocab, (chip_smoke.GEN_REQUESTS,
+                                          chip_smoke.GEN_PROMPT))
+    engine = GenerationEngine(model, max_seq=chip_smoke.GEN_PROMPT
+                              + chip_smoke.GEN_NEW)
+
+    def forward():
+        model(batch, impl="cuda")
+
+    def generate():
+        gen = engine.generate(prompts, max_new=chip_smoke.GEN_NEW)
+        print(f"  prefill {gen.prefill_s:.3f} s, decode {gen.decode_s:.3f} s "
+              f"({gen.tokens_per_s:.1f} tok/s)")
+
+    forward()
+    engine.generate(prompts, max_new=2)
+    torch.cuda.synchronize()
+    profiled(f"LM forward {chip_smoke.LM_B} x {chip_smoke.LM_T} tokens", forward)
+    profiled(f"LM generation {chip_smoke.GEN_REQUESTS} x "
+             f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate)
 
 
 if __name__ == "__main__":

@@ -13,11 +13,25 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    sizes, and times kernel, plain version and the kernel's lower bound;
 2. checks the tiled ranking on the card against the dense ranking on the
    CPU on a small population (exact ranks);
-3. drives the main path once through ``repro_torch.explore.run_spec``:
+3. drives the search path once through ``repro_torch.explore.run_spec``:
    the full-size EfficientNet-B0 on a four-platform chain, searched by
    ``torch_nsga2`` at population 16384 for 10 generations, with each
    kernel's launch count set to 0 just before and read just after; checks
-   the front against the exact NumPy evaluator.
+   the front against the exact NumPy evaluator;
+4. holds the sliding-window attention kernel against its plain version on
+   the card at ragged sizes and at the LM path's shape (smollm-360m, 2
+   prompts of 8192 tokens, window 4096), and times kernel, plain version,
+   bound and ``scaled_dot_product_attention`` (the library yardstick,
+   called here only);
+5. drives the LM inference path once at full width, with every launch
+   count set to 0 just before and read just after: the explorer picks the
+   cut of smollm-360m (8192 tokens) between two platforms (``torch_nsga2``,
+   through the Pareto kernels), ``lm_block_cuts`` maps it to block cuts,
+   the model's forward over two 8192-token prompts runs through the window
+   kernel (32 launches) and agrees with the plain attention, the
+   partitioned runner agrees with the monolithic forward, and the
+   generation engine answers 8 requests (prompt 128, 32 new tokens,
+   greedy) whose first-step logits agree with the forward.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
 card's name and power limit, and as its last line
@@ -48,6 +62,29 @@ PEAK_F32_OPS_S = 67e12
 POP, N_GEN, SEED = 16384, 10, 0
 RANK_BLOCK = 2048            # the auto policy's tile rows at this population
 RAGGED = (33, 97, 130)
+
+# the LM path: smollm-360m at full width, two prompts of 8192 tokens (the
+# window is 4096); the search runs at the search path's population so that
+# ranking takes the tiled kernel and the final front the counting kernel
+# (66 cut positions alone would need far fewer), for 5 generations
+LM_ARCH, LM_B, LM_T, LM_GEN = "smollm-360m", 2, 8192, 5
+# the two platforms of launch/serve.py, each given 1 GiB: at the default
+# 64 and 128 MiB no cut of the 362M-parameter model fits (Def. 3)
+LM_MEM = 2 ** 30
+GEN_REQUESTS, GEN_PROMPT, GEN_NEW = 8, 128, 32
+WA_RAGGED_T, WA_RAGGED_W = (1, 100, 128, 1000), (1, 64, 100, None)
+# window_attn against its plain version: float32 both, summed in another
+# order (an online softmax over 64-key tiles against one softmax per row).
+# 2e-5 is the reference's own tolerance (t <= 512); at t = 8192 a row sums
+# up to 4096 keys, so the stated bound there is 1e-4
+WA_TOL, WA_TOL_MAIN = 2e-5, 1e-4
+# logits (std ~0.6) of the forward through the kernel against the forward
+# through chunked_sdpa, and of the engine's first step against the forward:
+# the attention's summation order differs in each of the 32 layers
+LOGIT_TOL = 2e-4
+# the partitioned runner repeats the monolithic forward's operations in the
+# same order: bit-identical expected, 1e-6 absorbs a change of algorithm
+PART_TOL = 1e-6
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -210,7 +247,7 @@ def main_spec():
 
 
 def main_path(dev, records):
-    """Phase 3: the port's main path once, with the launch counts read."""
+    """Phase 3: the search path once, with the launch counts read."""
     from repro_torch.core.accuracy import ProxyAccuracy
     from repro_torch.core.graph import linearize
     from repro_torch.core.partition import PartitionEvaluator
@@ -264,6 +301,194 @@ def main_path(dev, records):
     return wall, evals_s
 
 
+def valid_pairs(t: int, window: int) -> int:
+    """(query, key) pairs the window admits over one (batch row, head)."""
+    w = min(window, t)
+    return w * (w + 1) // 2 + (t - w) * w
+
+
+def check_window_attn(dev):
+    """Phase 4: the window kernel against its plain version on the card;
+    returns its record (launches filled in by the LM path)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, window_attn
+
+    def qkv(b, t, h, kv, hd, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(s, generator=g, device=dev)
+                     for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+    n = 0
+    for t in WA_RAGGED_T:
+        for w in WA_RAGGED_W:
+            w = t + 37 if w is None else w
+            for group in (1, 3):
+                for hd in (32, 64):
+                    q, k, v = qkv(2, t, 2 * group, 2, hd, n)
+                    got = window_attn.window_attn(q, k, v, w)
+                    want = ops.window_attn(q, k, v, w, impl="ref")
+                    torch.testing.assert_close(got, want, rtol=WA_TOL,
+                                               atol=WA_TOL)
+                    n += 1
+    print(f"window_attn: {n} ragged cases (t {WA_RAGGED_T}, windows "
+          f"(1, 64, 100, t+37), groups 1 and 3, hd 32 and 64) within "
+          f"{WA_TOL}")
+
+    from repro_torch.models.registry import get_config
+    cfg = get_config(LM_ARCH)
+    b, t, h, kv, hd, w = (LM_B, LM_T, cfg.n_heads, cfg.n_kv,
+                          cfg.resolved_head_dim, cfg.window)
+    q, k, v = qkv(b, t, h, kv, hd, 1)
+
+    def plain():
+        # one batch row at a time: a row's (H, T, T) scores are 4 GB
+        return torch.cat([ops.window_attn(q[i:i + 1], k[i:i + 1],
+                                          v[i:i + 1], w, impl="ref")
+                          for i in range(b)])
+
+    got = window_attn.window_attn(q, k, v, w)
+    want = plain()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=WA_TOL_MAIN, atol=WA_TOL_MAIN)
+    del want
+    ms = cuda_ms(lambda: window_attn.window_attn(q, k, v, w), 10)
+    plain_ms = cuda_ms(plain, 2)
+    # the library yardstick: K/V expanded and the boolean window mask built
+    # outside the timed region, (B, H, T, hd) views
+    pos = torch.arange(t, device=dev)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    qt, kt, vt = (x.repeat_interleave(h // x.shape[2], 2).transpose(1, 2)
+                  for x in (q, k, v))
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask), 3)
+    lib_err = float((F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask).transpose(1, 2) - got).abs().max())
+    n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    ops_ = b * h * valid_pairs(t, w) * 4 * hd
+    b_ms, b_by = bound(n_bytes, ops_)
+    print(f"window_attn at the LM shape: max_abs_err {err:.3e} (bound "
+          f"{WA_TOL_MAIN}); library call differs from the kernel by "
+          f"{lib_err:.3e}")
+    return dict(
+        name="window_attn", route="cuda",
+        source="src/repro_torch/kernels/csrc/window_attn.cu",
+        replaces="src/repro/kernels/window_attn.py:77",
+        shape=f"q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, {hd}) f32, "
+              f"window {w}",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def lm_spec():
+    """The LM path's search: smollm-360m at 8192 tokens between the serve
+    launcher's two platforms over one eth10 link."""
+    from repro_torch.explore import (ExplorationSpec, ModelRef, PlatformSpec,
+                                     SearchSettings, SystemSpec)
+    return ExplorationSpec(
+        model=ModelRef("registry", LM_ARCH, {"seq": LM_T}),
+        system=SystemSpec(
+            platforms=(PlatformSpec("A", "eyr", bits=16, mem_capacity=LM_MEM),
+                       PlatformSpec("B", "smb", bits=8, mem_capacity=LM_MEM)),
+            links=("eth10",)),
+        objectives=("latency", "energy", "throughput"),
+        search=SearchSettings(strategy="torch_nsga2", pop_size=POP,
+                              n_gen=LM_GEN, seed=SEED))
+
+
+def lm_path(dev, records):
+    """Phase 5: the LM inference path once, with the launch counts read."""
+    from repro_torch.explore import lm_block_cuts, run_spec
+    from repro_torch.kernels import pareto_rank, window_attn
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import GenerationEngine, PartitionedLMRunner
+
+    cfg = get_config(LM_ARCH)
+    kernels = {"packed_domination": pareto_rank.packed_domination,
+               "domination_counts": pareto_rank.domination_counts,
+               "window_attn": window_attn.window_attn}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+
+    t0 = time.perf_counter()
+    res = run_spec(lm_spec(), device=str(dev))
+    sel = res.selected.cuts if res.selected is not None else (1,)
+    cuts = lm_block_cuts(sel, cfg.n_layers)
+    search_s = time.perf_counter() - t0
+    assert res.strategy_used == "torch_nsga2" and res.pareto, "no front"
+    print(f"LM search: smollm-360m seq {LM_T} ({len(res.schedule)} "
+          f"positions), 2 platforms, torch_nsga2 pop {POP} x {LM_GEN} gen: "
+          f"{search_s:.3f} s, front {len(res.pareto)} points, selected "
+          f"{tuple(sel)} -> block cuts {cuts}")
+
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_B, LM_T))).to(dev)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    logits, fwd_s = timed(lambda: model(batch, impl="cuda"))
+    assert window_attn.window_attn.launches == cfg.n_layers, (
+        window_attn.window_attn.launches)
+    assert logits.shape == (LM_B, LM_T, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    ref_logits, ref_s = timed(lambda: model(batch, impl="ref"))
+    fwd_err = float((logits - ref_logits).abs().max())
+    torch.testing.assert_close(logits, ref_logits, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    del logits
+    print(f"LM forward: {n_params / 1e6:.1f}M parameters, {LM_B} x {LM_T} "
+          f"tokens: through the kernel {fwd_s:.3f} s "
+          f"({LM_B * LM_T / fwd_s:.0f} tok/s), through chunked_sdpa "
+          f"{ref_s:.3f} s; logits max_abs_err {fwd_err:.3e} (bound "
+          f"{LOGIT_TOL})")
+
+    runner = PartitionedLMRunner(model, cuts)
+    part, rep = runner.forward(batch)
+    part_err = float((part - ref_logits).abs().max())
+    assert part_err <= PART_TOL, part_err
+    del part, ref_logits
+    print(f"partitioned runner: {runner.n_stages} stages {runner.ranges}, "
+          f"stage latencies {[round(x, 4) for x in rep.latency_s]} s, link "
+          f"bytes {rep.link_bytes}, Def.-4 throughput "
+          f"{rep.throughput():.3f} /s; vs monolithic max_abs_err "
+          f"{part_err:.3e} (bit-identical: {part_err == 0.0})")
+
+    engine = GenerationEngine(model, max_seq=GEN_PROMPT + GEN_NEW)
+    prompts = rng.integers(0, cfg.vocab, (GEN_REQUESTS, GEN_PROMPT))
+    first, _ = engine.prefill(prompts)
+    want = model({"tokens": torch.from_numpy(prompts).to(dev)})[:, -1]
+    first_err = float((first - want).abs().max())
+    torch.testing.assert_close(first, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    gen = engine.generate(prompts, max_new=GEN_NEW)
+    assert gen.tokens.shape == (GEN_REQUESTS, GEN_NEW), gen.tokens.shape
+    assert (gen.tokens[:, 0] == first.argmax(-1).cpu().numpy()).all()
+    assert ((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()
+
+    launches = {name: k.launches for name, k in kernels.items()}
+    assert all(v > 0 for v in launches.values()), launches
+    for rec in records:
+        if rec["name"] == "window_attn":
+            rec["launches"] = launches["window_attn"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    print(f"generation: {GEN_REQUESTS} requests, prompt {GEN_PROMPT}, "
+          f"{GEN_NEW} new tokens greedy: prefill {gen.prefill_s:.3f} s "
+          f"({GEN_REQUESTS * GEN_PROMPT / gen.prefill_s:.0f} tok/s), decode "
+          f"{gen.decode_s:.3f} s ({gen.tokens_per_s:.1f} tok/s); first-step "
+          f"logits vs forward max_abs_err {first_err:.3e}")
+    print(f"LM path: launches {launches}, peak device memory {peak:.0f} MiB")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -290,10 +515,14 @@ def main() -> int:
     records = check_kernels(dev)
     check_ranking(dev)
     main_path(dev, records)
+    records.append(check_window_attn(dev))
+    lm_path(dev, records)
     for r in records:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), launches on the main path "
+              f"({r['bound_by']}), library {lib}, launches on the main path "
               f"{r['launches']}, max_abs_err {r['max_abs_err']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -26,6 +26,7 @@ Search / NSGA-II (§IV)                    :class:`SearchStrategy` protocol —
                                           search as tensor code on a device)
 Pareto front + Def.-2 selection           ``runner.run_search`` →
                                           :class:`ExplorationResult`
+Selected cuts → LM block cuts             ``deploy.lm_block_cuts``
 ========================================  ====================================
 
 Specs are JSON-round-trippable (``ExplorationSpec.to_json``/``from_json``),
@@ -34,6 +35,7 @@ and strategies are drop-in interchangeable through
 strategy on ``device`` (default ``"cuda"``).
 """
 
+from repro_torch.explore.deploy import lm_block_cuts
 from repro_torch.explore.filters import (candidate_positions, feasible_cut_rows,
                                          link_feasibility, link_filter,
                                          memory_filter)
@@ -58,6 +60,7 @@ __all__ = [
     "SearchSettings", "SearchStrategy", "StrategyOutput", "SweepSpec",
     "SystemSpec", "TorchNSGA2Search", "candidate_positions",
     "eval_from_dict", "eval_to_dict", "explore_graph", "feasible_cut_rows",
-    "link_feasibility", "link_filter", "memory_filter", "register_strategy",
+    "link_feasibility", "link_filter", "lm_block_cuts", "memory_filter",
+    "register_strategy",
     "run_search", "run_spec", "scaled_nsga_defaults", "select_weighted",
 ]

@@ -33,8 +33,9 @@ class ModelRef:
     kind:
       * ``cnn``      — ``repro_torch.models.cnn.zoo`` (options: ``in_hw``,
         ``n_classes``, ``w`` …, forwarded to the zoo builder).
-      * ``registry`` — LLM/SSM configs; their graphs come with the port of
-        partitioned LM serving (slice C) and raise until then.
+      * ``registry`` — ``repro_torch.models.registry`` LLM configs
+        (options: ``seq`` (required for graph extraction), ``reduced``);
+        the graph comes from the configuration alone, no weights are made.
     """
 
     kind: str
@@ -55,10 +56,14 @@ class ModelRef:
             from repro_torch.models.cnn.zoo import build_cnn
             return build_cnn(self.name, **self.options).to_graph(), None
         if self.kind == "registry":
-            raise NotImplementedError(
-                f"ModelRef('registry', {self.name!r}): LM/SSM model graphs "
-                f"are not ported yet; they come with slice C (partitioned LM "
-                f"serving)")
+            from repro_torch.models.registry import get_config, model_graph
+            opts = dict(self.options)
+            seq = opts.pop("seq", 1024)
+            reduced = opts.pop("reduced", False)
+            cfg = get_config(self.name)
+            if reduced:
+                cfg = cfg.reduced()
+            return model_graph(cfg, seq), None
         raise ValueError(f"unknown model kind {self.kind!r} "
                          f"(expected 'cnn' or 'registry')")
 

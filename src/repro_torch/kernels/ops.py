@@ -1,4 +1,4 @@
-"""Kernel dispatch for the Pareto-ranking primitives.
+"""Kernel dispatch for the Pareto-ranking and attention primitives.
 
 ``impl`` resolution: ``'cuda'`` launches the hand-written kernel (the
 tensors must lie on a CUDA device, else it raises), ``'ref'`` runs the
@@ -14,15 +14,16 @@ import torch
 
 from repro_torch.kernels import pareto_rank as _kern
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import window_attn as _wa
 
-_IMPLS = ("auto", "ref", "cuda")
+IMPLS = ("auto", "ref", "cuda")
 
 
 def resolve_impl(impl: str, x: torch.Tensor) -> str:
     """The concrete impl (``'ref'`` or ``'cuda'``) for tensors like ``x``."""
-    if impl not in _IMPLS:
+    if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; valid choices: "
-                         f"{', '.join(_IMPLS)}")
+                         f"{', '.join(IMPLS)}")
     if impl == "auto":
         return "cuda" if x.is_cuda else "ref"
     if impl == "cuda" and not x.is_cuda:
@@ -74,3 +75,17 @@ def domination_counts(F, CV, alive: Optional[torch.Tensor] = None, *,
     if resolve_impl(impl, F) == "ref":
         return _ref.domination_counts(F, CV, alive.to(torch.bool), block)
     return _kern.domination_counts(F, CV, alive)
+
+
+# -- window_attn ----------------------------------------------------------------
+
+def window_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int, *, impl: str = "auto") -> torch.Tensor:
+    """Causal sliding-window attention, q (B, T, H, hd), k/v (B, T, Kv, hd).
+
+    Unlike the JAX package's dispatch, no shape falls back to ``ref``: the
+    CUDA kernel masks the ragged edge itself, so a CUDA tensor launches it
+    for every ``t`` and every window."""
+    if resolve_impl(impl, q) == "ref":
+        return _ref.window_attn_gqa(q, k, v, window)
+    return _wa.window_attn(q, k, v, window)

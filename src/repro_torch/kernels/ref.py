@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the port's kernels (the exact ground truth).
+"""Plain PyTorch versions of the port's kernels (the ground truth).
 
 Pareto half: Deb constrained domination, tiled and bit-packed exactly as
 the CUDA kernels in ``kernels/csrc/pareto_rank.cu`` compute it.  Packed
@@ -7,10 +7,15 @@ words are int32 tensors carrying the uint32 bit pattern: bit j of word
 ``.numpy().view(np.uint32)``).  These functions run on any device; the
 CPU tests use them, and on the card they are what the kernels are held
 against.
+
+Attention half: :func:`window_attn_gqa`, the sliding-window attention that
+``kernels/csrc/window_attn.cu`` computes tile by tile, here as one masked
+softmax over the full (T, T) scores.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -95,3 +100,30 @@ def domination_counts(F: torch.Tensor, CV: torch.Tensor,
         d &= alive[i:i + rows, None].to(torch.bool)
         acc += d.sum(dim=0, dtype=torch.int32)
     return acc
+
+
+# -- window_attn ----------------------------------------------------------------
+
+def window_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                window: int) -> torch.Tensor:
+    """Sliding-window causal attention.
+
+    q, k, v: (B, T, H, hd) (same head count: GQA expansion happens in the
+    caller).  Position i attends to j in (i-window, i].  Returns (B,T,H,hd).
+    """
+    t, hd = q.shape[1], q.shape[3]
+    pos = torch.arange(t, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(hd)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    return torch.einsum("bhij,bjhd->bihd", p, v)
+
+
+def window_attn_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int) -> torch.Tensor:
+    """:func:`window_attn` with k/v (B, T, Kv, hd) expanded to q's H heads
+    (query head h reads KV head h // (H // Kv))."""
+    group = q.shape[2] // k.shape[2]
+    return window_attn(q, k.repeat_interleave(group, 2),
+                       v.repeat_interleave(group, 2), window)

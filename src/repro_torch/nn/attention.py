@@ -1,0 +1,244 @@
+"""Attention machinery of the LM path: RoPE, GQA, qk-norm, sliding windows
+and KV caches (full and ring-buffer window).
+
+Shapes as in the JAX package's ``repro.nn.attention``: activations
+(B, T, D); caches (B, S, n_kv, hd), S the cache capacity (full sequence or
+sliding window).  Decode is T=1 against a cache.
+
+Differences from the reference:
+
+* The sharding hooks of ``chunked_sdpa`` and ``GQAAttention`` (logical-axis
+  hints, KV-head duplication for an ``attn_kv`` mesh axis) are no-ops on
+  one device and are left out.
+* ``cache_update`` writes into the cache's ``k`` and ``v`` in place (one
+  copy of the cache on the device) and returns the cache with its new
+  position.
+* ``impl``: ``"ref"`` (the default) is the reference's ``"ref"``;
+  ``"cuda"`` and ``"auto"`` take the reference's ``"pallas"`` branch, the
+  sliding-window kernel of ``kernels.ops.window_attn``.
+
+M-RoPE and MLA (``apply_mrope``, ``MLAAttention``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.nn.layers import rms_norm
+from repro_torch.nn.module import constant, normal_init
+
+Cache = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+
+
+# -- rotary embeddings --------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, device=device,
+                        dtype=torch.float32) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, T, H, hd); positions: (B, T) integer positions."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)     # (hd/2,)
+    ang = positions[..., None].float() * freqs                  # (B, T, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin,
+                      x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+# -- masking ------------------------------------------------------------------
+
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: Optional[int] = None) -> torch.Tensor:
+    """(..., Tq, Tk) boolean mask: True = attend."""
+    m = k_pos[..., None, :] <= q_pos[..., :, None]
+    if window is not None:
+        m &= k_pos[..., None, :] > q_pos[..., :, None] - window
+    return m
+
+
+def sdpa(q, k, v, mask) -> torch.Tensor:
+    """q: (B,T,H,hd), k: (B,S,Kv,hd), v: (B,S,Kv,vd), mask: (B,T,S)/(T,S)."""
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    vd = v.shape[-1]
+    qg = q.reshape(b, t, kv, h // kv, hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / math.sqrt(hd)
+    if mask.dim() == 2:
+        mask = mask[None]
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    p = torch.softmax(scores.float(), dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskh->btkgh", p, v)
+    return out.reshape(b, t, h, vd)
+
+
+def chunked_sdpa(q, k, v, window: Optional[int] = None,
+                 chunk_q: int = 512) -> torch.Tensor:
+    """Memory-bounded causal attention: a loop over query chunks.
+
+    Never materializes the (T, T) score matrix: per step it is
+    (chunk_q, S), so long prefills need O(T * chunk) intermediates.
+    q: (B,T,H,hd); k/v: (B,S,Kv,hd-like).
+    """
+    b, t, h, hd = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    group = h // kv
+    if t % chunk_q:
+        chunk_q = t  # fallback: single chunk
+    k_pos = torch.arange(s, device=q.device)
+    scale = 1.0 / math.sqrt(hd)
+    out = q.new_empty((b, t, h, vd))
+    for q0 in range(0, t, chunk_q):
+        q_blk = q[:, q0:q0 + chunk_q].reshape(b, chunk_q, kv, group, hd)
+        q_pos = q0 + torch.arange(chunk_q, device=q.device)
+        mask = causal_mask(q_pos, k_pos, window)
+        sc = torch.einsum("bckgh,bskh->bkgcs", q_blk, k) * scale
+        sc = torch.where(mask[None, None, None], sc, NEG_INF)
+        p = torch.softmax(sc.float(), dim=-1).to(q.dtype)
+        o = torch.einsum("bkgcs,bskh->bckgh", p, v)
+        out[:, q0:q0 + chunk_q] = o.reshape(b, chunk_q, h, vd)
+    return out
+
+
+# -- KV caches ----------------------------------------------------------------
+
+def init_cache(batch: int, n_kv: int, capacity: int, head_dim: int,
+               dtype=torch.bfloat16, device=None) -> Cache:
+    return {
+        "k": torch.zeros((batch, capacity, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, capacity, n_kv, head_dim), dtype=dtype,
+                         device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def cache_update(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 ring: bool) -> Cache:
+    """Append T_new tokens, writing ``cache["k"]``/``["v"]`` in place.
+    ``ring``: wrap around (sliding-window cache).  Without ``ring`` the
+    write starts at ``min(pos, capacity - T_new)``, as the reference's
+    ``dynamic_update_slice`` clamps it.  The position stays on the device."""
+    cap = cache["k"].shape[1]
+    t_new = k_new.shape[1]
+    pos = cache["pos"]
+    step = torch.arange(t_new, device=pos.device)
+    if ring:
+        idx = (pos + step) % cap
+    else:
+        if t_new > cap:
+            raise ValueError(f"cache_update: {t_new} new tokens exceed the "
+                             f"cache's capacity {cap}")
+        idx = torch.clamp(pos, max=cap - t_new) + step
+    cache["k"].index_copy_(1, idx, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v_new.to(cache["v"].dtype))
+    return {"k": cache["k"], "v": cache["v"], "pos": pos + t_new}
+
+
+def cache_positions(cache: Cache, ring: bool) -> torch.Tensor:
+    """Absolute position of each cache slot (-1 = empty)."""
+    cap = cache["k"].shape[1]
+    pos = cache["pos"]
+    slots = torch.arange(cap, device=pos.device)
+    if ring:
+        # slot s holds absolute position: the last `cap` tokens
+        n_wraps = torch.clamp((pos - 1 - slots) // cap, min=0)
+        abs_pos = slots + n_wraps * cap
+        return torch.where(abs_pos < pos, abs_pos, -1)
+    return torch.where(slots < pos, slots, -1)
+
+
+# -- GQA attention block -------------------------------------------------------
+
+class GQAAttention(nn.Module):
+    """Grouped-query attention with RoPE, qk-norm and an optional window.
+
+    Weights keep the reference's (in, out) layout (``x @ wq``)."""
+
+    def __init__(self, d_model: int, n_heads: int, n_kv: int,
+                 head_dim: Optional[int] = None, qkv_bias: bool = False,
+                 qk_norm: bool = False, window: Optional[int] = None,
+                 rope_theta: float = 10000.0, *, dtype=torch.float32,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.d = d_model
+        self.h, self.kv = n_heads, n_kv
+        self.hd = head_dim or d_model // n_heads
+        self.qkv_bias, self.qk_norm = qkv_bias, qk_norm
+        self.window = window
+        self.theta = rope_theta
+        d, h, kv, hd = self.d, self.h, self.kv, self.hd
+        init = dict(generator=generator, device=device, dtype=dtype)
+        self.wq = normal_init((d, h * hd), d ** -0.5, **init)
+        self.wk = normal_init((d, kv * hd), d ** -0.5, **init)
+        self.wv = normal_init((d, kv * hd), d ** -0.5, **init)
+        self.wo = normal_init((h * hd, d), (h * hd) ** -0.5, **init)
+        fixed = dict(device=device, dtype=dtype)
+        if qkv_bias:
+            self.bq = constant((h * hd,), 0.0, **fixed)
+            self.bk = constant((kv * hd,), 0.0, **fixed)
+            self.bv = constant((kv * hd,), 0.0, **fixed)
+        if qk_norm:
+            self.q_norm = constant((hd,), 1.0, **fixed)
+            self.k_norm = constant((hd,), 1.0, **fixed)
+
+    def _qkv(self, x, positions):
+        b, t, _ = x.shape
+        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        if self.qkv_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = q.reshape(b, t, self.h, self.hd)
+        k = k.reshape(b, t, self.kv, self.hd)
+        v = v.reshape(b, t, self.kv, self.hd)
+        if self.qk_norm:
+            q = rms_norm(q, self.q_norm)
+            k = rms_norm(k, self.k_norm)
+        q = apply_rope(q, positions, self.theta)
+        k = apply_rope(k, positions, self.theta)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None, impl: str = "ref"):
+        """Prefill when ``cache`` is None; otherwise append to the cache and
+        attend over it (decode, or a prefill that fills it).  Returns
+        ``(y, new_cache)``, ``new_cache`` None without a cache."""
+        if impl not in kops.IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; valid choices: "
+                             f"{', '.join(kops.IMPLS)}")
+        b, t, _ = x.shape
+        if positions is None:
+            positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        q, k, v = self._qkv(x, positions)
+
+        new_cache = None
+        if cache is None:
+            if self.window is not None and impl != "ref":
+                y = kops.window_attn(q, k, v, self.window, impl=impl)
+            elif t >= 2048:
+                y = chunked_sdpa(q, k, v, self.window)
+            else:
+                y = sdpa(q, k, v, causal_mask(positions, positions,
+                                              self.window))
+        else:
+            ring = self.window is not None and cache["k"].shape[1] <= self.window
+            new_cache = cache_update(cache, k, v, ring=ring)
+            kpos = cache_positions(new_cache, ring)                  # (S,)
+            mask = (kpos[None, None, :] >= 0) & (kpos[None, None, :]
+                                                 <= positions[:, :, None])
+            if self.window is not None:
+                mask &= kpos[None, None, :] > positions[:, :, None] - self.window
+            y = sdpa(q, new_cache["k"].to(q.dtype),
+                     new_cache["v"].to(q.dtype), mask)
+        return y.reshape(b, t, self.h * self.hd) @ self.wo, new_cache

@@ -1,0 +1,128 @@
+"""Partitioned (multi-platform) inference of a decoder LM — the paper's
+Definition 1 acted out: stage k runs its contiguous range of blocks, and
+the bytes of the activation crossing each link are counted (float32: the
+stages are not quantized yet).
+
+On one device the stages run in turn; the throughput model (Def. 4) comes
+from per-stage timings.  With quantization off the partitioned logits
+equal the monolithic model's.
+
+Not ported yet: ``PartitionedCNNRunner`` (with the measured-accuracy
+oracle), quantized stages (they need ``quantize_pytree`` and
+``quantize_tensor``), and ``stage_step_fn`` (with the serve runtime).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.quant import QuantSpec
+from repro_torch.models.decoder import run_blocks, stacked_caches
+from repro_torch.serving.engine import sync
+
+
+def def4_throughput(stage_latencies: Sequence[float],
+                    link_latencies: Sequence[float] = ()) -> float:
+    """Def. 4: steady-state pipeline throughput is set by the slowest
+    module — ``1 / max(stage latencies, link latencies)``."""
+    mods = [t for t in list(stage_latencies) + list(link_latencies) if t > 0]
+    return 1.0 / max(mods) if mods else 0.0
+
+
+@dataclasses.dataclass
+class StageReport:
+    latency_s: List[float]
+    link_bytes: List[int]
+
+    def throughput(self, link_latency_s: Optional[List[float]] = None) -> float:
+        """Def. 4 with measured stage latencies."""
+        return def4_throughput(self.latency_s, link_latency_s or ())
+
+
+def pipeline_report(stage_latencies: Sequence[float],
+                    link_latencies: Sequence[float]) -> Dict[str, float]:
+    lat = sum(stage_latencies) + sum(link_latencies)
+    return {"latency_s": lat,
+            "throughput": def4_throughput(stage_latencies, link_latencies)}
+
+
+def link_transfer_bytes(n_elems: int, spec: Optional[QuantSpec]) -> int:
+    """Bytes shipped over a link for ``n_elems`` activations quantized to the
+    producer's bit width (float32 when unquantized).  Sub-byte widths use
+    fractional bytes-per-element — ``bits // 8`` would report 0 bytes for
+    4-bit links."""
+    if spec is None:
+        return int(n_elems * 4)
+    return int(math.ceil(n_elems * spec.bits / 8))
+
+
+class PartitionedLMRunner:
+    """Split a ``DecoderLM`` at block boundaries (pipeline stages).
+
+    ``cuts=[b]`` puts a stage boundary after block ``b``.  Stage 0 owns the
+    embedding, the last stage owns the final norm and the head; the stages
+    share the model's weights (``blocks[a:b]``, no copies).
+    """
+
+    def __init__(self, model, cuts: Sequence[int],
+                 quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None):
+        if quant_specs is not None and any(s is not None for s in quant_specs):
+            raise NotImplementedError(
+                "quantized stages need quantize_pytree / quantize_tensor, "
+                "which come with ROADMAP.md B3")
+        self.model = model
+        cfg = model.cfg
+        self.cuts = list(cuts)
+        bounds = [0] + [c + 1 for c in self.cuts] + [cfg.n_layers]
+        self.ranges = list(zip(bounds, bounds[1:]))
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.ranges)
+
+    def forward(self, batch) -> Tuple[torch.Tensor, StageReport]:
+        """Logits of ``batch`` through the stages in turn, with each
+        stage's wall time (embedding in stage 0, head in none: as the
+        reference times it) and the bytes each link carries."""
+        m = self.model
+        dev = m.device
+        lat, link_bytes = [], []
+        t0 = time.perf_counter()
+        x, positions = m.embed_tokens(batch)
+        for si, (a, b) in enumerate(self.ranges):
+            x, _ = run_blocks(m.blocks[a:b], x, positions)
+            sync(dev)
+            lat.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            if si < self.n_stages - 1:
+                link_bytes.append(link_transfer_bytes(x.numel(), None))
+        return m.head_logits(x), StageReport(lat, link_bytes)
+
+    def stage_weights(self, si: int) -> Dict:
+        """What stage ``si`` owns: its block slice, plus the embedding on
+        stage 0 and the final norm + head on the last stage (the embedding
+        again when tied)."""
+        a, b = self.ranges[si]
+        m, cfg = self.model, self.model.cfg
+        w = {"blocks": m.blocks[a:b]}
+        last = si == self.n_stages - 1
+        if si == 0 or (last and cfg.tied_embeddings):
+            w["embed"] = m.embed
+        if last:
+            w["final_norm"] = m.final_norm
+            if not cfg.tied_embeddings:
+                w["head"] = m.head
+        return w
+
+    def init_stage_caches(self, si: int, batch: int, capacity: int,
+                          dtype=torch.float32) -> Dict:
+        """Fresh decode caches for stage ``si``'s block range (leading
+        block axis, ``pos`` = 0)."""
+        a, b = self.ranges[si]
+        return stacked_caches(self.model.cfg, b - a, batch, capacity, dtype,
+                              self.model.device)

@@ -1,7 +1,7 @@
 """The import boundary of the port: nothing under ``src/repro_torch`` and
 nothing in ``chip_smoke.py`` or ``chip_profile.py`` imports JAX or the JAX
-package ``repro``, and a CPU search runs in a process where JAX cannot be
-imported at all."""
+package ``repro``, and a CPU search and an LM generation run in a process
+where JAX cannot be imported at all."""
 
 import ast
 import os
@@ -65,6 +65,7 @@ def test_cpu_search_runs_with_jax_blocked():
     code = """
         import sys
         sys.modules["jax"] = None          # any `import jax` now fails
+        import numpy as np
         import repro_torch
         from repro_torch.explore import (ExplorationSpec, ModelRef,
                                          PlatformSpec, SearchSettings,
@@ -82,6 +83,12 @@ def test_cpu_search_runs_with_jax_blocked():
                                   n_gen=2, seed=0))
         res = run_spec(spec, device="cpu")
         assert res.strategy_used == "torch_nsga2" and res.pareto
+        from repro_torch.models.registry import build_model, get_config
+        from repro_torch.serving import GenerationEngine
+        model = build_model(get_config("smollm-360m").reduced(), device="cpu")
+        gen = GenerationEngine(model, max_seq=16).generate(
+            np.zeros((1, 4), np.int64), max_new=2)
+        assert gen.tokens.shape == (1, 2)
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked

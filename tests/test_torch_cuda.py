@@ -1,10 +1,12 @@
-"""The port's CUDA kernels against their plain PyTorch versions, bit for
-bit, on a CUDA device (every test here is marked ``cuda`` and skips
-without one).  This file imports only torch, numpy and the port, so it runs
+"""The port's CUDA kernels against their plain PyTorch versions (bit for
+bit where the result is integer), on a CUDA device (every test here is
+marked ``cuda`` and skips without one).  This file imports only torch, numpy and the port, so it runs
 on a machine that has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -12,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.nsga2_torch import nondominated_rank  # noqa: E402
-from repro_torch.kernels import ops, pareto_rank, ref  # noqa: E402
+from repro_torch.kernels import ops, pareto_rank, ref, window_attn  # noqa: E402
+from repro_torch.models.decoder import DecoderLM  # noqa: E402
+from repro_torch.models.registry import get_config  # noqa: E402
 
 SIZES = (33, 97, 130, 4096)
 
@@ -77,3 +81,59 @@ def test_tiled_rank_on_card_equals_dense_rank_on_cpu(cuda_device):
                             torch.from_numpy(CV).to(cuda_device), 700,
                             rank_block=256).cpu()
     assert torch.equal(got, want)
+
+
+# -- window_attn ------------------------------------------------------------------
+
+def qkv(b, t, h, kv, hd, seed, device):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(device) for s in ((b, t, h, hd), (b, t, kv, hd),
+                                       (b, t, kv, hd)))
+
+
+# float32 on both sides, summed in another order (online softmax over key
+# tiles against one softmax over the full row): the reference's own
+# tolerance for its window kernel, 2e-5, at these lengths
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", (1, 100, 128, 1000))
+@pytest.mark.parametrize("window", (1, 64, 100, 5000))
+def test_window_attn_kernel_matches_plain_version(cuda_device, t, window):
+    for group, hd in ((1, 32), (3, 64), (3, 32), (1, 64)):
+        q, k, v = qkv(2, t, 2 * group, 2, hd, t + window + hd, cuda_device)
+        got = window_attn.window_attn(q, k, v, window)
+        want = ops.window_attn(q, k, v, window, impl="ref")
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_window_attn_counts_launches_and_rejects_bad_inputs(cuda_device):
+    q, k, v = qkv(1, 64, 4, 2, 64, 0, cuda_device)
+    before = window_attn.window_attn.launches
+    ops.window_attn(q, k, v, 16, impl="cuda")
+    assert window_attn.window_attn.launches == before + 1
+    with pytest.raises(TypeError, match="float32"):
+        window_attn.window_attn(q.double(), k, v, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        window_attn.window_attn(q.transpose(1, 2).contiguous().transpose(1, 2),
+                                k, v, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        window_attn.window_attn(q[:, :, :3].contiguous(), k, v, 16)
+    with pytest.raises(ValueError, match="window"):
+        window_attn.window_attn(q, k, v, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        a, b, c = qkv(1, 8, 2, 2, 48, 0, cuda_device)
+        window_attn.window_attn(a, b, c, 4)
+
+
+@pytest.mark.cuda
+def test_lm_forward_through_the_kernel_matches_ref(cuda_device):
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(), window=128)
+    model = DecoderLM(cfg, device=cuda_device)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 256))).to(cuda_device)
+    before = window_attn.window_attn.launches
+    got = model({"tokens": tok}, impl="cuda")
+    assert window_attn.window_attn.launches == before + cfg.n_layers
+    torch.testing.assert_close(got, model({"tokens": tok}, impl="ref"),
+                               rtol=1e-4, atol=1e-4)

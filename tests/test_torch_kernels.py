@@ -1,10 +1,12 @@
-"""The port's Pareto-domination kernels (``repro_torch.kernels``): their
-plain PyTorch versions against the JAX package's ``ops.packed_domination``
-/ ``ops.domination_counts`` (its ``ref`` and Pallas-interpret impls) and
-the dense ``nsga2_jax.domination_matrix``, bit for bit, at ragged sizes,
-with duplicated rows, all-infeasible populations and alive masks; the
-dispatch rules.  The CUDA kernels themselves are held against these plain
-versions in ``test_torch_cuda.py`` (on a card only)."""
+"""The port's kernels (``repro_torch.kernels``) through their plain PyTorch
+versions: the Pareto-domination pair against the JAX package's
+``ops.packed_domination`` / ``ops.domination_counts`` (its ``ref`` and
+Pallas-interpret impls) and the dense ``nsga2_jax.domination_matrix``, bit
+for bit, at ragged sizes, with duplicated rows, all-infeasible populations
+and alive masks; sliding-window attention against the JAX package's Pallas
+kernel in interpret mode; the dispatch rules.  The CUDA kernels themselves
+are held against these plain versions in ``test_torch_cuda.py`` (on a card
+only)."""
 
 import numpy as np
 import pytest
@@ -15,8 +17,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import nsga2_jax  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.window_attn import window_attn as pl_window_attn  # noqa: E402
 from repro_torch.core import nsga2_torch  # noqa: E402
-from repro_torch.kernels import ops, pareto_rank, ref  # noqa: E402
+from repro_torch.kernels import ops, pareto_rank, ref, window_attn  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -141,6 +145,53 @@ def test_row_tile_legalization():
     assert ops._row_tile(100) == 96
     assert ops._row_tile(2048) == 2048
     assert ops._COL_TILE == 256
+
+
+# -- window_attn --------------------------------------------------------------
+
+def qkv(b, t, h, kv, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, t, h, hd)).astype(np.float32),
+            rng.standard_normal((b, t, kv, hd)).astype(np.float32),
+            rng.standard_normal((b, t, kv, hd)).astype(np.float32))
+
+
+# the shapes of the JAX package's own window_attn sweep, at its tolerance
+@pytest.mark.parametrize("t,w,bq", [(256, 128, 64), (256, 64, 64),
+                                    (512, 256, 128)])
+@pytest.mark.parametrize("h,kv,hd", [(4, 2, 64), (4, 4, 32)])
+def test_window_attn_plain_matches_pallas(t, w, bq, h, kv, hd):
+    q, k, v = qkv(2, t, h, kv, hd, seed=t + w + h)
+    got = ops.window_attn(*map(torch.from_numpy, (q, k, v)), w, impl="ref")
+    want = pl_window_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          window=w, bq=bq, bk=bq, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+# off the TPU kernel's 128 grid the reference dispatch takes its plain
+# version, so these ragged shapes compare the two plain versions
+@pytest.mark.parametrize("t,w", [(1, 1), (100, 64), (100, 1000), (130, 1)])
+def test_window_attn_plain_matches_reference_off_grid(t, w):
+    q, k, v = qkv(1, t, 6, 2, 32, seed=t)
+    got = ops.window_attn(*map(torch.from_numpy, (q, k, v)), w, impl="ref")
+    want = jref.window_attn(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 3, 2),
+                            jnp.repeat(jnp.asarray(v), 3, 2), w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_window_attn_dispatch_and_cpu_wrapper():
+    q, k, v = map(torch.from_numpy, qkv(2, 96, 6, 2, 32, seed=1))
+    before = window_attn.window_attn.launches
+    want = ops.window_attn(q, k, v, 40, impl="ref")
+    assert torch.equal(ops.window_attn(q, k, v, 40), want)      # auto -> ref
+    assert torch.equal(window_attn.window_attn(q, k, v, 40), want)
+    assert window_attn.window_attn.launches == before
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        ops.window_attn(q, k, v, 40, impl="cuda")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        window_attn.window_attn(q.to("meta"), k.to("meta"), v.to("meta"), 40)
 
 
 # -- popcount -----------------------------------------------------------------

@@ -175,5 +175,5 @@ def test_spec_roundtrip_and_validation():
         SearchSettings(rank_impl="pallas")
     with pytest.raises(ValueError, match="unknown strategy"):
         SearchSettings(strategy="jit_nsga2")
-    with pytest.raises(NotImplementedError, match="slice C"):
-        ModelRef("registry", "smollm-360m").build()
+    graph, shared = ModelRef("registry", "smollm-360m", {"seq": 64}).build()
+    assert shared is None and len(graph.nodes) == 2 + 2 * 32
