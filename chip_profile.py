@@ -26,6 +26,12 @@ two 8192-token prompts through the sliding-window kernel, and the
 generation of 32 tokens for 8 prompts of 128 (prefill and decode through
 the KV cache).  For each: wall time, device-busy share, kernel launches
 and the kernels with the most device time.
+
+Last it drives the SSM path of ``chip_smoke.py`` (mamba2-370m at full width
+and depth) the same way: the forward of two 8192-token prompts through the
+SSD scan kernel, and the generation (prefill and decode through the SSM
+caches, no kernel).  For each it also gives the SSD scan kernel's share and
+the matrix products' share of the device time.
 """
 
 from __future__ import annotations
@@ -122,13 +128,18 @@ def main() -> int:
     print(f"  fronts peeled per ranking call: {FRONTS}")
 
     profiled("search run", lambda: run_spec(spec, device=str(dev)))
-    lm_profile(dev)
+    lm_profile(dev, chip_smoke.LM_ARCH)
+    lm_profile(dev, chip_smoke.SSM_ARCH, groups={
+        "SSD scan kernel (ssd_*)": lambda k: "ssd_" in k,
+        "matrix products (*gemm*)": lambda k: "gemm" in k.lower()})
     return 0
 
 
-def profiled(label, fn, top_n=12):
+def profiled(label, fn, top_n=12, groups=None):
     """Run ``fn`` once under ``torch.profiler``; print the wall time, the
-    device-busy share and the kernels with the most device time."""
+    device-busy share, the kernels with the most device time and, for each
+    of ``groups`` (label -> test of a kernel's name), its device time and
+    share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -150,16 +161,22 @@ def profiled(label, fn, top_n=12):
     for e in top:
         print(f"  {e.key[:70]:70s} {e.self_device_time_total / 1e3:9.2f} ms"
               f"  x{e.count}")
+    for name, test in (groups or {}).items():
+        mine = [e for e in kernels if test(e.key)]
+        s = sum(e.self_device_time_total for e in mine) / 1e6
+        print(f"  {name}: {s * 1e3:.2f} ms = {100 * s / device_s:.1f} % of "
+              f"the busy time, {sum(e.count for e in mine)} launches")
 
 
-def lm_profile(dev):
-    """The LM path's forward and generation under the profiler."""
+def lm_profile(dev, arch, groups=None):
+    """The forward and generation of ``arch`` (an LM path of
+    ``chip_smoke.py``) under the profiler."""
     import numpy as np
 
     from repro_torch.models.registry import build_model, get_config
     from repro_torch.serving import GenerationEngine
 
-    cfg = get_config(chip_smoke.LM_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(chip_smoke.SEED))
     rng = np.random.default_rng(chip_smoke.SEED)
@@ -181,9 +198,11 @@ def lm_profile(dev):
     forward()
     engine.generate(prompts, max_new=2)
     torch.cuda.synchronize()
-    profiled(f"LM forward {chip_smoke.LM_B} x {chip_smoke.LM_T} tokens", forward)
-    profiled(f"LM generation {chip_smoke.GEN_REQUESTS} x "
-             f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate)
+    profiled(f"{arch} forward {chip_smoke.LM_B} x {chip_smoke.LM_T} tokens",
+             forward, groups=groups)
+    profiled(f"{arch} generation {chip_smoke.GEN_REQUESTS} x "
+             f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate,
+             groups=groups)
 
 
 if __name__ == "__main__":

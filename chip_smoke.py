@@ -31,10 +31,22 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    kernel (32 launches) and agrees with the plain attention, the
    partitioned runner agrees with the monolithic forward, and the
    generation engine answers 8 requests (prompt 128, 32 new tokens,
-   greedy) whose first-step logits agree with the forward.
+   greedy) whose first-step logits agree with the forward;
+6. holds the SSD scan kernel against its plain version on the card, at the
+   reference's sweep shapes and at mamba2-370m's and zamba2-2.7b's head and
+   state sizes over two 8192-token rows, and times kernel, plain version
+   and bound (no single PyTorch call computes the scan);
+7. drives the SSM inference path once at full width and depth, with every
+   launch count set to 0 just before and read just after: the explorer
+   picks the cut of mamba2-370m (8192 tokens) between the two platforms of
+   phase 5, the model's forward over two 8192-token prompts runs through
+   the SSD scan kernel (48 launches) and agrees with the plain scan, and
+   the generation engine answers 8 requests whose first-step logits agree
+   with the forward.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit, and as its last line
+card's name and power limit (also beside every time of phases 6 and 7),
+and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
 device.
@@ -85,6 +97,21 @@ LOGIT_TOL = 2e-4
 # the partitioned runner repeats the monolithic forward's operations in the
 # same order: bit-identical expected, 1e-6 absorbs a change of algorithm
 PART_TOL = 1e-6
+# the SSM path: mamba2-370m at full width and depth (48 layers, d 1024,
+# N 128), the LM path's prompts, search and requests
+SSM_ARCH = "mamba2-370m"
+SSD_MODELS = ("mamba2-370m", "zamba2-2.7b")
+SSD_SWEEP = tuple((t, chunk, h, p, n) for t, chunk in ((128, 32), (256, 64),
+                                                        (192, 64))
+                  for h, p, n in ((2, 16, 8), (3, 32, 16)))
+# ssd_scan against its plain version, float32 both, the sums taken in other
+# orders.  At the reference's sweep its own tolerance, 2e-4.  At the models'
+# shapes (chunk 128, N 128 or 64) terms reach |y| ~ 20-30, and the plain
+# version's cumulative decay, which the card sums in another order than the
+# kernel's sequential one, moves exponents of up to |cs| ~ 50 by ~1e-5,
+# i.e. terms by up to ~3e-4: the stated bound there is 1e-3 (rtol and atol);
+# a fault of indexing or masking would be O(1)
+SSD_TOL, SSD_TOL_MODEL = 2e-4, 1e-3
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -380,13 +407,13 @@ def check_window_attn(dev):
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def lm_spec():
-    """The LM path's search: smollm-360m at 8192 tokens between the serve
+def lm_spec(arch=LM_ARCH):
+    """The LM paths' search: ``arch`` at 8192 tokens between the serve
     launcher's two platforms over one eth10 link."""
     from repro_torch.explore import (ExplorationSpec, ModelRef, PlatformSpec,
                                      SearchSettings, SystemSpec)
     return ExplorationSpec(
-        model=ModelRef("registry", LM_ARCH, {"seq": LM_T}),
+        model=ModelRef("registry", arch, {"seq": LM_T}),
         system=SystemSpec(
             platforms=(PlatformSpec("A", "eyr", bits=16, mem_capacity=LM_MEM),
                        PlatformSpec("B", "smb", bits=8, mem_capacity=LM_MEM)),
@@ -394,6 +421,15 @@ def lm_spec():
         objectives=("latency", "energy", "throughput"),
         search=SearchSettings(strategy="torch_nsga2", pop_size=POP,
                               n_gen=LM_GEN, seed=SEED))
+
+
+def timed(fn):
+    """``fn()`` and its wall seconds, between two synchronizes."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
 
 
 def lm_path(dev, records):
@@ -429,13 +465,6 @@ def lm_path(dev, records):
     rng = np.random.default_rng(SEED)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (LM_B, LM_T))).to(dev)}
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
 
     logits, fwd_s = timed(lambda: model(batch, impl="cuda"))
     assert window_attn.window_attn.launches == cfg.n_layers, (
@@ -489,6 +518,157 @@ def lm_path(dev, records):
     print(f"LM path: launches {launches}, peak device memory {peak:.0f} MiB")
 
 
+def ssd_work(b, t, h, p, n, chunk):
+    """Bytes and float32 operations of one SSD scan on these shapes: each
+    input read once and each output written once; C·Bᵀ over the causal
+    triangle once per (b, chunk), that triangle against dt·x, C·stateᵀ and
+    the state update per (b, chunk, h), and the recurrence across chunks."""
+    nc = t // chunk
+    tri = chunk * (chunk + 1) // 2
+    ops = (b * nc * tri * n * 2
+           + b * nc * h * (tri * p * 2 + 2 * chunk * n * p * 2)
+           + b * nc * h * p * n * 2)
+    n_bytes = 4 * (2 * b * t * h * p + b * t * h + h + 2 * b * t * n
+                   + b * h * p * n)
+    return n_bytes, ops
+
+
+def check_ssd_scan(dev, card):
+    """Phase 6: the SSD scan kernel against its plain version on the card;
+    returns its record (launches filled in by the SSM path)."""
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.models.registry import get_config
+
+    def inputs(b, t, h, p, n, seed):
+        """The distribution of the reference's sweep (tests/test_kernels.py)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((b, t, h, p), generator=g, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, t, h), generator=g, device=dev) - 1)
+        A = -torch.exp(torch.randn((h,), generator=g, device=dev) * 0.3)
+        B = torch.randn((b, t, n), generator=g, device=dev) * 0.5
+        C = torch.randn((b, t, n), generator=g, device=dev) * 0.5
+        return x, dt, A, B, C
+
+    def check(args, chunk, tol):
+        y, st = ssd_scan.ssd_scan(*args, chunk)
+        y_ref, st_ref = ops.ssd_scan(*args, chunk, impl="ref")
+        err = max(float((y - y_ref).abs().max()),
+                  float((st - st_ref).abs().max()))
+        print(f"  max_abs_err {err:.3e} (max |y| "
+              f"{float(y_ref.abs().max()):.2f}, bound {tol})")
+        torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+        torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
+        return err
+
+    for i, (t, chunk, h, p, n) in enumerate(SSD_SWEEP):
+        check(inputs(2, t, h, p, n, i), chunk, SSD_TOL)
+    print(f"ssd_scan: {len(SSD_SWEEP)} sweep cases (t, chunk, h, p, n) "
+          f"{SSD_SWEEP} within {SSD_TOL}")
+
+    record = None
+    for arch in SSD_MODELS:
+        cfg = get_config(arch)
+        b, t, chunk = LM_B, LM_T, cfg.ssm_chunk
+        h = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+        p, n = cfg.ssm_headdim, cfg.ssm_state
+        args = inputs(b, t, h, p, n, 1)
+        print(f"ssd_scan at {arch}'s shape:")
+        err = check(args, chunk, SSD_TOL_MODEL)
+        ms = cuda_ms(lambda: ssd_scan.ssd_scan(*args, chunk), 10)
+        plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk, impl="ref"), 2)
+        b_ms, b_by = bound(*ssd_work(b, t, h, p, n, chunk))
+        print(f"  x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}), chunk {chunk}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) [{card}]")
+        if arch == SSM_ARCH:
+            record = dict(
+                name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:71",
+                shape=f"x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}) f32, "
+                      f"chunk {chunk}",
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del args
+    return record
+
+
+def ssm_path(dev, records, card):
+    """Phase 7: the SSM inference path once, with the launch counts read."""
+    from repro_torch.explore import run_spec
+    from repro_torch.kernels import pareto_rank, ssd_scan
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import GenerationEngine
+
+    cfg = get_config(SSM_ARCH)
+    kernels = {"packed_domination": pareto_rank.packed_domination,
+               "domination_counts": pareto_rank.domination_counts,
+               "ssd_scan": ssd_scan.ssd_scan}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+
+    res, search_s = timed(lambda: run_spec(lm_spec(SSM_ARCH),
+                                           device=str(dev)))
+    assert res.strategy_used == "torch_nsga2" and res.pareto, "no front"
+    sel = res.selected.cuts if res.selected is not None else None
+    print(f"SSM search: {SSM_ARCH} seq {LM_T} ({len(res.schedule)} "
+          f"positions), 2 platforms, torch_nsga2 pop {POP} x {LM_GEN} gen: "
+          f"{search_s:.3f} s, front {len(res.pareto)} points, selected "
+          f"{sel} [{card}]")
+
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_B, LM_T))).to(dev)}
+    logits, fwd_s = timed(lambda: model(batch, impl="cuda"))
+    fwd_launches = ssd_scan.ssd_scan.launches
+    assert fwd_launches == cfg.n_layers, fwd_launches
+    assert logits.shape == (LM_B, LM_T, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    ref_logits, ref_s = timed(lambda: model(batch, impl="ref"))
+    fwd_err = float((logits - ref_logits).abs().max())
+    print(f"SSM forward: {n_params / 1e6:.1f}M parameters, {cfg.n_layers} "
+          f"layers, {LM_B} x {LM_T} tokens: through the kernel {fwd_s:.3f} s "
+          f"({LM_B * LM_T / fwd_s:.0f} tok/s, {fwd_launches} launches), "
+          f"through the plain scan {ref_s:.3f} s; logits max_abs_err "
+          f"{fwd_err:.3e} (bound {LOGIT_TOL}) [{card}]")
+    torch.testing.assert_close(logits, ref_logits, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL)
+    del logits, ref_logits
+
+    engine = GenerationEngine(model, max_seq=GEN_PROMPT + GEN_NEW)
+    prompts = rng.integers(0, cfg.vocab, (GEN_REQUESTS, GEN_PROMPT))
+    first, _ = engine.prefill(prompts)
+    want = model({"tokens": torch.from_numpy(prompts).to(dev)},
+                 impl="cuda")[:, -1]
+    first_err = float((first - want).abs().max())
+    torch.testing.assert_close(first, want, rtol=LOGIT_TOL, atol=LOGIT_TOL)
+    gen = engine.generate(prompts, max_new=GEN_NEW)
+    assert gen.tokens.shape == (GEN_REQUESTS, GEN_NEW), gen.tokens.shape
+    assert (gen.tokens[:, 0] == first.argmax(-1).cpu().numpy()).all()
+    assert ((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()
+
+    launches = {name: k.launches for name, k in kernels.items()}
+    assert all(v > 0 for v in launches.values()), launches
+    for rec in records:
+        if rec["name"] == "ssd_scan":
+            rec["launches"] = launches["ssd_scan"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    print(f"SSM generation: {GEN_REQUESTS} requests, prompt {GEN_PROMPT}, "
+          f"{GEN_NEW} new tokens greedy: prefill {gen.prefill_s:.3f} s "
+          f"({GEN_REQUESTS * GEN_PROMPT / gen.prefill_s:.0f} tok/s), decode "
+          f"{gen.decode_s:.3f} s ({gen.tokens_per_s:.1f} tok/s); first-step "
+          f"logits vs forward max_abs_err {first_err:.3e} [{card}]")
+    print(f"SSM path: launches {launches} (ssd_scan: {cfg.n_layers} in the "
+          f"forward, {cfg.n_layers} in the first-step check), peak device "
+          f"memory {peak:.0f} MiB")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -511,12 +691,15 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    card = card_line()
 
     records = check_kernels(dev)
     check_ranking(dev)
     main_path(dev, records)
     records.append(check_window_attn(dev))
     lm_path(dev, records)
+    records.append(check_ssd_scan(dev, card))
+    ssm_path(dev, records, card)
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -527,7 +710,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
-    print(card_line())
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

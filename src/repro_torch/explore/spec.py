@@ -36,6 +36,8 @@ class ModelRef:
       * ``registry`` — ``repro_torch.models.registry`` LLM configs
         (options: ``seq`` (required for graph extraction), ``reduced``);
         the graph comes from the configuration alone, no weights are made.
+        A hybrid model's shared block is returned as its shared groups, so
+        that the memory model counts its weights once.
     """
 
     kind: str
@@ -57,13 +59,15 @@ class ModelRef:
             return build_cnn(self.name, **self.options).to_graph(), None
         if self.kind == "registry":
             from repro_torch.models.registry import get_config, model_graph
+            from repro_torch.models.ssm_lm import shared_groups
             opts = dict(self.options)
             seq = opts.pop("seq", 1024)
             reduced = opts.pop("reduced", False)
             cfg = get_config(self.name)
             if reduced:
                 cfg = cfg.reduced()
-            return model_graph(cfg, seq), None
+            shared = shared_groups(cfg) if cfg.family == "hybrid" else None
+            return model_graph(cfg, seq), shared
         raise ValueError(f"unknown model kind {self.kind!r} "
                          f"(expected 'cnn' or 'registry')")
 

@@ -1,4 +1,4 @@
-"""Kernel dispatch for the Pareto-ranking and attention primitives.
+"""Kernel dispatch for the Pareto-ranking, attention and SSD-scan primitives.
 
 ``impl`` resolution: ``'cuda'`` launches the hand-written kernel (the
 tensors must lie on a CUDA device, else it raises), ``'ref'`` runs the
@@ -8,12 +8,13 @@ picks the kernel for a CUDA tensor and ``ref`` for a CPU tensor.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import pareto_rank as _kern
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_scan as _ss
 from repro_torch.kernels import window_attn as _wa
 
 IMPLS = ("auto", "ref", "cuda")
@@ -89,3 +90,17 @@ def window_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if resolve_impl(impl, q) == "ref":
         return _ref.window_attn_gqa(q, k, v, window)
     return _wa.window_attn(q, k, v, window)
+
+
+# -- ssd_scan -------------------------------------------------------------------
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int = 128, *,
+             impl: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 chunked SSD without the D skip: x (b, T, h, p), dt (b, T, h),
+    A (h,), B/C (b, T, n), T a multiple of ``chunk``.  Returns (y,
+    final_state (b, h, p, n)).  The kernel takes contiguous copies of
+    strided inputs (the mixer's x, B and C are slices of one projection)."""
+    if resolve_impl(impl, x) == "ref":
+        return _ref.ssd_scan(x, dt, A, B, C, chunk)
+    return _ss.ssd_scan(*(a.contiguous() for a in (x, dt, A, B, C)), chunk)

@@ -11,6 +11,10 @@ against.
 Attention half: :func:`window_attn_gqa`, the sliding-window attention that
 ``kernels/csrc/window_attn.cu`` computes tile by tile, here as one masked
 softmax over the full (T, T) scores.
+
+SSD half: :func:`ssd_scan`, the Mamba2 chunked scan that
+``kernels/csrc/ssd_scan.cu`` computes, here as ``nn.ssm.ssd_chunked``
+without the D skip.
 """
 
 from __future__ import annotations
@@ -127,3 +131,17 @@ def window_attn_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = q.shape[2] // k.shape[2]
     return window_attn(q, k.repeat_interleave(group, 2),
                        v.repeat_interleave(group, 2), window)
+
+
+# -- ssd_scan ---------------------------------------------------------------------
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, chunk: int,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD without the D skip term (the caller adds it).
+
+    Shapes as in ``repro_torch.nn.ssm.ssd_chunked``.  Returns
+    (y, final_state)."""
+    from repro_torch.nn.ssm import ssd_chunked
+    return ssd_chunked(x, dt, A, B, C, chunk, D=None, init_state=init_state)

@@ -20,7 +20,8 @@ reference (``params`` explicit)        port (weights held by the module)
 
 Caches keep the reference's stacked layout, ``{"dense": {"k": (L, B, S,
 Kv, hd), "v": ..., "pos": (L,)}}``, and are written in place.  Only the
-dense family is carried (``cfg.family == "dense"``, no MLA); the graph
+dense family is carried here (``cfg.family == "dense"``, no MLA; the ssm
+and hybrid families are ``models.ssm_lm.SSMLM``); the graph
 (:func:`lm_graph`) covers every family the reference's ``DecoderLM`` does,
 since it needs the configuration only.
 """
@@ -45,10 +46,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why this port cannot build ``cfg``'s weights yet (the ``ROADMAP.md``
-    item that brings it), or None for a dense decoder it can build."""
-    if cfg.family in ("ssm", "hybrid"):
-        return (f"{cfg.family} models (nn/ssm.py, models/ssm_lm.py, the "
-                f"ssd_scan kernel) come with ROADMAP.md C6")
+    item that brings it), or None for a decoder it can build."""
     if cfg.use_mla:
         return "MLA attention comes with ROADMAP.md C7"
     if cfg.family == "moe":
@@ -63,6 +61,15 @@ def unsupported(cfg: ModelConfig) -> Optional[str]:
 def gated_mlp(params: Mapping[str, torch.Tensor], x: torch.Tensor):
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
+
+
+def gated_mlp_init(d: int, ff: int, **init) -> nn.ParameterDict:
+    """The gated MLP's weights (the reference's ``gated_mlp_init``);
+    ``init``: ``generator``, ``device``, ``dtype`` of ``normal_init``."""
+    return nn.ParameterDict({
+        "w_gate": normal_init((d, ff), d ** -0.5, **init),
+        "w_up": normal_init((d, ff), d ** -0.5, **init),
+        "w_down": normal_init((ff, d), ff ** -0.5, **init)})
 
 
 class DecoderBlock(nn.Module):
@@ -80,11 +87,8 @@ class DecoderBlock(nn.Module):
             qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, window=cfg.window,
             rope_theta=cfg.rope_theta, dtype=dt, device=device,
             generator=generator)
-        init = dict(generator=generator, device=device, dtype=dt)
-        self.mlp = nn.ParameterDict({
-            "w_gate": normal_init((d, ff), d ** -0.5, **init),
-            "w_up": normal_init((d, ff), d ** -0.5, **init),
-            "w_down": normal_init((ff, d), ff ** -0.5, **init)})
+        self.mlp = gated_mlp_init(d, ff, generator=generator, device=device,
+                                  dtype=dt)
 
     def forward(self, x, *, positions, cache=None, impl="ref"):
         a, new_cache = self.attn(rms_norm(x, self.ln1), positions=positions,
@@ -125,40 +129,17 @@ def stacked_caches(cfg: ModelConfig, n_layers: int, batch_size: int,
             "pos": torch.zeros(n_layers, dtype=torch.int32, device=device)}
 
 
-class DecoderLM(nn.Module):
-    """Dense decoder-only LM.  Weights are drawn from ``generator`` (a
-    generator on ``device`` seeded 0 when None); on ``device="meta"``
-    nothing is allocated.  Runs on the CUDA device unless the caller passes
-    another ``device``."""
+class TokenLM(nn.Module):
+    """What the port's LMs share: the token embedding ``embed`` (vocab, D),
+    the ``final_norm`` and the tied or own ``head`` (D, vocab), which a
+    subclass creates."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        why = unsupported(cfg)
-        if why:
-            raise NotImplementedError(f"{cfg.arch_id}: {why}")
-        from repro_torch.explore.runner import resolve_device
-        device = resolve_device(device)
-        if generator is None and device.type != "meta":
-            generator = torch.Generator(device=device).manual_seed(0)
-        self.cfg = cfg
-        dt = _DTYPES[cfg.dtype]
-        init = dict(generator=generator, device=device, dtype=dt)
-        self.embed = normal_init((cfg.vocab, cfg.d_model), 0.02, **init)
-        self.final_norm = constant((cfg.d_model,), 1.0, device=device,
-                                   dtype=dt)
-        self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, device=device, generator=generator)
-            for _ in range(cfg.n_layers))
-        if not cfg.tied_embeddings:
-            self.head = normal_init((cfg.d_model, cfg.vocab),
-                                    cfg.d_model ** -0.5, **init)
+    cfg: ModelConfig
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
-    # -- embedding / head ------------------------------------------------------
     def embed_tokens(self, batch, pos0=None):
         """Token embeddings (B, T, D) and the batch's positions (B, T): when
         the batch has none, ``pos0 + arange(T)`` (``pos0`` a device scalar,
@@ -178,6 +159,39 @@ class DecoderLM(nn.Module):
         """Final norm and the (tied or own) LM head."""
         x = rms_norm(x, self.final_norm)
         return x @ (self.embed.T if self.cfg.tied_embeddings else self.head)
+
+
+class DecoderLM(TokenLM):
+    """Dense decoder-only LM.  Weights are drawn from ``generator`` (a
+    generator on ``device`` seeded 0 when None); on ``device="meta"``
+    nothing is allocated.  Runs on the CUDA device unless the caller passes
+    another ``device``."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family in ("ssm", "hybrid"):
+            raise ValueError(f"{cfg.arch_id}: {cfg.family} models are built "
+                             f"by models.ssm_lm.SSMLM")
+        why = unsupported(cfg)
+        if why:
+            raise NotImplementedError(f"{cfg.arch_id}: {why}")
+        from repro_torch.explore.runner import resolve_device
+        device = resolve_device(device)
+        if generator is None and device.type != "meta":
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.cfg = cfg
+        dt = _DTYPES[cfg.dtype]
+        init = dict(generator=generator, device=device, dtype=dt)
+        self.embed = normal_init((cfg.vocab, cfg.d_model), 0.02, **init)
+        self.final_norm = constant((cfg.d_model,), 1.0, device=device,
+                                   dtype=dt)
+        self.blocks = nn.ModuleList(
+            DecoderBlock(cfg, device=device, generator=generator)
+            for _ in range(cfg.n_layers))
+        if not cfg.tied_embeddings:
+            self.head = normal_init((cfg.d_model, cfg.vocab),
+                                    cfg.d_model ** -0.5, **init)
 
     # -- forward ----------------------------------------------------------------
     def forward(self, batch, *, impl: str = "ref") -> torch.Tensor:

@@ -34,9 +34,14 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None):
-    """The model of ``cfg`` with weights drawn from ``generator``; only the
-    dense decoder is carried so far, every other family raises
-    ``NotImplementedError`` naming the ``ROADMAP.md`` item that brings it."""
+    """The model of ``cfg`` with weights drawn from ``generator``: an
+    ``SSMLM`` for the ssm and hybrid families, else a ``DecoderLM``.  The
+    dense, ssm and hybrid families are carried so far; every other family
+    raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+    brings it."""
+    if cfg.family in ("ssm", "hybrid"):
+        from repro_torch.models.ssm_lm import SSMLM
+        return SSMLM(cfg, device=device, generator=generator)
     from repro_torch.models.decoder import DecoderLM
     return DecoderLM(cfg, device=device, generator=generator)
 
@@ -45,9 +50,8 @@ def model_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
     """The partitioner's layer graph of ``cfg`` at ``seq`` tokens, from the
     configuration alone: no weights are allocated."""
     if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {cfg.family} model graphs come with the SSM "
-            f"path (ROADMAP.md C6)")
+        from repro_torch.models.ssm_lm import ssm_graph
+        return ssm_graph(cfg, seq)
     from repro_torch.models.decoder import lm_graph
     return lm_graph(cfg, seq)
 

@@ -53,7 +53,9 @@ def sync(device: torch.device) -> None:
 
 
 class GenerationEngine:
-    """Generation with ``model`` (a port ``DecoderLM``) on its device."""
+    """Generation with ``model`` on its device: any port LM with
+    ``init_caches``, ``decode_step`` and ``device`` (``DecoderLM``,
+    ``SSMLM``)."""
 
     def __init__(self, model, max_seq: int = 512,
                  cache_dtype=torch.float32, impl: str = "ref"):

@@ -1,7 +1,7 @@
 """The import boundary of the port: nothing under ``src/repro_torch`` and
 nothing in ``chip_smoke.py`` or ``chip_profile.py`` imports JAX or the JAX
-package ``repro``, and a CPU search and an LM generation run in a process
-where JAX cannot be imported at all."""
+package ``repro``, and a CPU search, an LM generation and an SSM forward
+and generation run in a process where JAX cannot be imported at all."""
 
 import ast
 import os
@@ -89,6 +89,12 @@ def test_cpu_search_runs_with_jax_blocked():
         gen = GenerationEngine(model, max_seq=16).generate(
             np.zeros((1, 4), np.int64), max_new=2)
         assert gen.tokens.shape == (1, 2)
+        ssm = build_model(get_config("mamba2-370m").reduced(), device="cpu")
+        logits = ssm({"tokens": np.zeros((1, 40), np.int64)}, impl="auto")
+        assert logits.shape == (1, 40, 512)
+        gen = GenerationEngine(ssm, max_seq=16).generate(
+            np.zeros((1, 4), np.int64), max_new=3)
+        assert gen.tokens.shape == (1, 3)
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked

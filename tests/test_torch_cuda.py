@@ -14,9 +14,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.nsga2_torch import nondominated_rank  # noqa: E402
-from repro_torch.kernels import ops, pareto_rank, ref, window_attn  # noqa: E402
+from repro_torch.kernels import (ops, pareto_rank, ref,  # noqa: E402
+                                 ssd_scan, window_attn)
 from repro_torch.models.decoder import DecoderLM  # noqa: E402
-from repro_torch.models.registry import get_config  # noqa: E402
+from repro_torch.models.registry import build_model, get_config  # noqa: E402
 
 SIZES = (33, 97, 130, 4096)
 
@@ -135,5 +136,71 @@ def test_lm_forward_through_the_kernel_matches_ref(cuda_device):
     before = window_attn.window_attn.launches
     got = model({"tokens": tok}, impl="cuda")
     assert window_attn.window_attn.launches == before + cfg.n_layers
+    torch.testing.assert_close(got, model({"tokens": tok}, impl="ref"),
+                               rtol=1e-4, atol=1e-4)
+
+
+# -- ssd_scan ---------------------------------------------------------------------
+
+def ssd_inputs(b, t, h, p, n, seed, device):
+    """The distribution of the reference's sweep (tests/test_kernels.py),
+    made with numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, h, p))
+    dt = np.log1p(np.exp(rng.standard_normal((b, t, h)) - 1))
+    A = -np.exp(rng.standard_normal(h) * 0.3)
+    B = rng.standard_normal((b, t, n)) * 0.5
+    C = rng.standard_normal((b, t, n)) * 0.5
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                 for a in (x, dt, A, B, C))
+
+
+# float32 on both sides, the sums taken in other orders: the reference's own
+# tolerance for its SSD kernel, 2e-4, at the reference's sweep and at
+# zamba2's head and state sizes (h 80, n 64) and mamba2's (p 64, n 128)
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,chunk", [(128, 32), (256, 64), (192, 64),
+                                     (256, 128), (200, 100), (64, 16)])
+@pytest.mark.parametrize("h,p,n", [(2, 16, 8), (3, 32, 16), (80, 64, 64),
+                                   (4, 64, 128)])
+def test_ssd_scan_kernel_matches_plain_version(cuda_device, t, chunk, h, p,
+                                               n):
+    args = ssd_inputs(2, t, h, p, n, t + chunk + h, cuda_device)
+    y, state = ssd_scan.ssd_scan(*args, chunk)
+    y_ref, state_ref = ops.ssd_scan(*args, chunk, impl="ref")
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, state_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_counts_launches_and_rejects_bad_inputs(cuda_device):
+    x, dt, A, B, C = ssd_inputs(1, 64, 2, 16, 8, 0, cuda_device)
+    before = ssd_scan.ssd_scan.launches
+    ops.ssd_scan(x, dt, A, B, C, 32, impl="cuda")
+    assert ssd_scan.ssd_scan.launches == before + 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.ssd_scan(*(a.cpu() for a in (x, dt, A, B, C)), 32, impl="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan.ssd_scan(x.double(), dt, A, B, C, 32)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan.ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2),
+                          dt, A, B, C, 32)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssd_scan.ssd_scan(x, dt, A, B, C, 48)
+    with pytest.raises(ValueError, match="do not match"):
+        ssd_scan.ssd_scan(x, dt[:, :, :1].contiguous(), A, B, C, 32)
+    assert ssd_scan.ssd_scan.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_ssm_forward_through_the_kernel_matches_ref(cuda_device, arch):
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device=cuda_device)
+    tok = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100))).to(cuda_device)
+    before = ssd_scan.ssd_scan.launches
+    got = model({"tokens": tok}, impl="cuda")
+    assert ssd_scan.ssd_scan.launches == before + cfg.n_layers
     torch.testing.assert_close(got, model({"tokens": tok}, impl="ref"),
                                rtol=1e-4, atol=1e-4)

@@ -97,8 +97,7 @@ def test_configs_equal_reference(arch):
     for name in ("train_4k", "long_500k"):
         assert registry.supports_shape(got, registry.shape_config(name)) == \
             jreg.supports_shape(want, jreg.shape_config(name))
-    if got.family not in ("ssm", "hybrid"):
-        assert got.param_count() == want.param_count()
+    assert got.param_count() == want.param_count()
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -122,24 +121,39 @@ def test_registry_model_ref_builds_graph():
         assert shared is None
         assert list(tg.nodes) == list(jg.nodes)
         assert tg.total_params == jg.total_params
-    with pytest.raises(NotImplementedError, match="C6"):
-        ModelRef("registry", "mamba2-370m", {"seq": 64}).build()
+    tg, shared = ModelRef("registry", "mamba2-370m", {"seq": 64}).build()
+    jg, _ = JModelRef("registry", "mamba2-370m", {"seq": 64}).build()
+    assert shared is None and list(tg.nodes) == list(jg.nodes)
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("mamba2-370m", "C6"), ("zamba2-2.7b", "C6"), ("deepseek-v3-671b", "C7"),
-    ("deepseek-moe-16b", "C8"), ("musicgen-large", "C9"),
-    ("qwen2-vl-7b", "C10")])
+    ("deepseek-v3-671b", "C7"), ("deepseek-moe-16b", "C8"),
+    ("musicgen-large", "C9"), ("qwen2-vl-7b", "C10")])
 def test_build_model_raises_for_families_not_carried(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         registry.build_model(registry.get_config(arch).reduced(),
                              device="cpu")
 
 
-def test_default_device_raises_without_a_card(monkeypatch):
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_build_model_builds_ssm_families(arch):
+    from repro_torch.models.ssm_lm import SSMLM
+    cfg = registry.get_config(arch).reduced()
+    model = registry.build_model(cfg, device="cpu")
+    assert isinstance(model, SSMLM) and model.device.type == "cpu"
+    jparams, _ = jreg.build_model(jreg.get_config(arch).reduced()).init(
+        jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        v.size for v in jax.tree_util.tree_leaves(jparams))
+    with pytest.raises(ValueError, match="SSMLM"):
+        DecoderLM(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-370m"])
+def test_default_device_raises_without_a_card(monkeypatch, arch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        registry.build_model(registry.get_config("smollm-360m").reduced())
+        registry.build_model(registry.get_config(arch).reduced())
 
 
 def test_seeded_init_is_reproducible():
