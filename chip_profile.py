@@ -32,12 +32,32 @@ and depth) the same way: the forward of two 8192-token prompts through the
 SSD scan kernel, and the generation (prefill and decode through the SSM
 caches, no kernel).  For each it also gives the SSD scan kernel's share and
 the matrix products' share of the device time.
+
+Then the accuracy path of ``chip_smoke.py`` (EfficientNet-B0 at 224, 256
+synthetic images, seeded weights): the monolithic forward, the partitioned
+fake-quantized forward at the widest cut vector of the search's front
+(four platforms: weights at 16, 16, 8 and 8 bits, link activations
+quantized to the producer's width), and the link fake-quant passes of
+``quantize_tensor`` alone, each under the profiler, with the shares of the
+convolutions, the depthwise convolutions, BatchNorm, the elementwise
+passes and the reductions.
+
+Last the int8 product kernel at VGG-16's first classifier layer (M 256,
+K 25088, N 4096), where it is slower than its plain version: its two
+launches under the profiler with the launch figures of the profiler's
+trace (grid, registers per thread, blocks per SM, estimated achieved
+occupancy), and its time and ``torch._int_mm``'s as M grows at the same K
+and N.  That part alone:
+
+    python3 -c 'import chip_profile; chip_profile.qmm_profile()'
 """
 
 from __future__ import annotations
 
 import collections
+import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -99,6 +119,9 @@ def main() -> int:
     from repro_torch.explore import run_spec
 
     dev = torch.device("cuda", 0)
+    # the numerics of chip_smoke.py: float32 products and convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     spec = chip_smoke.main_spec()
     print(chip_smoke.card_line())
 
@@ -127,11 +150,13 @@ def main() -> int:
           f"{timed_wall - inner:8.3f} s")
     print(f"  fronts peeled per ranking call: {FRONTS}")
 
-    profiled("search run", lambda: run_spec(spec, device=str(dev)))
+    res = profiled("search run", lambda: run_spec(spec, device=str(dev)))
     lm_profile(dev, chip_smoke.LM_ARCH)
     lm_profile(dev, chip_smoke.SSM_ARCH, groups={
         "SSD scan kernel (ssd_*)": lambda k: "ssd_" in k,
         "matrix products (*gemm*)": lambda k: "gemm" in k.lower()})
+    cnn_profile(dev, [p.cuts for p in res.pareto])
+    qmm_profile(dev)
     return 0
 
 
@@ -139,13 +164,13 @@ def profiled(label, fn, top_n=12, groups=None):
     """Run ``fn`` once under ``torch.profiler``; print the wall time, the
     device-busy share, the kernels with the most device time and, for each
     of ``groups`` (label -> test of a kernel's name), its device time and
-    share of the busy time."""
+    share of the busy time.  Returns what ``fn`` returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t
     # device-side entries only: a CPU operator's device time repeats the
@@ -166,6 +191,7 @@ def profiled(label, fn, top_n=12, groups=None):
         s = sum(e.self_device_time_total for e in mine) / 1e6
         print(f"  {name}: {s * 1e3:.2f} ms = {100 * s / device_s:.1f} % of "
               f"the busy time, {sum(e.count for e in mine)} launches")
+    return out
 
 
 def lm_profile(dev, arch, groups=None):
@@ -203,6 +229,138 @@ def lm_profile(dev, arch, groups=None):
     profiled(f"{arch} generation {chip_smoke.GEN_REQUESTS} x "
              f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate,
              groups=groups)
+
+
+
+def _depthwise(k):
+    return "depthwise" in k.lower()
+
+
+def _batchnorm(k):
+    return any(t in k.lower() for t in ("bn_fw", "batch_norm"))
+
+
+# disjoint groups of kernel names (cuDNN's BatchNorm kernels are named
+# cudnn::bn_fw_*, PyTorch's depthwise convolution conv_depthwise2d_*)
+CNN_GROUPS = {
+    "convolutions and Dense GEMMs (implicit GEMM, sgemm)": lambda k: any(
+        t in k.lower() for t in ("conv", "xmma", "gemm"))
+    and not _depthwise(k) and not _batchnorm(k),
+    "depthwise convolutions (conv_depthwise2d)": _depthwise,
+    "BatchNorm (cudnn bn_fw)": _batchnorm,
+    "elementwise passes (SiLU, sigmoid, products, sums, fake-quant)":
+        lambda k: "elementwise" in k.lower(),
+    "reductions (pools, min, max)": lambda k: "reduce" in k.lower(),
+}
+
+
+def cnn_profile(dev, front):
+    """The accuracy path of ``chip_smoke.py`` under the profiler: the
+    monolithic forward, the partitioned fake-quant forward at the widest
+    cut vector of ``front``, and the link fake-quant passes alone."""
+    from repro_torch.core.graph import linearize
+    from repro_torch.core.quant import quantize_tensor
+    from repro_torch.models.cnn.zoo import run_blocks
+    from repro_torch.serving import PartitionedCNNRunner
+
+    model, _, _, xd, _ = chip_smoke.cnn_setup(dev)
+    spec = chip_smoke.main_spec()
+    quant_specs = [p.quant for p in spec.system.build().platforms]
+    schedule = linearize(model.to_graph(), spec.schedule_policy)
+    split, block_cuts, stage_specs = chip_smoke.widest_split(
+        model, schedule, [tuple(c) for c in front], quant_specs)
+    runner = PartitionedCNNRunner(model, block_cuts, stage_specs)
+    with torch.no_grad():
+        links = [(run_blocks(model.blocks[:c + 1], xd), s)
+                 for c, s in zip(block_cuts, stage_specs)]
+
+    def forward():
+        with torch.no_grad():
+            model(xd)
+
+    def partitioned():
+        runner.run(xd)
+
+    def link_quant():
+        for a, s in links:
+            quantize_tensor(a, s)
+
+    for fn in (forward, partitioned, link_quant):
+        fn()
+    torch.cuda.synchronize()
+    b = chip_smoke.CNN_BATCH
+    profiled(f"efficientnet_b0 forward {b} x 224", forward, groups=CNN_GROUPS)
+    profiled(f"efficientnet_b0 partitioned fake-quant forward at {split} "
+             f"(blocks {block_cuts}, bits {[s.bits for s in stage_specs]})",
+             partitioned, groups=CNN_GROUPS)
+    profiled(f"link fake-quant passes alone ({len(links)} links, "
+             f"{[tuple(a.shape) for a, _ in links]})", link_quant,
+             groups=CNN_GROUPS)
+
+
+
+# VGG-16's first classifier layer, and the batches at which the product
+# kernel is timed against it: at M 256 the kernel's 64 x 64 tiles make 256
+# blocks for the card's 132 SMs
+QMM_K, QMM_N, QMM_MS = 25088, 4096, (256, 512, 1024, 2048)
+TRACE_ARGS = ("grid", "block", "registers per thread", "shared memory",
+              "blocks per SM", "warps per SM", "est. achieved occupancy %")
+
+
+def qmm_profile(dev=None):
+    """The int8 product kernel at VGG-16's fc0: its launches under the
+    profiler with the trace's launch figures, then kernel and
+    ``torch._int_mm`` times as M grows (a time that grows less than M
+    means the card was not full at the smaller M)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import quant_matmul
+
+    dev = dev or torch.device("cuda", 0)
+    print(chip_smoke.card_line())
+    g = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    w_q = torch.randint(-127, 128, (QMM_K, QMM_N), generator=g, device=dev,
+                        dtype=torch.int8)
+    w_scale = torch.full((QMM_N,), 1e-3, device=dev)
+    x = torch.relu(torch.randn((max(QMM_MS), QMM_K), generator=g,
+                               device=dev))
+
+    def args(m):
+        xm = x[:m]
+        return xm, w_q, w_scale, chip_smoke.act_scale(xm)
+
+    a = args(QMM_MS[0])
+    quant_matmul.quant_matmul(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quant_matmul.quant_matmul(*a)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = f"{d}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    print(f"quant_matmul at ({QMM_MS[0]}, {QMM_K}) x ({QMM_K}, {QMM_N}), "
+          f"its launches in the profiler's trace:")
+    for e in events:
+        if e.get("cat") == "kernel" and "qmm_" in e.get("name", ""):
+            figs = ", ".join(f"{k} {e['args'][k]}" for k in TRACE_ARGS
+                             if k in e.get("args", {}))
+            print(f"  {e['name'][:60]}: {e['dur']} us; "
+                  f"{figs or 'no launch figures in the trace'}")
+    print("quant_matmul and torch._int_mm (the product alone, on the same "
+          "int8 x) as M grows:")
+    base = None
+    for m in QMM_MS:
+        a = args(m)
+        ms = chip_smoke.cuda_ms(lambda: quant_matmul.quant_matmul(*a), 10)
+        xq = torch.clamp(torch.round(a[0] / a[3]), -128, 127).to(torch.int8)
+        int_mm = chip_smoke.cuda_ms(lambda: torch._int_mm(xq, w_q), 10)
+        base = base or ms
+        tops = 2 * m * QMM_K * QMM_N / (ms * 1e-3) / 1e12
+        print(f"  M {m}: kernel {ms:.4f} ms ({ms / base:.2f} x M "
+              f"{QMM_MS[0]}'s time for {m / QMM_MS[0]:.0f} x the work, "
+              f"{tops:.1f} TOP/s), _int_mm {int_mm:.4f} ms")
 
 
 if __name__ == "__main__":

@@ -42,10 +42,32 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    phase 5, the model's forward over two 8192-token prompts runs through
    the SSD scan kernel (48 launches) and agrees with the plain scan, and
    the generation engine answers 8 requests whose first-step logits agree
-   with the forward.
+   with the forward;
+8. holds the fake-quant int8 product kernel against its plain version on
+   the card, at the reference's sweep (x float32 and x rounded through
+   bf16), its block variants' shape, a ragged shape, EfficientNet-B0's
+   classifier (per-channel int8 weights of the phase-9 model, its pooled
+   features of 256 images) and VGG-16's three classifier layers at batch
+   256, and times kernel, plain version, bound and ``torch._int_mm`` on the
+   same int8 operands (the product only: no single PyTorch call quantizes,
+   multiplies and scales);
+9. drives the accuracy path once at full width: EfficientNet-B0 at 224
+   with seeded weights on the card (BatchNorm scales, shifts and biases
+   drawn as the CPU tests draw them, running statistics measured on a
+   calibration batch, so that the logits depend on the image), 256
+   synthetic images; the monolithic forward gives many classes, the
+   partitioned runner with quantization off equals it bit for bit (cuDNN
+   deterministic, TF32 off), the quantized runner moves its logits by more
+   than a floor and keeps most of its top-1; ``cnn_measured_accuracy``
+   with the four platforms' specs scores up to 8 cut vectors of phase 3's
+   front and ``(-1, -1, -1)``.  The accuracy path, like the reference's,
+   reaches no kernel: its launches of the product kernel are counted and
+   reported (0).  Then the model's int8 classifier runs through the
+   product kernel (``ops.quant_matmul``), with the count set to 0 just
+   before and read just after, and agrees with the fake-quant classifier.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 and 7),
+card's name and power limit (also beside every time of phases 6 to 9),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -70,6 +92,9 @@ sys.path.insert(0, str(SRC))
 # float32 operations/s outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# dense int8 tensor-core operations/s of one H100 SXM (NVIDIA data sheet):
+# the bound of the int8 product kernel
+PEAK_INT8_OPS_S = 1979e12
 
 POP, N_GEN, SEED = 16384, 10, 0
 RANK_BLOCK = 2048            # the auto policy's tile rows at this population
@@ -112,6 +137,35 @@ SSD_SWEEP = tuple((t, chunk, h, p, n) for t, chunk in ((128, 32), (256, 64),
 # i.e. terms by up to ~3e-4: the stated bound there is 1e-3 (rtol and atol);
 # a fault of indexing or masking would be O(1)
 SSD_TOL, SSD_TOL_MODEL = 2e-4, 1e-3
+# the accuracy path: EfficientNet-B0 at its published size, 256 synthetic
+# images (the reference oracle's eval_size), up to 8 of phase 3's cuts
+CNN_BATCH, CNN_CUTS = 256, 8
+# BatchNorm running statistics are measured on 64 other images of the set
+CNN_CALIB = 64
+# what shows that the full-width model computes something of its input:
+# the monolithic forward's top-1 takes at least 16 classes over the 256
+# images (the default init, BN mean 0 and var 1 with zero biases, gives
+# one), and the quantized runner at the widest cut vector moves the logits
+# by at least 1e-3 of max|logits| (float32 noise is ~1e-6 of it; the 8-bit
+# stages and links move them by ~1e-1 on a reduced-resolution probe of the
+# same model) while agreeing with the float top-1 on at least half the
+# images (0.94 on that probe; a stage on wrong weights agrees on ~1/1000)
+CNN_MIN_CLASSES, QUANT_MOVE, QUANT_AGREE = 16, 1e-3, 0.5
+QMM_SWEEP = ((128, 128, 128), (256, 384, 128), (128, 256, 256))
+QMM_BLOCKS, QMM_RAGGED = (256, 256, 256), (100, 96, 50)
+VGG_FC = ((25088, 4096), (4096, 4096), (4096, 1000))
+# quant_matmul against its plain version: int32 sums are exact, the plain
+# version's float32 sums of integer products too while they stay below
+# 2^24 (they do here), and the epilogue is the same two products: the
+# reference's tolerance 1e-5 (rtol and atol) at its sweep and the ragged
+# shape; at the classifiers' shapes (K up to 25088) a relative bound,
+# max_abs_err <= 1e-6 * max|y|
+QMM_TOL, QMM_REL = 1e-5, 1e-6
+# the model's int8 classifier through the kernel against the same
+# classifier fake-quantized in float32 (x and per-channel weights each
+# dequantized, then summed in float): the same products rounded and summed
+# in another order, so a bound relative to the largest sum of |terms|
+HEAD_REL = 1e-5
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -154,9 +208,9 @@ def pair_ops(F, CV, rows_alive=None):
     return fr * fc * 2 * m + ir * ic + n_rows + len(feas)
 
 
-def bound(n_bytes, ops):
+def bound(n_bytes, ops, peak_ops=PEAK_F32_OPS_S):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -325,7 +379,7 @@ def main_path(dev, records):
           f"wall {wall:.3f} s, {evals_s:.0f} evals/s, front "
           f"{len(res.pareto)} points, launches {launches}, peak device "
           f"memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB")
-    return wall, evals_s
+    return res
 
 
 def valid_pairs(t: int, window: int) -> int:
@@ -669,6 +723,272 @@ def ssm_path(dev, records, card):
           f"memory {peak:.0f} MiB")
 
 
+def int8_columns(w_out_in):
+    """A Dense weight in the port's (out, in) layout as the product kernel
+    takes it: w_q (in, out) int8 and w_scale (out,), symmetric 8-bit per
+    output channel (the port's calibration and scale)."""
+    from repro_torch.core.quant import (QuantSpec, calibrate,
+                                        compute_scale_zp)
+    w = w_out_in.t().contiguous()
+    spec = QuantSpec(8, per_channel=True, channel_axis=1)
+    scale, _ = compute_scale_zp(*calibrate(w, spec), spec)
+    w_q = torch.clamp(torch.round(w / scale), -128, 127).to(torch.int8)
+    return w_q, scale.reshape(-1).contiguous()
+
+
+def act_scale(x):
+    """The per-tensor symmetric 8-bit scale of an activation, on the card."""
+    return x.abs().max() / 127.0
+
+
+def draw_statistics(model, calib, generator):
+    """Give the seeded ``model`` what a trained one has and the reference's
+    init lacks: BatchNorm scales in [0.5, 1.5], BatchNorm shifts and conv
+    and Dense biases normal with sd 0.1 (as the CPU tests draw them), and
+    each BatchNorm's running mean and variance measured on its input in a
+    forward of ``calib``.  With the init alone (mean 0, variance 1, zero
+    biases) the activations shrink through the depth and every image of
+    the set gets the same class."""
+    from repro_torch.nn.layers import BatchNorm2d, Conv2d, Dense
+
+    def measure(bn, inputs):
+        a = inputs[0]
+        bn.mean.copy_(a.mean((0, 2, 3)))
+        bn.var.copy_(a.var((0, 2, 3), unbiased=False))
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (Conv2d, Dense)) and m.b is not None:
+                m.b.normal_(0.0, 0.1, generator=generator)
+            elif isinstance(m, BatchNorm2d):
+                m.scale.uniform_(0.5, 1.5, generator=generator)
+                m.bias.normal_(0.0, 0.1, generator=generator)
+        hooks = [m.register_forward_pre_hook(measure)
+                 for m in model.modules() if isinstance(m, BatchNorm2d)]
+        try:
+            model(calib)
+        finally:
+            for h in hooks:
+                h.remove()
+
+
+def cnn_setup(dev):
+    """The accuracy path's model and data: EfficientNet-B0 at 224, w 1.0,
+    1000 classes, seeded weights on the card with drawn statistics
+    (:func:`draw_statistics`), 256 synthetic images, and the model's pooled
+    features of them (the classifier's input)."""
+    from repro_torch.data import SyntheticImages
+    from repro_torch.models.cnn.zoo import build_cnn, run_blocks
+    from repro_torch.nn.layers import global_avg_pool
+
+    torch.backends.cudnn.deterministic = True
+    model = build_cnn("efficientnet_b0", in_hw=224, w=1.0, n_classes=1000)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    model.init_weights(g, dev)
+    data = SyntheticImages(n_classes=1000, hw=224)
+    calib, _ = data.batch(CNN_CALIB, seed=SEED)
+    draw_statistics(model, torch.from_numpy(calib).to(dev), g)
+    vx, vy = data.eval_set(CNN_BATCH)
+    xd = torch.from_numpy(vx).to(dev)
+    with torch.no_grad():
+        pooled = global_avg_pool(run_blocks(model.blocks[:-1], xd))
+    return model, vx, vy, xd, pooled
+
+
+def check_quant_matmul(dev, card, model, pooled):
+    """Phase 8: the int8 product kernel against its plain version on the
+    card; returns its record at EfficientNet-B0's classifier (launches
+    filled in by phase 9)."""
+    from repro_torch.kernels import ops, quant_matmul
+    from repro_torch.nn.module import kaiming
+
+    def operands(m, k, n, bf16, seed):
+        """The reference sweep's distribution (tests/test_kernels.py)."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+        x = torch.randn((m, k), generator=g, device=dev)
+        if bf16:
+            x = x.bfloat16().float()
+        w = torch.randn((n, k), generator=g, device=dev) * 0.05
+        return (x, *int8_columns(w), act_scale(x))
+
+    def check(args, rel=None):
+        got = quant_matmul.quant_matmul(*args)
+        want = ops.quant_matmul(*args, impl="ref")
+        err = float((got - want).abs().max())
+        if rel is None:
+            torch.testing.assert_close(got, want, rtol=QMM_TOL, atol=QMM_TOL)
+        else:
+            assert err <= rel * float(want.abs().max()), (err, rel)
+        return got, err
+
+    def measure(label, args, out):
+        x, w_q, w_scale, x_scale = args
+        m, k = x.shape
+        n = w_q.shape[1]
+        ms = cuda_ms(lambda: quant_matmul.quant_matmul(*args), 20)
+        plain_ms = cuda_ms(lambda: ops.quant_matmul(*args, impl="ref"), 5)
+        n_bytes = 4 * m * k + k * n + 4 * n + 4 + 4 * m * n
+        b_ms, b_by = bound(n_bytes, 2 * m * k * n, PEAK_INT8_OPS_S)
+        xq = torch.clamp(torch.round(x / x_scale), -128, 127).to(torch.int8)
+        int_mm = (cuda_ms(lambda: torch._int_mm(xq, w_q), 20)
+                  if m > 16 and k % 8 == 0 and n % 8 == 0 else None)
+        lib = "n/a" if int_mm is None else f"{int_mm:.4f} ms"
+        print(f"  {label} ({m}, {k}) x ({k}, {n}): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"_int_mm (product only) {lib}, max_abs_err {out[1]:.3e} "
+              f"(max |y| {float(out[0].abs().max()):.3e}) [{card}]")
+        return ms, plain_ms, b_ms, b_by, int_mm
+
+    print(f"quant_matmul at the reference's sweep (x float32 and through "
+          f"bf16), its block variants' shape and a ragged shape, within "
+          f"{QMM_TOL}:")
+    cases = [(f"sweep{' bf16' if bf16 else ''}", shape, bf16, sum(shape))
+             for shape in QMM_SWEEP for bf16 in (False, True)]
+    cases += [("blocks", QMM_BLOCKS, False, 0),
+              ("ragged", QMM_RAGGED, False, 1)]
+    for label, shape, bf16, seed in cases:
+        args = operands(*shape, bf16, seed)
+        measure(label, args, check(args))
+
+    print("quant_matmul at the zoo's classifiers, batch "
+          f"{CNN_BATCH}:")
+    head = (pooled, *int8_columns(model.cls.head.w), act_scale(pooled))
+    out = check(head, QMM_REL)
+    ms, plain_ms, b_ms, b_by, int_mm = measure(
+        "efficientnet_b0 classifier", head, out)
+    record = dict(
+        name="quant_matmul", route="cuda",
+        source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+        replaces="src/repro/kernels/quant_matmul.py:44",
+        shape=f"x ({CNN_BATCH}, 1280) f32, w_q (1280, 1000) int8",
+        launches=0, max_abs_err=out[1], ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, int_mm_ms=int_mm)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h = torch.relu(torch.randn((CNN_BATCH, VGG_FC[0][0]), generator=g,
+                               device=dev))
+    for i, (k, n) in enumerate(VGG_FC):
+        w = kaiming((n, k), fan_in=k, generator=g, device=dev)
+        args = (h, *int8_columns(w), act_scale(h))
+        out = check(args, QMM_REL)
+        measure(f"vgg16 classifier fc{i}", args, out)
+        h = torch.relu(out[0])
+        del args, w
+    return record
+
+
+def widest_split(model, schedule, cuts, quant_specs):
+    """The cut vector of ``cuts`` that runs in the most stages, with its
+    block cuts and stage specs (``quantize.partition_plan``)."""
+    from repro_torch.quantize import partition_plan
+    plans = [(c, *partition_plan(model, schedule, c, quant_specs))
+             for c in cuts]
+    return max(plans, key=lambda p: len(p[1]))
+
+
+def cnn_path(dev, records, card, model, vx, vy, xd, front):
+    """Phase 9: the accuracy path once at full width, then the model's
+    int8 classifier through the product kernel, the kernel's launches
+    counted in each."""
+    from repro_torch.core.graph import linearize
+    from repro_torch.core.quant import QuantSpec, fake_quant
+    from repro_torch.kernels import ops, quant_matmul
+    from repro_torch.models.cnn.zoo import run_blocks
+    from repro_torch.nn.layers import global_avg_pool
+    from repro_torch.quantize import cnn_measured_accuracy
+    from repro_torch.serving import PartitionedCNNRunner
+
+    spec = main_spec()
+    quant_specs = [p.quant for p in spec.system.build().platforms]
+    schedule = linearize(model.to_graph(), spec.schedule_policy)
+    assert len(schedule) == 207, len(schedule)
+    cuts = list(dict.fromkeys([tuple(c) for c in front[:CNN_CUTS]]
+                              + [(-1, -1, -1)]))
+    split, block_cuts, stage_specs = widest_split(model, schedule, cuts,
+                                                  quant_specs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    quant_matmul.quant_matmul.launches = 0
+
+    with torch.no_grad():
+        mono, mono_s = timed(lambda: model(xd))
+    assert mono.shape == (CNN_BATCH, 1000), mono.shape
+    assert bool(torch.isfinite(mono).all()), "non-finite logits"
+    top1 = mono.argmax(-1)
+    n_classes = int(top1.unique().numel())
+    assert n_classes >= CNN_MIN_CLASSES, n_classes
+    part, _ = PartitionedCNNRunner(model, block_cuts).run(xd)
+    part_err = float((part - mono).abs().max())
+    assert torch.equal(part, mono), part_err
+    print(f"CNN forward: efficientnet_b0 224, {CNN_BATCH} images: "
+          f"{mono_s:.3f} s ({CNN_BATCH / mono_s:.0f} images/s), top-1 over "
+          f"{n_classes} classes, max |logits| {float(mono.abs().max()):.3e}; "
+          f"partitioned at blocks {block_cuts} with quantization off equals "
+          f"it bit for bit [{card}]")
+
+    runner = PartitionedCNNRunner(model, block_cuts, stage_specs)
+    runner.run(xd, time_stages=True)                 # warm
+    logits, rep = runner.run(xd, time_stages=True)
+    assert bool(torch.isfinite(logits).all())
+    moved = float((logits - mono).abs().max() / mono.abs().max())
+    q_agree = float((logits.argmax(-1) == top1).float().mean())
+    assert moved >= QUANT_MOVE, moved
+    assert q_agree >= QUANT_AGREE, q_agree
+    print(f"quantized runner at the cut vector {split} (blocks {block_cuts}, "
+          f"bits {[q.bits for q in stage_specs]}): stage latencies "
+          f"{[round(t, 5) for t in rep.latency_s]} s, Def.-4 throughput "
+          f"{rep.throughput():.3f} batches/s "
+          f"({CNN_BATCH * rep.throughput():.0f} images/s), link bytes "
+          f"{rep.link_bytes}; logits moved {moved:.3e} of max |logits| "
+          f"from the float forward, top-1 agrees on {q_agree:.4f} [{card}]")
+
+    measure = cnn_measured_accuracy(model, schedule, vx, vy, quant_specs)
+    accs, acc_s = timed(lambda: [measure(c) for c in cuts])
+    for c, a in zip(cuts, accs):
+        assert 0.0 <= a <= 1.0
+    print(f"measured accuracy (top-1 of {CNN_BATCH}, random weights: near "
+          f"chance) over {len(cuts)} cut vectors in {acc_s:.3f} s: "
+          + ", ".join(f"{c}: {a:.4f}" for c, a in zip(cuts, accs))
+          + f" [{card}]")
+    path_launches = quant_matmul.quant_matmul.launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+
+    # the int8 classifier through the product kernel, on the features of
+    # the same images: the fake-quant classifier computed in integers
+    quant_matmul.quant_matmul.launches = 0
+    with torch.no_grad():
+        pooled = global_avg_pool(run_blocks(model.blocks[:-1], xd))
+        w_q, w_scale = int8_columns(model.cls.head.w)
+        x_scale = act_scale(pooled)
+        int8_logits = ops.quant_matmul(pooled, w_q, w_scale, x_scale) \
+            + model.cls.head.b
+        xf = fake_quant(pooled, x_scale, torch.zeros_like(x_scale),
+                        QuantSpec(8))
+        wf = w_q.float() * w_scale[None, :]
+        fq = xf @ wf + model.cls.head.b
+        terms = float((xf.abs() @ wf.abs()).max())
+    head_err = float((int8_logits - fq).abs().max())
+    assert head_err <= HEAD_REL * terms, (head_err, terms)
+    agree = float((int8_logits.argmax(-1) == top1).float().mean())
+    launches = quant_matmul.quant_matmul.launches
+    assert launches > 0, launches
+    for rec in records:
+        if rec["name"] == "quant_matmul":
+            rec["launches"] = launches
+            rec["launches_in"] = (
+                f"phase 9's int8 classifier ({launches}); the accuracy path "
+                f"(cnn_measured_accuracy, PartitionedCNNRunner), like the "
+                f"reference's, launched it {path_launches} times")
+    print(f"int8 classifier through quant_matmul: vs the fake-quant "
+          f"classifier max_abs_err {head_err:.3e} (bound {HEAD_REL} of the "
+          f"largest sum of |terms| {terms:.3e}; max |y| "
+          f"{float(fq.abs().max()):.3e}), top-1 agrees with the float model "
+          f"on {agree:.4f} of the images [{card}]")
+    print(f"CNN path: launches of quant_matmul on the accuracy path "
+          f"{path_launches}, in the int8 classifier {launches}; peak device "
+          f"memory of the accuracy path {peak:.0f} MiB [{card}]")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -695,21 +1015,32 @@ def main() -> int:
 
     records = check_kernels(dev)
     check_ranking(dev)
-    main_path(dev, records)
+    res = main_path(dev, records)
     records.append(check_window_attn(dev))
     lm_path(dev, records)
     records.append(check_ssd_scan(dev, card))
     ssm_path(dev, records, card)
+    model, vx, vy, xd, pooled = cnn_setup(dev)
+    records.append(check_quant_matmul(dev, card, model, pooled))
+    del pooled
+    cnn_path(dev, records, card, model, vx, vy, xd,
+             [p.cuts for p in res.pareto])
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        if r.get("int_mm_ms") is not None:
+            lib += f" (torch._int_mm, product only: {r['int_mm_ms']:.4f} ms)"
+        launches = r.get("launches_in",
+                         f"on the main path {r['launches']}")
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {lib}, launches on the main path "
-              f"{r['launches']}, max_abs_err {r['max_abs_err']}")
+              f"({r['bound_by']}), library {lib}, launches {launches}, "
+              f"max_abs_err {r['max_abs_err']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "launches_in")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in records]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Kernel dispatch for the Pareto-ranking, attention and SSD-scan primitives.
+"""Kernel dispatch for the Pareto-ranking, attention, SSD-scan and
+fake-quant product primitives.
 
 ``impl`` resolution: ``'cuda'`` launches the hand-written kernel (the
 tensors must lie on a CUDA device, else it raises), ``'ref'`` runs the
@@ -13,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import pareto_rank as _kern
+from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd_scan as _ss
 from repro_torch.kernels import window_attn as _wa
@@ -104,3 +106,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if resolve_impl(impl, x) == "ref":
         return _ref.ssd_scan(x, dt, A, B, C, chunk)
     return _ss.ssd_scan(*(a.contiguous() for a in (x, dt, A, B, C)), chunk)
+
+
+# -- quant_matmul -----------------------------------------------------------------
+
+def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 x_scale, *, impl: str = "auto") -> torch.Tensor:
+    """Fake-quant int8 product: x (M, K) float32 quantized with ``x_scale``
+    (a scalar, kept on x's device) times w_q (K, N) int8, scaled by
+    ``x_scale * w_scale[None, :]``; returns (M, N) float32.
+
+    Unlike the JAX package's dispatch, no shape falls back to ``ref``: the
+    CUDA kernel masks ragged M, K and N itself, so a CUDA tensor launches
+    it for every shape."""
+    x_scale = torch.as_tensor(x_scale, dtype=torch.float32, device=x.device)
+    if resolve_impl(impl, x) == "ref":
+        return _ref.quant_matmul(x, w_q, w_scale, x_scale)
+    return _qm.quant_matmul(x, w_q, w_scale, x_scale)

@@ -15,6 +15,9 @@ softmax over the full (T, T) scores.
 SSD half: :func:`ssd_scan`, the Mamba2 chunked scan that
 ``kernels/csrc/ssd_scan.cu`` computes, here as ``nn.ssm.ssd_chunked``
 without the D skip.
+
+Quantized half: :func:`quant_matmul`, the fake-quant int8 product that
+``kernels/csrc/quant_matmul.cu`` computes in integers, here in float32.
 """
 
 from __future__ import annotations
@@ -145,3 +148,17 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (y, final_state)."""
     from repro_torch.nn.ssm import ssd_chunked
     return ssd_chunked(x, dt, A, B, C, chunk, D=None, init_state=init_state)
+
+
+# -- quant_matmul -----------------------------------------------------------------
+
+def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                 x_scale: torch.Tensor) -> torch.Tensor:
+    """Fake-quant product ``q(x) @ (w_q * w_scale)``: x (M, K) float32 is
+    quantized symmetric 8-bit with ``x_scale`` (round half to even, clip to
+    [-128, 127]), multiplied by w_q (K, N) int8 in float32 (exact while the
+    partial sums stay below 2^24), then scaled by ``x_scale`` and
+    ``w_scale`` (N,), in that order.  Returns (M, N) float32."""
+    xq = torch.clamp(torch.round(x / x_scale), -128, 127)
+    acc = xq @ w_q.to(torch.float32)
+    return acc * x_scale * w_scale[None, :]

@@ -1,18 +1,27 @@
-"""CNN building blocks, graph half.
+"""CNN building blocks with two faces:
 
-Each block holds its configuration and can ``emit`` its op-level nodes
-into a :class:`LayerGraph` for the partitioner, with ONNX-style names
-(``Conv_7``, ``Relu_3``, ...) matching the paper's naming of partition
-points.  No weights are allocated here: emitting the graph of a full-size
-model needs only the shapes.
+* each block is an ``nn.Module`` whose forward runs the block (inference,
+  BatchNorm in eval mode), with its parameters named after the JAX
+  package's pytree keys (``exp.conv.w``, ``dw.bn.scale``, ``se.fc1.b``), and
+* each block can ``emit`` its op-level nodes into a :class:`LayerGraph`
+  for the partitioner, with ONNX-style names (``Conv_7``, ``Relu_3``, ...)
+  matching the paper's naming of partition points.
+
+Parameters are created on the ``meta`` device (``nn.layers``): emitting the
+graph of a full-size model allocates no weights.
 """
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
+import torch
+import torch.nn.functional as F
+from torch import nn
+
 from repro_torch.core import layers as GL
 from repro_torch.core.graph import LayerGraph
+from repro_torch.nn.layers import BatchNorm2d, Conv2d, SqueezeExcite, max_pool
 
 
 class GraphBuilder:
@@ -80,17 +89,29 @@ class GraphBuilder:
 # composite blocks
 # ---------------------------------------------------------------------------
 
-class ConvBNAct:
+class ConvBNAct(nn.Module):
     def __init__(self, cin, cout, k, stride=1, padding=None, groups=1,
                  act: str = "relu", bn: bool = True):
-        self.bn = bn
+        super().__init__()
+        self.conv = Conv2d(cin, cout, k, stride, padding, groups, bias=not bn)
+        self.bn = BatchNorm2d(cout) if bn else None
         self.act = act
         self.cfg = (cin, cout, k, stride, padding, groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.act == "relu":
+            x = F.relu(x)
+        elif self.act == "silu":
+            x = F.silu(x)
+        return x
 
     def emit(self, gb: GraphBuilder, cin, hw, after):
         _, cout, k, stride, padding, groups = self.cfg
         name, hw, c = gb.conv(cin, cout, hw, k, stride, padding, groups,
-                              bias=not self.bn, after=after)
+                              bias=self.bn is None, after=after)
         if self.bn:
             name = gb.bn(c, hw, name)
         if self.act != "none":
@@ -98,12 +119,13 @@ class ConvBNAct:
         return name, hw, c
 
 
-class Bottleneck:
+class Bottleneck(nn.Module):
     """ResNet-50 bottleneck (1x1 -> 3x3 -> 1x1 + skip)."""
 
     expansion = 4
 
     def __init__(self, cin, planes, stride=1):
+        super().__init__()
         cout = planes * self.expansion
         self.b1 = ConvBNAct(cin, planes, 1)
         self.b2 = ConvBNAct(planes, planes, 3, stride)
@@ -111,6 +133,11 @@ class Bottleneck:
         self.down = (ConvBNAct(cin, cout, 1, stride, act="none")
                      if (stride != 1 or cin != cout) else None)
         self.cout = cout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.b3(self.b2(self.b1(x)))
+        idn = self.down(x) if self.down is not None else x
+        return F.relu(y + idn)
 
     def emit(self, gb, cin, hw, after):
         n1, hw1, c1 = self.b1.emit(gb, cin, hw, after)
@@ -124,14 +151,19 @@ class Bottleneck:
         return out, hw3, c3
 
 
-class Fire:
+class Fire(nn.Module):
     """SqueezeNet fire module."""
 
     def __init__(self, cin, squeeze, e1, e3):
+        super().__init__()
         self.sq = ConvBNAct(cin, squeeze, 1, bn=False)
         self.e1 = ConvBNAct(squeeze, e1, 1, bn=False)
         self.e3 = ConvBNAct(squeeze, e3, 3, bn=False)
         self.cout = e1 + e3
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.sq(x)
+        return torch.cat([self.e1(s), self.e3(s)], dim=1)
 
     def emit(self, gb, cin, hw, after):
         ns, hws, cs = self.sq.emit(gb, cin, hw, after)
@@ -141,10 +173,11 @@ class Fire:
         return name, hw1, cout
 
 
-class Inception:
+class Inception(nn.Module):
     """GoogLeNet inception module (v1)."""
 
     def __init__(self, cin, c1, c3r, c3, c5r, c5, pp):
+        super().__init__()
         self.b1 = ConvBNAct(cin, c1, 1)
         self.b3a = ConvBNAct(cin, c3r, 1)
         self.b3b = ConvBNAct(c3r, c3, 3)
@@ -152,6 +185,11 @@ class Inception:
         self.b5b = ConvBNAct(c5r, c5, 3)   # torchvision uses 3x3 here
         self.bp = ConvBNAct(cin, pp, 1)
         self.cout = c1 + c3 + c5 + pp
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.b1(x), self.b3b(self.b3a(x)),
+                          self.b5b(self.b5a(x)), self.bp(max_pool(x, 3, 1, 1))],
+                         dim=1)
 
     def emit(self, gb, cin, hw, after):
         n1, hw1, c1 = self.b1.emit(gb, cin, hw, after)
@@ -166,17 +204,24 @@ class Inception:
         return name, hw1, cout
 
 
-class MBConv:
+class MBConv(nn.Module):
     """EfficientNet MBConv with SE and silu."""
 
     def __init__(self, cin, cout, k, stride, expand, se_ratio=0.25):
+        super().__init__()
         mid = cin * expand
         self.exp = ConvBNAct(cin, mid, 1, act="silu") if expand != 1 else None
         self.dw = ConvBNAct(mid, mid, k, stride, groups=mid, act="silu")
+        self.se = SqueezeExcite(mid, max(1, int(cin * se_ratio)))
         self.proj = ConvBNAct(mid, cout, 1, act="none")
         self.skip = stride == 1 and cin == cout
         self.cout = cout
         self.mid = mid
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.exp(x) if self.exp is not None else x
+        y = self.proj(self.se(self.dw(y)))
+        return y + x if self.skip else y
 
     def emit(self, gb, cin, hw, after):
         name, h, c = after, hw, cin
@@ -194,10 +239,11 @@ class MBConv:
         return name, h, c
 
 
-class XBlock:
+class XBlock(nn.Module):
     """RegNetX block: 1x1 -> 3x3 group conv -> 1x1 + skip."""
 
     def __init__(self, cin, cout, stride, group_width):
+        super().__init__()
         groups = max(cout // group_width, 1)
         self.a = ConvBNAct(cin, cout, 1)
         self.b = ConvBNAct(cout, cout, 3, stride, groups=groups)
@@ -205,6 +251,11 @@ class XBlock:
         self.down = (ConvBNAct(cin, cout, 1, stride, act="none")
                      if (stride != 1 or cin != cout) else None)
         self.cout = cout
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.c(self.b(self.a(x)))
+        idn = self.down(x) if self.down is not None else x
+        return F.relu(y + idn)
 
     def emit(self, gb, cin, hw, after):
         n, h, c = self.a.emit(gb, cin, hw, after)

@@ -1,40 +1,72 @@
 """The paper's six CNN workloads (§V-A): VGG-16, ResNet-50, SqueezeNet V1.1,
 GoogLeNet, RegNetX-400MF, EfficientNet-B0.
 
-Each model exports the partitioner's LayerGraph via ``to_graph()``; the
-full-size graphs drive the cost models exactly as the paper's ONNX graphs
-do.  ``reduced_cnn`` gives the narrow, low-resolution variants.  The blocks
-hold configuration only, so building a full-size model allocates no
-weights.
+Each model is an ``nn.Module`` (inference: ``model(x)`` gives the logits
+of an NCHW batch) *and* exports the partitioner's LayerGraph via
+``to_graph()``; the full-size graphs drive the cost models exactly as the
+paper's ONNX graphs do.  ``reduced_cnn`` gives the narrow, low-resolution
+variants.
+
+A model is built on the ``meta`` device, so building one of any size and
+emitting its graph allocates no weights; ``init_weights(generator,
+device)`` gives it storage on ``device`` and the JAX package's
+initialisation, ``models.convert.load_reference_cnn`` the reference's own
+weights.  Its blocks are registered under their names (``stem``,
+``s1b0``, ``cls``), so parameter names are the reference's pytree paths
+with ``.`` for ``/``.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import torch
+import torch.nn.functional as F
+from torch import nn
+
 from repro_torch.core.graph import LayerGraph
 from repro_torch.models.cnn.blocks import (Bottleneck, ConvBNAct, Fire,
                                            GraphBuilder, Inception, MBConv,
                                            XBlock)
+from repro_torch.nn.layers import Dense, avg_pool, global_avg_pool, max_pool
 
 
-class PoolBlock:
+class PoolBlock(nn.Module):
     def __init__(self, k, stride=None, padding=0, kind="max"):
+        super().__init__()
         self.k, self.s, self.p, self.kind = k, stride or k, padding, kind
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = max_pool if self.kind == "max" else avg_pool
+        return fn(x, self.k, self.s, self.p)
 
     def emit(self, gb, cin, hw, after):
         name, hw2 = gb.pool(cin, hw, self.k, self.s, self.p, after)
         return name, hw2, cin
 
 
-class Classifier:
+class Classifier(nn.Module):
     """GlobalAvgPool -> flatten -> (fc relu)* -> fc logits."""
 
     def __init__(self, cin, hidden: Sequence[int], n_classes: int,
                  global_pool: bool = True, in_hw: Optional[int] = None):
+        super().__init__()
         self.cin, self.hidden, self.n = cin, list(hidden), n_classes
         self.gp = global_pool
         self.in_hw = in_hw
+        dims = ([cin] if global_pool else [cin * in_hw * in_hw]) + self.hidden
+        self.fcs = []
+        for i in range(len(self.hidden)):          # named fc0, fc1, ...
+            fc = Dense(dims[i], dims[i + 1])
+            self.add_module(f"fc{i}", fc)
+            self.fcs.append(fc)
+        self.head = Dense(dims[-1], n_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = global_avg_pool(x) if self.gp else x.reshape(x.shape[0], -1)
+        for fc in self.fcs:
+            x = F.relu(fc(x))
+        return self.head(x)
 
     def emit(self, gb, cin, hw, after):
         if self.gp:
@@ -50,14 +82,39 @@ class Classifier:
         return name, (1, 1), self.n
 
 
-class CNNModel:
-    """Sequence of emit-capable blocks."""
+class CNNModel(nn.Module):
+    """Sequence of emit-capable blocks, each registered under its name."""
 
-    def __init__(self, name: str, blocks: List[Tuple[str, object]],
+    def __init__(self, name: str, blocks: List[Tuple[str, nn.Module]],
                  in_hw: int, in_ch: int = 3):
+        super().__init__()
         self.name = name
         self.blocks = blocks
+        for n, b in blocks:
+            self.add_module(n, b)
         self.in_hw, self.in_ch = in_hw, in_ch
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None,
+                     device="cuda") -> "CNNModel":
+        """Give every parameter and buffer storage on ``device`` (the card
+        by default; raises without one) and the JAX package's
+        initialisation, weights drawn from ``generator``.  Returns the
+        model."""
+        from repro_torch.explore.runner import resolve_device
+        self.to_empty(device=resolve_device(device))
+        for m in self.modules():
+            reset = getattr(m, "reset_parameters", None)
+            if reset is not None:
+                reset(generator)
+        return self
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return run_blocks(self.blocks, x)
 
     def to_graph(self) -> LayerGraph:
         gb = GraphBuilder(self.name)
@@ -71,7 +128,7 @@ class CNNModel:
     def cut_to_block(self, schedule, cut_pos: int) -> int:
         """Map a graph cut position (index into ``schedule``) to the largest
         block index fully contained in the prefix — for executing a chosen
-        partition block by block."""
+        partition with :class:`PartitionedCNNRunner`."""
         assert getattr(self, "graph_boundaries", None), "call to_graph() first"
         prefix = {l.name for l in schedule[: cut_pos + 1]}
         blk = -1
@@ -83,6 +140,14 @@ class CNNModel:
         return blk
 
 
+def run_blocks(blocks: Sequence[Tuple[str, nn.Module]],
+               x: torch.Tensor) -> torch.Tensor:
+    """``x`` through ``blocks`` (a slice of ``CNNModel.blocks``) in turn."""
+    for _, b in blocks:
+        x = b(x)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # the six models
 # ---------------------------------------------------------------------------
@@ -90,7 +155,7 @@ class CNNModel:
 def vgg16(n_classes=1000, in_hw=224, w=1.0, fc_dim=4096) -> CNNModel:
     cfg = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
            512, 512, 512, "M", 512, 512, 512, "M"]
-    blocks: List[Tuple[str, object]] = []
+    blocks: List[Tuple[str, nn.Module]] = []
     cin, i = 3, 0
     for v in cfg:
         if v == "M":
@@ -109,7 +174,7 @@ def vgg16(n_classes=1000, in_hw=224, w=1.0, fc_dim=4096) -> CNNModel:
 def resnet50(n_classes=1000, in_hw=224, w=1.0,
              depths=(3, 4, 6, 3)) -> CNNModel:
     planes = [max(int(p * w), 8) for p in (64, 128, 256, 512)]
-    blocks: List[Tuple[str, object]] = [
+    blocks: List[Tuple[str, nn.Module]] = [
         ("stem", ConvBNAct(3, planes[0], 7, 2, 3)),
         ("pool0", PoolBlock(3, 2, 1)),
     ]
@@ -127,7 +192,7 @@ def resnet50(n_classes=1000, in_hw=224, w=1.0,
 def squeezenet11(n_classes=1000, in_hw=224, w=1.0) -> CNNModel:
     def c(v):
         return max(int(v * w), 8)
-    blocks: List[Tuple[str, object]] = [
+    blocks: List[Tuple[str, nn.Module]] = [
         ("stem", ConvBNAct(3, c(64), 3, 2, 0, bn=False)),
         ("pool0", PoolBlock(3, 2)),
         ("fire1", Fire(c(64), c(16), c(64), c(64))),
@@ -147,8 +212,11 @@ def squeezenet11(n_classes=1000, in_hw=224, w=1.0) -> CNNModel:
     return CNNModel("squeezenet11", blocks, in_hw)
 
 
-class _GPoolHead:
+class _GPoolHead(nn.Module):
     """SqueezeNet head: global average pool of the class conv map."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return global_avg_pool(x)
 
     def emit(self, gb, cin, hw, after):
         name, _ = gb.pool(cin, hw, 0, after=after, global_pool=True)
@@ -171,7 +239,7 @@ def googlenet(n_classes=1000, in_hw=224, w=1.0) -> CNNModel:
         (832, 256, 160, 320, 32, 128, 128),
         (832, 384, 192, 384, 48, 128, 128),
     ]
-    blocks: List[Tuple[str, object]] = [
+    blocks: List[Tuple[str, nn.Module]] = [
         ("stem1", ConvBNAct(3, c(64), 7, 2, 3)),
         ("pool0", PoolBlock(3, 2, 1)),
         ("stem2", ConvBNAct(c(64), c(64), 1)),
@@ -196,7 +264,7 @@ def regnetx_400mf(n_classes=1000, in_hw=224, w=1.0) -> CNNModel:
     depths = (1, 2, 7, 12)
     gw = max(int(16 * w), 4)
     stem = widths[0] if w != 1.0 else 32
-    blocks: List[Tuple[str, object]] = [("stem", ConvBNAct(3, stem, 3, 2))]
+    blocks: List[Tuple[str, nn.Module]] = [("stem", ConvBNAct(3, stem, 3, 2))]
     cin = stem
     for s, (cw, n) in enumerate(zip(widths, depths)):
         for b in range(n):
@@ -215,8 +283,8 @@ def efficientnet_b0(n_classes=1000, in_hw=224, w=1.0) -> CNNModel:
               (6, 320, 1, 3, 1)]
     def c(v):
         return max(int(v * w), 8)
-    blocks: List[Tuple[str, object]] = [("stem", ConvBNAct(3, c(32), 3, 2,
-                                                           act="silu"))]
+    blocks: List[Tuple[str, nn.Module]] = [
+        ("stem", ConvBNAct(3, c(32), 3, 2, act="silu"))]
     cin = c(32)
     for s, (e, co, r, k, st) in enumerate(stages):
         for b in range(r):

@@ -1,5 +1,6 @@
-"""Carry the JAX package's LM weights into the port's ``DecoderLM`` and
-``SSMLM``.
+"""Carry the JAX package's weights into the port: an LM's into
+``DecoderLM`` and ``SSMLM`` (:func:`load_reference_params`), a CNN's into
+``CNNModel`` (:func:`load_reference_cnn`).
 
 The reference keeps an LM's parameters as a pytree whose block leaves are
 stacked over layers: ``embed`` (vocab, D), ``final_norm`` (D), ``head``
@@ -15,17 +16,25 @@ Given that pytree flattened to numpy arrays under ``/``-joined keys,
 it into the port's parameter of the same path (``blocks.<i>.<path>``, the
 hybrid's group g, block j at ``i = g * attn_every + j``; ``shared.<path>``).
 Both packages keep (in, out) layouts, so every copy is one to one.
+
+A CNN's parameters and BatchNorm state are nested dicts keyed by block
+and layer (``s1b0/exp/conv/w``, state ``s1b0/exp/bn/mean``); the port's
+parameter or buffer of the same path (``s1b0.exp.conv.w``) takes each.
+Both packages keep convolutions NCHW with OIHW weights, copied as they
+are; a Dense weight is (in, out) there and (out, in) here, so it is
+transposed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import TokenLM
+from repro_torch.nn.layers import Dense
 
 _TOP = ("embed", "final_norm", "head")
 _STACKED = {"dense": "blocks_dense", "ssm": "blocks", "hybrid": "blocks"}
@@ -86,4 +95,46 @@ def load_reference_params(model: TokenLM,
             raise ValueError(f"{name}: shape {tuple(src.shape)} is not "
                              f"{tuple(p.shape)}")
         p.copy_(src.to(p.dtype))
+    return model
+
+
+def flatten_tree(tree: Mapping[str, Any], prefix: str = ""
+                 ) -> Dict[str, np.ndarray]:
+    """A nested dict of arrays as ``/``-joined keys to numpy arrays."""
+    out: Dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key + "/"))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+@torch.no_grad()
+def load_reference_cnn(model: torch.nn.Module, params: Mapping[str, Any],
+                       state: Mapping[str, Any]) -> torch.nn.Module:
+    """Copy the reference's CNN parameters and BatchNorm state (nested
+    dicts of arrays, or flat ``/``-joined keys) into ``model`` in place:
+    every parameter and buffer must be given exactly once, with its shape.
+    ``model`` must have storage (``init_weights`` first: a model on the
+    ``meta`` device has none).  Returns ``model``."""
+    src = {**flatten_tree(params), **flatten_tree(state)}
+    dense_w = {f"{n}.w" if n else "w" for n, m in model.named_modules()
+               if isinstance(m, Dense)}
+    dst = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    got = {k.replace("/", "."): v for k, v in src.items()}
+    if set(got) != set(dst):
+        raise KeyError(f"parameters differ: missing "
+                       f"{sorted(set(dst) - set(got))}, unexpected "
+                       f"{sorted(set(got) - set(dst))}")
+    for name, t in dst.items():
+        if t.is_meta:
+            raise ValueError(f"{name} is on the meta device: call "
+                             f"init_weights(device=...) first")
+        arr = got[name].T if name in dense_w else got[name]
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: shape {tuple(got[name].shape)} does "
+                             f"not fit {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))
     return model

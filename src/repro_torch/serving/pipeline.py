@@ -1,15 +1,20 @@
-"""Partitioned (multi-platform) inference of a decoder LM — the paper's
+"""Partitioned (multi-platform) inference execution — the paper's
 Definition 1 acted out: stage k runs its contiguous range of blocks, and
-the bytes of the activation crossing each link are counted (float32: the
-stages are not quantized yet).
+the bytes of the activation crossing each link are counted.
+
+:class:`PartitionedCNNRunner` runs a CNN stage at its platform's precision
+(the stage's weights fake-quantized to its bit width) and quantizes the
+activation crossing each link to the producer's width: the measured-
+accuracy oracle of the explorer (``quantize.evaluate``).
+:class:`PartitionedLMRunner` splits a decoder LM (float32 stages).
 
 On one device the stages run in turn; the throughput model (Def. 4) comes
-from per-stage timings.  With quantization off the partitioned logits
-equal the monolithic model's.
+from per-stage timings.  With quantization off the partitioned output
+equals the monolithic model's.
 
-Not ported yet: ``PartitionedCNNRunner`` (with the measured-accuracy
-oracle), quantized stages (they need ``quantize_pytree`` and
-``quantize_tensor``), and ``stage_step_fn`` (with the serve runtime).
+Not ported yet: quantized LM stages (the reference calibrates each weight
+over the stage's stacked layers; ``ROADMAP.md`` B7) and ``stage_step_fn``
+(with the serve runtime, C4).
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.func import functional_call
 
-from repro_torch.core.quant import QuantSpec
+from repro_torch.core.quant import QuantSpec, quantize_pytree, quantize_tensor
 from repro_torch.models.decoder import run_blocks, stacked_caches
 from repro_torch.serving.engine import sync
 
@@ -61,6 +67,70 @@ def link_transfer_bytes(n_elems: int, spec: Optional[QuantSpec]) -> int:
     return int(math.ceil(n_elems * spec.bits / 8))
 
 
+class PartitionedCNNRunner:
+    """Split a ``CNNModel`` at block boundaries across platforms.
+
+    ``cuts=[b]`` puts a stage boundary after block ``b``.  A stage with a
+    ``QuantSpec`` runs on fake-quantized copies of its blocks' parameters
+    (``quantize_pytree``; the model's own weights stay float), a stage
+    without one on the model's weights; BatchNorm statistics are the
+    model's buffers either way.  The activation leaving a quantized stage
+    is fake-quantized to its width (``quantize_tensor``, per tensor), as
+    it would cross the link.
+    """
+
+    def __init__(self, model, cuts: Sequence[int],
+                 quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None):
+        self.model = model
+        self.cuts = list(cuts)
+        n_stages = len(self.cuts) + 1
+        self.quant_specs = (list(quant_specs) if quant_specs
+                            else [None] * n_stages)
+        if len(self.quant_specs) != n_stages:
+            raise ValueError(f"{len(self.quant_specs)} quant specs for "
+                             f"{n_stages} stages")
+        bounds = [0] + [c + 1 for c in self.cuts] + [len(model.blocks)]
+        self.stage_blocks = [model.blocks[a:b]
+                             for a, b in zip(bounds, bounds[1:])]
+        # per stage, per block: its fake-quantized parameters, or None for
+        # the model's own
+        with torch.no_grad():
+            self.stage_params = [
+                [None if spec is None else quantize_pytree(b, spec)
+                 for _, b in blocks]
+                for blocks, spec in zip(self.stage_blocks, self.quant_specs)]
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stage_blocks)
+
+    def _run_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        for (_, b), p in zip(self.stage_blocks[i], self.stage_params[i]):
+            x = b(x) if p is None else functional_call(b, p, (x,))
+        return x
+
+    @torch.no_grad()
+    def run(self, x: torch.Tensor, time_stages: bool = False
+            ) -> Tuple[torch.Tensor, StageReport]:
+        """Logits of the NCHW batch ``x`` through the stages in turn, with
+        each stage's wall time (waiting for the device when
+        ``time_stages``) and the bytes each link carries."""
+        dev = self.model.device
+        lat, link_bytes = [], []
+        for i in range(self.n_stages):
+            t0 = time.perf_counter()
+            x = self._run_stage(i, x)
+            if time_stages:
+                sync(dev)
+            lat.append(time.perf_counter() - t0)
+            if i < self.n_stages - 1:
+                spec = self.quant_specs[i]
+                link_bytes.append(link_transfer_bytes(x.numel(), spec))
+                if spec is not None:
+                    x = quantize_tensor(x, spec)    # fake-quant over the link
+        return x, StageReport(lat, link_bytes)
+
+
 class PartitionedLMRunner:
     """Split a ``DecoderLM`` at block boundaries (pipeline stages).
 
@@ -73,8 +143,8 @@ class PartitionedLMRunner:
                  quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None):
         if quant_specs is not None and any(s is not None for s in quant_specs):
             raise NotImplementedError(
-                "quantized stages need quantize_pytree / quantize_tensor, "
-                "which come with ROADMAP.md B3")
+                "quantized LM stages (weights calibrated over the stage's "
+                "stacked layers) come with ROADMAP.md B7")
         self.model = model
         cfg = model.cfg
         self.cuts = list(cuts)

@@ -1,7 +1,8 @@
 """The import boundary of the port: nothing under ``src/repro_torch`` and
 nothing in ``chip_smoke.py`` or ``chip_profile.py`` imports JAX or the JAX
-package ``repro``, and a CPU search, an LM generation and an SSM forward
-and generation run in a process where JAX cannot be imported at all."""
+package ``repro``, and a CPU search, an LM generation, an SSM forward and
+generation and a CNN's measured accuracy run in a process where JAX cannot
+be imported at all."""
 
 import ast
 import os
@@ -95,6 +96,16 @@ def test_cpu_search_runs_with_jax_blocked():
         gen = GenerationEngine(ssm, max_seq=16).generate(
             np.zeros((1, 4), np.int64), max_new=3)
         assert gen.tokens.shape == (1, 3)
+        from repro_torch.core.graph import linearize
+        from repro_torch.core.quant import QuantSpec
+        from repro_torch.data import SyntheticImages
+        from repro_torch.models.cnn.zoo import reduced_cnn
+        from repro_torch.quantize import cnn_measured_accuracy
+        cnn = reduced_cnn("efficientnet_b0").init_weights(device="cpu")
+        vx, vy = SyntheticImages(n_classes=10, hw=32).eval_set(8)
+        acc = cnn_measured_accuracy(cnn, linearize(cnn.to_graph()), vx, vy,
+                                    [QuantSpec(16), QuantSpec(8)])((40,))
+        assert 0.0 <= acc <= 1.0
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked

@@ -14,10 +14,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.nsga2_torch import nondominated_rank  # noqa: E402
-from repro_torch.kernels import (ops, pareto_rank, ref,  # noqa: E402
-                                 ssd_scan, window_attn)
+from repro_torch.kernels import (ops, pareto_rank,  # noqa: E402
+                                 quant_matmul, ref, ssd_scan, window_attn)
 from repro_torch.models.decoder import DecoderLM  # noqa: E402
+from repro_torch.models.cnn.zoo import reduced_cnn  # noqa: E402
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
+from repro_torch.serving import PartitionedCNNRunner  # noqa: E402
 
 SIZES = (33, 97, 130, 4096)
 
@@ -204,3 +206,91 @@ def test_ssm_forward_through_the_kernel_matches_ref(cuda_device, arch):
     assert ssd_scan.ssd_scan.launches == before + cfg.n_layers
     torch.testing.assert_close(got, model({"tokens": tok}, impl="ref"),
                                rtol=1e-4, atol=1e-4)
+
+
+# -- quant_matmul -----------------------------------------------------------------
+
+def qmm_inputs(m, k, n, bf16, seed, device):
+    """The reference sweep's distribution (tests/test_kernels.py), made with
+    numpy: x normal (optionally rounded through bf16), per-column int8
+    weights, x_scale = max|x| / 127 as a 0-d tensor on the device."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    if bf16:
+        x = x.bfloat16().float()
+    w = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(
+        np.float32))
+    w_scale = w.abs().amax(dim=0) / 127.0
+    w_q = torch.clamp(torch.round(w / w_scale[None, :]), -128, 127).to(
+        torch.int8)
+    x_scale = x.abs().max() / 127.0
+    return tuple(a.to(device) for a in (x, w_q, w_scale, x_scale))
+
+
+# int32 sums are exact and the plain version's float32 sums of integer
+# products are exact while they stay below 2^24 (they do at these shapes),
+# the epilogue is the same two products: the reference's tolerance, 1e-5,
+# at its sweep, ragged shapes and EfficientNet-B0's head; at K = 25088
+# (VGG-16's first classifier layer) a relative bound of 1e-6 of max|y|
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
+                                   (128, 256, 256), (256, 256, 256),
+                                   (100, 96, 50), (1, 1, 1), (3, 5, 7),
+                                   (65, 130, 67), (256, 1280, 1000)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_quant_matmul_kernel_matches_plain_version(cuda_device, m, k, n,
+                                                   bf16):
+    args = qmm_inputs(m, k, n, bf16, m + k + n, cuda_device)
+    got = quant_matmul.quant_matmul(*args)
+    torch.testing.assert_close(got, ops.quant_matmul(*args, impl="ref"),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_kernel_at_vgg16_depth(cuda_device):
+    args = qmm_inputs(256, 25088, 512, False, 1, cuda_device)
+    got = quant_matmul.quant_matmul(*args)
+    want = ops.quant_matmul(*args, impl="ref")
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_quant_matmul_counts_launches_and_rejects_bad_inputs(cuda_device):
+    x, w_q, w_scale, x_scale = qmm_inputs(8, 12, 5, False, 0, cuda_device)
+    before = quant_matmul.quant_matmul.launches
+    ops.quant_matmul(x, w_q, w_scale, x_scale, impl="cuda")
+    assert quant_matmul.quant_matmul.launches == before + 1
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.quant_matmul(x.cpu(), w_q.cpu(), w_scale.cpu(), x_scale.cpu(),
+                         impl="cuda")
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul.quant_matmul(x, w_q.float(), w_scale, x_scale)
+    with pytest.raises(TypeError, match="float32"):
+        quant_matmul.quant_matmul(x.double(), w_q, w_scale, x_scale)
+    with pytest.raises(ValueError, match="not \\(M, K\\) and \\(K, N\\)"):
+        quant_matmul.quant_matmul(x[:, :8].contiguous(), w_q, w_scale,
+                                  x_scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul.quant_matmul(x.t().contiguous().t(), w_q, w_scale,
+                                  x_scale)
+    with pytest.raises(ValueError, match="w_scale"):
+        quant_matmul.quant_matmul(x, w_q, w_scale[:3].contiguous(), x_scale)
+    with pytest.raises(ValueError, match="scalar"):
+        quant_matmul.quant_matmul(x, w_q, w_scale, x_scale.repeat(2))
+    assert quant_matmul.quant_matmul.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuts", [[2], [1, 4]])
+def test_cnn_runner_on_card_equals_monolithic(cuda_device, cuts):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = reduced_cnn("efficientnet_b0").init_weights(
+        torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (8, 3, 32, 32)).astype(np.float32)).to(cuda_device)
+    with torch.no_grad():
+        mono = model(x)
+    part, rep = PartitionedCNNRunner(model, cuts).run(x, time_stages=True)
+    assert torch.equal(part, mono)
+    assert len(rep.latency_s) == len(cuts) + 1

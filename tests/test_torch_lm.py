@@ -289,7 +289,7 @@ def test_partitioned_runner_stage_pieces(lm):
     c = runner.init_stage_caches(1, batch=3, capacity=512)
     assert c["k"].shape == (1, 3, 128, 2, 64)          # capped at the window
     assert c["k"].dtype == torch.float32 and int(c["pos"].sum()) == 0
-    with pytest.raises(NotImplementedError, match="B3"):
+    with pytest.raises(NotImplementedError, match="B7"):
         PartitionedLMRunner(tm, [0], quant_specs=[QuantSpec(8), None])
 
 
