@@ -24,14 +24,16 @@ Then it drives the LM path of ``chip_smoke.py`` (smollm-360m at full width)
 under ``torch.profiler``, after one warm-up of each piece: the forward of
 two 8192-token prompts through the sliding-window kernel, and the
 generation of 32 tokens for 8 prompts of 128 (prefill and decode through
-the KV cache).  For each: wall time, device-busy share, kernel launches
-and the kernels with the most device time.
+the KV cache).  For each: wall time, device-busy share, kernel launches,
+the kernels with the most device time, and the shares of the window kernel
+and of the matrix products.
 
 Last it drives the SSM path of ``chip_smoke.py`` (mamba2-370m at full width
 and depth) the same way: the forward of two 8192-token prompts through the
 SSD scan kernel, and the generation (prefill and decode through the SSM
 caches, no kernel).  For each it also gives the SSD scan kernel's share and
-the matrix products' share of the device time.
+the matrix products' share of the device time, and for the forward each of
+the scan's five launches (``ssd_*``) with its time.
 
 Then the accuracy path of ``chip_smoke.py`` (EfficientNet-B0 at 224, 256
 synthetic images, seeded weights): the monolithic forward, the partitioned
@@ -151,20 +153,25 @@ def main() -> int:
     print(f"  fronts peeled per ranking call: {FRONTS}")
 
     res = profiled("search run", lambda: run_spec(spec, device=str(dev)))
-    lm_profile(dev, chip_smoke.LM_ARCH)
+    lm_profile(dev, chip_smoke.LM_ARCH, groups={
+        "sliding-window attention kernel (window_attn)":
+            lambda k: "window_attn" in k,
+        "matrix products (*gemm*)": lambda k: "gemm" in k.lower()})
     lm_profile(dev, chip_smoke.SSM_ARCH, groups={
         "SSD scan kernel (ssd_*)": lambda k: "ssd_" in k,
-        "matrix products (*gemm*)": lambda k: "gemm" in k.lower()})
+        "matrix products (*gemm*)": lambda k: "gemm" in k.lower()},
+        each=lambda k: "ssd_" in k)
     cnn_profile(dev, [p.cuts for p in res.pareto])
     qmm_profile(dev)
     return 0
 
 
-def profiled(label, fn, top_n=12, groups=None):
+def profiled(label, fn, top_n=12, groups=None, each=None):
     """Run ``fn`` once under ``torch.profiler``; print the wall time, the
     device-busy share, the kernels with the most device time and, for each
     of ``groups`` (label -> test of a kernel's name), its device time and
-    share of the busy time.  Returns what ``fn`` returns."""
+    share of the busy time; then every kernel that ``each`` accepts, with
+    its time a launch.  Returns what ``fn`` returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -191,12 +198,18 @@ def profiled(label, fn, top_n=12, groups=None):
         s = sum(e.self_device_time_total for e in mine) / 1e6
         print(f"  {name}: {s * 1e3:.2f} ms = {100 * s / device_s:.1f} % of "
               f"the busy time, {sum(e.count for e in mine)} launches")
+    for e in kernels:
+        if each is not None and each(e.key):
+            print(f"    {e.key[:66]:66s} {e.self_device_time_total / 1e3:8.2f}"
+                  f" ms, x{e.count}, "
+                  f"{e.self_device_time_total / e.count / 1e3:.4f} ms each")
     return out
 
 
-def lm_profile(dev, arch, groups=None):
+def lm_profile(dev, arch, groups=None, each=None):
     """The forward and generation of ``arch`` (an LM path of
-    ``chip_smoke.py``) under the profiler."""
+    ``chip_smoke.py``) under the profiler; ``groups`` and ``each`` as in
+    :func:`profiled`."""
     import numpy as np
 
     from repro_torch.models.registry import build_model, get_config
@@ -225,7 +238,7 @@ def lm_profile(dev, arch, groups=None):
     engine.generate(prompts, max_new=2)
     torch.cuda.synchronize()
     profiled(f"{arch} forward {chip_smoke.LM_B} x {chip_smoke.LM_T} tokens",
-             forward, groups=groups)
+             forward, groups=groups, each=each)
     profiled(f"{arch} generation {chip_smoke.GEN_REQUESTS} x "
              f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate,
              groups=groups)

@@ -22,7 +22,9 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    the card at ragged sizes and at the LM path's shape (smollm-360m, 2
    prompts of 8192 tokens, window 4096), and times kernel, plain version,
    bound and ``scaled_dot_product_attention`` (the library yardstick,
-   called here only);
+   called here only); the bound counts the 3xTF32 products at the TF32
+   tensor-core peak, with the float32 CUDA-core bound beside it, and the
+   kernel's tensor-core (HMMA) instructions are counted in its SASS;
 5. drives the LM inference path once at full width, with every launch
    count set to 0 just before and read just after: the explorer picks the
    cut of smollm-360m (8192 tokens) between two platforms (``torch_nsga2``,
@@ -35,7 +37,8 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 6. holds the SSD scan kernel against its plain version on the card, at the
    reference's sweep shapes and at mamba2-370m's and zamba2-2.7b's head and
    state sizes over two 8192-token rows, and times kernel, plain version
-   and bound (no single PyTorch call computes the scan);
+   and both bounds, as phase 4 (no single PyTorch call computes the scan),
+   and counts its HMMA instructions;
 7. drives the SSM inference path once at full width and depth, with every
    launch count set to 0 just before and read just after: the explorer
    picks the cut of mamba2-370m (8192 tokens) between the two platforms of
@@ -95,6 +98,10 @@ PEAK_F32_OPS_S = 67e12
 # dense int8 tensor-core operations/s of one H100 SXM (NVIDIA data sheet):
 # the bound of the int8 product kernel
 PEAK_INT8_OPS_S = 1979e12
+# dense TF32 tensor-core operations/s of one H100 SXM (NVIDIA data sheet):
+# window_attn and ssd_scan take each float32 product as three TF32
+# products (3xTF32), so their bound counts 3 x their operations at it
+PEAK_TF32_OPS_S = 495e12
 
 POP, N_GEN, SEED = 16384, 10, 0
 RANK_BLOCK = 2048            # the auto policy's tile rows at this population
@@ -212,6 +219,28 @@ def bound(n_bytes, ops, peak_ops=PEAK_F32_OPS_S):
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bounds_3xtf32(n_bytes, ops):
+    """The bound of a 3xTF32 kernel (3 TF32 operations for each float32
+    one, at the TF32 peak) and, beside it, the float32 CUDA-core bound of
+    the same work: ((ms, by), (ms, by))."""
+    t, by = bound(n_bytes, 3 * ops, PEAK_TF32_OPS_S)
+    return ((t, "operations (3xTF32)" if by == "operations" else by),
+            bound(n_bytes, ops))
+
+
+def print_hmma(source):
+    """Print the HMMA (tensor-core) instructions of each kernel of
+    ``source``'s library, from ``cuobjdump -sass`` where the toolkit has
+    it."""
+    from repro_torch.kernels import _build
+    counts = _build.opcode_counts(source, "HMMA")
+    if counts is None:
+        print(f"  {source}: no cuobjdump in the toolkit, HMMA not counted")
+        return
+    print(f"  {source} HMMA instructions by kernel: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())))
 
 
 def max_abs_err(a, b):
@@ -447,10 +476,14 @@ def check_window_attn(dev):
         qt, kt, vt, attn_mask=mask).transpose(1, 2) - got).abs().max())
     n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     ops_ = b * h * valid_pairs(t, w) * 4 * hd
-    b_ms, b_by = bound(n_bytes, ops_)
+    (b_ms, b_by), (f32_ms, f32_by) = bounds_3xtf32(n_bytes, ops_)
     print(f"window_attn at the LM shape: max_abs_err {err:.3e} (bound "
           f"{WA_TOL_MAIN}); library call differs from the kernel by "
           f"{lib_err:.3e}")
+    print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; float32 on the "
+          f"CUDA cores {f32_ms:.4f} ms, {f32_by})")
+    print_hmma("window_attn.cu")
     return dict(
         name="window_attn", route="cuda",
         source="src/repro_torch/kernels/csrc/window_attn.cu",
@@ -458,7 +491,8 @@ def check_window_attn(dev):
         shape=f"q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, {hd}) f32, "
               f"window {w}",
         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+        library_ms=lib_ms)
 
 
 def lm_spec(arch=LM_ARCH):
@@ -631,10 +665,12 @@ def check_ssd_scan(dev, card):
         err = check(args, chunk, SSD_TOL_MODEL)
         ms = cuda_ms(lambda: ssd_scan.ssd_scan(*args, chunk), 10)
         plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk, impl="ref"), 2)
-        b_ms, b_by = bound(*ssd_work(b, t, h, p, n, chunk))
+        (b_ms, b_by), (f32_ms, f32_by) = bounds_3xtf32(
+            *ssd_work(b, t, h, p, n, chunk))
         print(f"  x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}), chunk {chunk}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) [{card}]")
+              f"{b_ms:.4f} ms ({b_by}; float32 on the CUDA cores "
+              f"{f32_ms:.4f} ms, {f32_by}) [{card}]")
         if arch == SSM_ARCH:
             record = dict(
                 name="ssd_scan", route="cuda",
@@ -643,8 +679,10 @@ def check_ssd_scan(dev, card):
                 shape=f"x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}) f32, "
                       f"chunk {chunk}",
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+                library_ms=None)
         del args
+    print_hmma("ssd_scan.cu")
     return record
 
 
@@ -1032,13 +1070,15 @@ def main() -> int:
             lib += f" (torch._int_mm, product only: {r['int_mm_ms']:.4f} ms)"
         launches = r.get("launches_in",
                          f"on the main path {r['launches']}")
+        f32 = ("" if r.get("bound_f32_ms") is None else
+               f"; float32 CUDA-core bound {r['bound_f32_ms']:.4f} ms")
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), library {lib}, launches {launches}, "
+              f"({r['bound_by']}{f32}), library {lib}, launches {launches}, "
               f"max_abs_err {r['max_abs_err']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "launches_in")
+            "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
+            "library_ms", "launches_in")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(card)

@@ -1,0 +1,318 @@
+"""The design measurements behind the tensor-core kernels, on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_variants.py
+
+The sliding-window attention kernel (K5, ``window_attn.cu``) and the SSD
+scan kernel (K4, ``ssd_scan.cu``) take their products as 3xTF32
+``mma.sync`` (``mma_tf32x3.cuh``).  This script builds, beside the shipped
+sources, copies in which one design choice is changed by a text
+substitution (each variant below names the lines it replaces and what
+takes their place), all with ``nvcc`` in parallel into
+``build/variants/``, and prints:
+
+1. the card's ``mma.sync`` m16n8k8 TF32 rate: independent products in a
+   loop on every SM, the most the 3xTF32 kernels can reach (the data
+   sheet's 495 TFLOP/s is ``wgmma``'s), and the SASS of the two roundings
+   of the split (``cvt.rna.tf32.f32`` and its integer form) in a kernel
+   that only loads, rounds and stores;
+2. for K5 at the LM path's shape (smollm-360m, 2 x 8192 tokens, window
+   4096) and K4 at mamba2-370m's and zamba2-2.7b's (2 x 8192 tokens), each
+   build's time, its largest error against float64 and its signed relative
+   bias, sum((got - exact) sign(exact)) / sum|exact| (negative: a drift
+   toward zero);
+3. the smollm-360m and mamba2-370m forwards at full width and depth over
+   2 x 8192 tokens through each build of their kernel, against the plain
+   forward: the logits' largest error (``chip_smoke.py`` gates 2e-4).
+
+It prints the card's name and power limit first.  It imports nothing of
+JAX.  A machine without a CUDA device exits non-zero.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke  # noqa: E402
+
+OUT = ROOT / "build" / "variants"
+
+SPLIT = ("  hi = to_tf32_non_nan(x);\n"
+         "  lo = to_tf32(x - __uint_as_float(hi));")
+# (name, source, {file: [(shipped text, variant text), ...]})
+VARIANTS = (
+    ("K5 split: cvt for hi and lo", "window_attn.cu", {
+        "mma_tf32x3.cuh": [(SPLIT, SPLIT.replace("to_tf32_non_nan(x)",
+                                                 "to_tf32(x)"))]}),
+    ("K5 split: integer form for hi and lo (drops NaN)", "window_attn.cu", {
+        "mma_tf32x3.cuh": [(SPLIT, SPLIT.replace("to_tf32(x -",
+                                                 "to_tf32_non_nan(x -"))]}),
+    ("K5 one accumulator for O over the whole walk", "window_attn.cu", {
+        "window_attn.cu": [
+            ("        for (int e = 0; e < 4; ++e) pv[mt][n][e] = 0.0f;",
+             "        for (int e = 0; e < 4; ++e)\n"
+             "          acc[mt][n][e] *= alpha[mt][e >> 1];"),
+            ("        mma3(pv[mt], ph, pl, bh, bl);",
+             "        mma3(acc[mt], ph, pl, bh, bl);"),
+            ("          acc[mt][n][e] =\n"
+             "              fmaf(acc[mt][n][e], alpha[mt][e >> 1], "
+             "pv[mt][n][e]);",
+             "          (void)pv;")]}),
+    ("K5 one 16-row slice a warp at every head dim", "window_attn.cu", {
+        "window_attn.cu": [("kMT = HD <= 64 ? 2 : 1;", "kMT = 1;")]}),
+    ("K4 each 32-deep stage in a zeroed fragment", "ssd_scan.cu", {
+        "ssd_scan.cu": [
+            ("    const float* sb = sa + Tl::kA;\n",
+             "    const float* sb = sa + Tl::kA;\n"
+             "    float part[MT][NT][4] = {};\n"),
+            ("        mma3(acc[mt], ah, al, bh, bl);",
+             "        mma3(part[mt], ah, al, bh, bl);"),
+            ("    __syncthreads();   // this stage is free for stage st + 2",
+             "    for (int mt = 0; mt < MT; ++mt)\n"
+             "      for (int nt = 0; nt < NT; ++nt)\n"
+             "        for (int e = 0; e < 4; ++e)\n"
+             "          acc[mt][nt][e] += part[mt][nt][e];\n"
+             "    __syncthreads();")]}),
+    ("K4 64 x 128 state tiles at every N", "ssd_scan.cu", {
+        "ssd_scan.cu": [("  const bool wide = N > 64;",
+                         "  const bool wide = true;")]}),
+)
+
+PEAK_SOURCE = r'''
+#include <cuda_runtime.h>
+#include "mma_tf32x3.cuh"
+__global__ void mma_peak(float* out, int iters) {
+  uint32_t a[4], b[8][2];
+  for (int i = 0; i < 4; ++i)
+    a[i] = tf32x3::to_tf32(threadIdx.x * 1e-3f + i);
+  for (int n = 0; n < 8; ++n) {
+    b[n][0] = tf32x3::to_tf32(n * 0.5f);
+    b[n][1] = tf32x3::to_tf32(threadIdx.x * 1e-3f);
+  }
+  float d[8][4] = {};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) tf32x3::mma_m16n8k8(d[n], a, b[n]);
+  float s = 0.0f;
+  for (int n = 0; n < 8; ++n)
+    for (int e = 0; e < 4; ++e) s += d[n][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+__global__ void round_cvt(const float* x, uint32_t* out) {
+  out[threadIdx.x] = tf32x3::to_tf32(x[threadIdx.x]);
+}
+__global__ void round_integer(const float* x, uint32_t* out) {
+  out[threadIdx.x] = tf32x3::to_tf32_non_nan(x[threadIdx.x]);
+}
+extern "C" int mma_peak_launch(float* out, int iters, int blocks,
+                               void* stream) {
+  mma_peak<<<blocks, 128, 0, (cudaStream_t)stream>>>(out, iters);
+  return cudaGetLastError();
+}
+'''
+
+
+def build():
+    """Write the variants' sources and build them and the rate probe in
+    parallel; returns ({name: library path}, probe library path)."""
+    from repro_torch.kernels import _build
+    if OUT.exists():
+        shutil.rmtree(OUT)
+    jobs = {}
+    for i, (name, source, edits) in enumerate(VARIANTS):
+        d = OUT / f"v{i}"
+        d.mkdir(parents=True)
+        for f in _build.CSRC.iterdir():
+            text = f.read_text()
+            for old, new in edits.get(f.name, ()):
+                assert text.count(old) == 1, (name, f.name, old)
+                text = text.replace(old, new)
+            (d / f.name).write_text(text)
+        jobs[name] = (d / source, d / f"{Path(source).stem}.so")
+    probe = OUT / "mma_peak.cu"
+    probe.write_text(PEAK_SOURCE)
+    jobs["probe"] = (probe, OUT / "mma_peak.so")
+    procs = {name: subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{src.parent}",
+         f"-I{_build.CSRC}", "-o", str(so), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (src, so) in jobs.items()}
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+    _build.build_all()
+    return ({name: so for name, (_, so) in jobs.items() if name != "probe"},
+            jobs["probe"][1])
+
+
+@contextlib.contextmanager
+def using(module, so):
+    """``module``'s wrapper launches the library ``so`` inside the block."""
+    from repro_torch.kernels import _build
+    load, lib = _build.load, module._lib
+    _build.load = lambda source: ctypes.CDLL(str(so))
+    try:
+        variant = module._lib.__wrapped__()   # the wrapper's signatures
+    finally:
+        _build.load = load
+    module._lib = lambda: variant
+    try:
+        yield
+    finally:
+        module._lib = lib
+
+
+def mma_rate(so):
+    lib = ctypes.CDLL(str(so))
+    lib.mma_peak_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+    blocks, iters = 132 * 16, 4096
+    out = torch.empty(blocks * 128, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = chip_smoke.cuda_ms(
+        lambda: lib.mma_peak_launch(out.data_ptr(), iters, blocks, stream), 3)
+    flops = blocks * 4 * iters * 8 * 2 * 16 * 8 * 8
+    print(f"mma.sync m16n8k8 TF32: {flops / ms / 1e9:.1f} TFLOP/s "
+          f"({blocks} blocks of 4 warps, 8 independent accumulators)")
+
+
+def print_rounding_sass(so):
+    """The opcodes of the two rounding probes, from ``cuobjdump -sass``."""
+    from repro_torch.kernels import _build
+    tool = _build._cuobjdump()
+    if tool is None:
+        print("no cuobjdump in the toolkit: the roundings' SASS not shown")
+        return
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    for part in sass.split("Function : ")[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if name in ("_Z9round_cvtPKfPj", "_Z13round_integerPKfPj"):
+            ops = []
+            for line in part.splitlines():
+                if "/*0" in line and ";" in line:
+                    words = line.split(";")[0].split("*/")[-1].split()
+                    ops += words[1:2] if words[:1] and words[0].startswith(
+                        "@") else words[:1]   # the opcode after a predicate
+            print(f"{name}: {' '.join(ops)}")
+
+
+def report(label, got, exact, ms):
+    """Largest error and signed relative bias against float64."""
+    errs, num, den = [], 0.0, 0.0
+    for g, e in zip(got, exact):
+        d = g.double() - e
+        errs.append(float(d.abs().max()))
+        num += float((d * e.sign()).sum())
+        den += float(e.abs().sum())
+    print(f"  {label}: {ms:.4f} ms, max err vs float64 {max(errs):.3e}, "
+          f"bias {num / den:+.3e}")
+
+
+def window_attn_builds(dev, builds):
+    from repro_torch.kernels import ref, window_attn
+    from repro_torch.models.registry import get_config
+    cfg = get_config(chip_smoke.LM_ARCH)
+    b, t, h, kv, hd, w = (chip_smoke.LM_B, chip_smoke.LM_T, cfg.n_heads,
+                          cfg.n_kv, cfg.resolved_head_dim, cfg.window)
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=dev)
+               for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    heads = (0, h // 2, h - 1)          # of batch row 0, exact in float64
+    exact = [ref.window_attn_gqa(q[:1, :, i:i + 1].double(),
+                                 k[:1, :, i // (h // kv)][:, :, None].double(),
+                                 v[:1, :, i // (h // kv)][:, :, None].double(),
+                                 w)[0, :, 0] for i in heads]
+    print(f"K5 window_attn at q ({b}, {t}, {h}, {hd}), window {w} "
+          f"(float64 for heads {heads} of row 0):")
+    for name, so in builds:
+        with using(window_attn, so) if so else contextlib.nullcontext():
+            out = window_attn.window_attn(q, k, v, w)
+            ms = chip_smoke.cuda_ms(lambda: window_attn.window_attn(q, k, v, w),
+                                    10)
+        report(name, [out[0, :, i] for i in heads], exact, ms)
+
+
+def ssd_scan_builds(dev, builds):
+    from repro_torch.kernels import ref, ssd_scan
+    from repro_torch.models.registry import get_config
+    for arch in chip_smoke.SSD_MODELS:
+        cfg = get_config(arch)
+        b, t, chunk = chip_smoke.LM_B, chip_smoke.LM_T, cfg.ssm_chunk
+        h = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+        p, n = cfg.ssm_headdim, cfg.ssm_state
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = torch.randn((b, t, h, p), generator=g, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, t, h), generator=g, device=dev) - 1)
+        A = -torch.exp(torch.randn((h,), generator=g, device=dev) * 0.3)
+        B = torch.randn((b, t, n), generator=g, device=dev) * 0.5
+        C = torch.randn((b, t, n), generator=g, device=dev) * 0.5
+        args = (x, dt, A, B, C)
+        exact = ref.ssd_scan(*(a.double() for a in args), chunk)
+        print(f"K4 ssd_scan at {arch}'s shape x ({b}, {t}, {h}, {p}), "
+              f"N {n}, chunk {chunk} (y and the final state):")
+        for name, so in builds:
+            with using(ssd_scan, so) if so else contextlib.nullcontext():
+                out = ssd_scan.ssd_scan(*args, chunk)
+                ms = chip_smoke.cuda_ms(lambda: ssd_scan.ssd_scan(*args, chunk),
+                                        10)
+            report(name, out, exact, ms)
+        del exact, args
+
+
+def forwards(dev, arch, module, builds):
+    from repro_torch.models.registry import build_model, get_config
+    cfg = get_config(arch)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(chip_smoke.SEED))
+    rng = np.random.default_rng(chip_smoke.SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (chip_smoke.LM_B, chip_smoke.LM_T))).to(dev)}
+    with torch.no_grad():
+        want = model(batch, impl="ref")
+        print(f"{arch} forward, {chip_smoke.LM_B} x {chip_smoke.LM_T} "
+              f"tokens, logits against the plain forward:")
+        for name, so in builds:
+            with using(module, so) if so else contextlib.nullcontext():
+                err = float((model(batch, impl="cuda") - want).abs().max())
+            print(f"  {name}: max_abs_err {err:.3e}")
+    del model, want
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_variants: no CUDA device available", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import ssd_scan, window_attn
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(chip_smoke.card_line())
+    libs, probe = build()
+    mma_rate(probe)
+    print_rounding_sass(probe)
+    shipped = ("shipped", None)
+    k5 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K5")]
+    k4 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K4")]
+    window_attn_builds(dev, k5)
+    ssd_scan_builds(dev, k4)
+    forwards(dev, chip_smoke.LM_ARCH, window_attn, k5)
+    forwards(dev, chip_smoke.SSM_ARCH, ssd_scan, k4)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into ``build/`` at
-the repository root (a name that carries a hash of the source, so an edited
-source is rebuilt).  All sources are compiled at once, one ``nvcc`` process
+the repository root (a name that carries a hash of the source and of the
+``csrc/*.cuh`` headers it includes, so an edited source or header is
+rebuilt).  All sources are compiled at once, one ``nvcc`` process
 each, started together.  The libraries are loaded with :mod:`ctypes`.
 """
 
@@ -12,10 +13,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -23,6 +25,8 @@ SOURCES = ("pareto_rank.cu", "window_attn.cu", "ssd_scan.cu",
            "quant_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -41,10 +45,26 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
-def _target(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}_{digest}.so"
+def _headers(source: str, csrc: Path = CSRC) -> List[Path]:
+    """The headers of ``csrc`` that ``source`` includes with quotes,
+    directly or through another such header, sorted."""
+    found: List[Path] = []
+    todo = [csrc / source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = csrc / name
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return sorted(found)
+
+
+def _target(source: str, csrc: Path = CSRC) -> Path:
+    h = hashlib.sha256((csrc / source).read_bytes())
+    for header in _headers(source, csrc):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Path]:
@@ -58,7 +78,8 @@ def build_all() -> Dict[str, Path]:
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        cmd = [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
+               str(CSRC / src)]
         procs[src] = (tmp, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -71,6 +92,46 @@ def build_all() -> Dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return targets
+
+
+def _cuobjdump() -> Optional[str]:
+    nvcc = Path(_nvcc())
+    tool = nvcc.with_name("cuobjdump")
+    return str(tool) if tool.exists() else shutil.which("cuobjdump")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``window_attn_kernel<64>`` for the mangled name of that instance."""
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):   # overlapping
+        start = m.start() + len(m.group(1))
+        end = start + int(m.group(1))           # <length><identifier>
+        if mangled[start:end].endswith("_kernel"):
+            args = re.match(r"I((?:L\w\d+E)+)E", mangled[end:])
+            values = re.findall(r"L\w(\d+)E", args.group(1)) if args else []
+            return mangled[start:end] + (
+                f"<{','.join(values)}>" if values else "")
+    return mangled
+
+
+def opcode_counts(source: str, opcode: str) -> Optional[Dict[str, int]]:
+    """How many ``opcode`` instructions (e.g. ``HMMA``) each kernel of
+    ``source``'s built library holds, from ``cuobjdump -sass``; None where
+    the toolkit has no ``cuobjdump``."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(build_all()[source])],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts: Dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
 
 
 def load(source: str) -> ctypes.CDLL:

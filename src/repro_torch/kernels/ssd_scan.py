@@ -7,7 +7,11 @@ without the D skip, returning y and the final (P, N) state of every
 order with the state in scratch memory, the CUDA version runs the chunks in
 parallel (cumulative decays, C·Bᵀ per chunk, per-chunk states, one pass
 over the chunks for the carried states, the output) in five launches on
-the current stream.
+the current stream.  Its three products run on Hopper's tensor cores at
+float32 accuracy (3xTF32 ``mma.sync``, ``csrc/mma_tf32x3.cuh``) from
+operand tiles that ``cp.async`` double-buffers in shared memory, with the
+decay, ``dt`` and ``exp(cs)`` factors applied to the fragments in
+registers; the pass over chunks is bound by the bytes of the chunk states.
 
 On a CPU tensor :func:`ssd_scan` runs the kernel's plain version
 (``kernels.ref.ssd_scan``); on a CUDA tensor it launches the kernel or

@@ -3,9 +3,15 @@
 The kernel (``csrc/window_attn.cu``) replaces the JAX package's Pallas TPU
 kernel ``repro/kernels/window_attn.py::window_attn``: causal attention in
 which query i sees the keys (i - window, i], computed tile by tile with an
-online softmax so that no (T, T) score matrix exists.  One thread block
-per (64-query tile, head, batch row) walks the key tiles its window
-touches; GQA reads KV head ``h // (H // Kv)`` by index.
+online softmax so that no (T, T) score matrix exists.  It is flash
+attention on Hopper's tensor cores at float32 accuracy: both products,
+Q·Kᵀ and P·V, are 3xTF32 ``mma.sync`` (each float32 operand split into
+two TF32 values, three TF32 products summed in float32,
+``csrc/mma_tf32x3.cuh``).  One block of 4 warps per (query tile, head,
+batch row) walks the key tiles its window touches, K and V double-buffered
+in shared memory by ``cp.async``; each warp keeps its scores and output
+rows in registers (two 16-row slices for head dims up to 64, one above).
+GQA reads KV head ``h // (H // Kv)`` by index.
 
 On a CPU tensor :func:`window_attn` runs the kernel's plain version
 (``kernels.ref.window_attn_gqa``); on a CUDA tensor it launches the kernel

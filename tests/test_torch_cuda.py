@@ -109,6 +109,41 @@ def test_window_attn_kernel_matches_plain_version(cuda_device, t, window):
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+# the head dims above 64 (one 16-row slice a warp, 32-key tiles at 160)
+# and smollm-360m's 15 query / 5 KV heads, at the same tolerance
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd,t,window", [(4, 2, 128, 300, 100),
+                                              (4, 2, 160, 300, 100),
+                                              (3, 1, 160, 129, 200),
+                                              (15, 5, 64, 1000, 300)])
+def test_window_attn_kernel_head_dims_and_smollm_heads(cuda_device, h, kv,
+                                                       hd, t, window):
+    q, k, v = qkv(2, t, h, kv, hd, t + hd, cuda_device)
+    got = window_attn.window_attn(q, k, v, window)
+    want = ops.window_attn(q, k, v, window, impl="ref")
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# a NaN in q or k reaches the rows that see it, as in the plain version:
+# the 3xTF32 split rounds hi by an integer add, which turns a NaN whose
+# payload fills the mantissa (the card's canonical 0x7fffffff) into -0, so
+# lo = x - hi takes the cvt, which keeps the NaN
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["q", "k"])
+@pytest.mark.parametrize("word", [0x7FFFFFFF, -1, 0x7FC00000])
+def test_window_attn_kernel_propagates_nan(cuda_device, which, word):
+    q, k, v = qkv(1, 200, 2, 2, 64, 5, cuda_device)
+    x = q if which == "q" else k
+    x.view(torch.int32)[0, 70, 1, 3] = word      # -1: 0xffffffff
+    got = window_attn.window_attn(q, k, v, 50)
+    want = ops.window_attn(q, k, v, 50, impl="ref")
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert int(torch.isnan(got).sum()) > 0
+    finite = ~torch.isnan(want)
+    torch.testing.assert_close(got[finite], want[finite], rtol=2e-5,
+                               atol=2e-5)
+
+
 @pytest.mark.cuda
 def test_window_attn_counts_launches_and_rejects_bad_inputs(cuda_device):
     q, k, v = qkv(1, 64, 4, 2, 64, 0, cuda_device)
@@ -172,6 +207,40 @@ def test_ssd_scan_kernel_matches_plain_version(cuda_device, t, chunk, h, p,
     y_ref, state_ref = ops.ssd_scan(*args, chunk, impl="ref")
     torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(state, state_ref, rtol=2e-4, atol=2e-4)
+
+
+# P and N that are not multiples of 8 (4-float copies where they are not
+# multiples of 4), a chunk of 256 (its factor arrays past the 64-row tiles),
+# and zamba2's N 64 and mamba2's N 128 state tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,chunk,h,p,n", [(256, 64, 2, 20, 12),
+                                           (192, 64, 3, 7, 5),
+                                           (512, 256, 2, 64, 128),
+                                           (512, 256, 3, 20, 12),
+                                           (300, 100, 2, 70, 66),
+                                           (256, 128, 2, 64, 64)])
+def test_ssd_scan_kernel_ragged_widths_and_long_chunks(cuda_device, t,
+                                                       chunk, h, p, n):
+    args = ssd_inputs(2, t, h, p, n, t + p + n, cuda_device)
+    y, state = ssd_scan.ssd_scan(*args, chunk)
+    y_ref, state_ref = ops.ssd_scan(*args, chunk, impl="ref")
+    torch.testing.assert_close(y, y_ref, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, state_ref, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source,kernels", [
+    ("window_attn.cu", ("window_attn_kernel",)),
+    ("ssd_scan.cu", ("ssd_cb_kernel", "ssd_state_kernel", "ssd_out_kernel"))])
+def test_products_run_on_tensor_cores(cuda_device, source, kernels):
+    """Every instance of the kernels that hold K5's and K4's products
+    contains HMMA (tensor-core) instructions in its SASS."""
+    from repro_torch.kernels import _build
+    counts = _build.opcode_counts(source, "HMMA")
+    if counts is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump to read the SASS")
+    mine = {k: v for k, v in counts.items() if k.startswith(kernels)}
+    assert mine and all(v > 0 for v in mine.values()), counts
 
 
 @pytest.mark.cuda

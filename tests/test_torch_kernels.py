@@ -4,7 +4,8 @@ versions: the Pareto-domination pair against the JAX package's
 Pallas-interpret impls) and the dense ``nsga2_jax.domination_matrix``, bit
 for bit, at ragged sizes, with duplicated rows, all-infeasible populations
 and alive masks; sliding-window attention against the JAX package's Pallas
-kernel in interpret mode; the dispatch rules.  The CUDA kernels themselves
+kernel in interpret mode; the dispatch rules; the build's library names.
+The CUDA kernels themselves
 are held against these plain versions in ``test_torch_cuda.py`` (on a card
 only)."""
 
@@ -192,6 +193,45 @@ def test_window_attn_dispatch_and_cpu_wrapper():
         ops.window_attn(q, k, v, 40, impl="cuda")
     with pytest.raises(ValueError, match="no kernel for device"):
         window_attn.window_attn(q.to("meta"), k.to("meta"), v.to("meta"), 40)
+
+
+# -- build --------------------------------------------------------------------
+
+def test_build_target_name_hashes_the_included_headers(tmp_path):
+    """An edited header (here one the source reaches through another)
+    gives a new library name, so the edit is rebuilt; the same contents
+    give the same name."""
+    from repro_torch.kernels import _build
+    (tmp_path / "k.cu").write_text(
+        '#include <cuda_runtime.h>\n#include "a.cuh"\nint f();\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    names = []
+    for body in ("int b = 1;\n", "int b = 2;\n", "int b = 1;\n"):
+        (tmp_path / "b.cuh").write_text(body)
+        names.append(_build._target("k.cu", tmp_path).name)
+    assert names[0] != names[1] and names[0] == names[2]
+    assert all(n.startswith("k_") and n.endswith(".so") for n in names)
+    assert [h.name for h in _build._headers("k.cu", tmp_path)] == [
+        "a.cuh", "b.cuh"]
+    # the port's two tensor-core kernels share the 3xTF32 header
+    for source in ("window_attn.cu", "ssd_scan.cu"):
+        assert [h.name for h in _build._headers(source)] == [
+            "mma_tf32x3.cuh"]
+    assert _build._headers("pareto_rank.cu") == []
+
+
+def test_kernel_names_from_the_sass_listing():
+    from repro_torch.kernels import _build
+    assert _build._kernel_name(
+        "_ZN47_GLOBAL__N__6b3ac481_14_window_attn_cu_b8087fe218window_attn_"
+        "kernelILi64EEEvPKfS2_S2_Pfiiii") == "window_attn_kernel<64>"
+    assert _build._kernel_name(
+        "_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_18d893fe16ssd_state_kernel"
+        "ILb1ELi8EEEvPKfS2_S2_S2_Pfiiii") == "ssd_state_kernel<1,8>"
+    assert _build._kernel_name(
+        "_ZN44_GLOBAL__N__70402df9_11_ssd_scan_cu_18d893fe17ssd_cumsum_"
+        "kernelEPKfS1_Pfxii") == "ssd_cumsum_kernel"
+    assert _build._kernel_name("not_mangled") == "not_mangled"
 
 
 # -- popcount -----------------------------------------------------------------

@@ -1,0 +1,129 @@
+"""Run the port's tensor-core kernels on the CPU through a host shim.
+
+A CUDA source with a plain C interface is rewritten for ``g++`` (each
+``kernel<<<grid, block, smem, stream>>>(args)`` becomes a call of
+``shim_launch``, the dynamic shared array a pointer into a buffer of the
+launch's bytes) and built against ``cuda_runtime.h`` here, which runs one
+``std::thread`` per CUDA thread, the blocks one at a time, and supplies what
+``mma_tf32x3.cuh`` keeps under ``__CUDACC__`` (the rounding, the ``mma`` as
+a warp collective over the fragment layout, ``cp.async`` as a copy).  The
+library is built with AddressSanitizer, so a read past a buffer stops the
+run.  The kernels are then held against their plain PyTorch versions at
+small shapes: a rehearsal before a first chip call, not a measurement (the
+shim sums each ``mma`` in double and rounds to nearest; the card does not).
+
+    LD_PRELOAD=$(g++ -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0 \\
+        PYTHONPATH=src python3 tools/cuda_host_shim/rehearse.py [out_dir]
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.kernels import ref  # noqa: E402
+
+CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?),\s*([^,]*?),\s*([^,]*?),"
+                    r"\s*(\w+)>>>\s*\((.*?)\);", re.S)
+
+
+def build(source: Path, out: Path) -> ctypes.CDLL:
+    """``source`` rewritten for the shim and built into ``out``."""
+    text = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
+                  r"float* \1 = reinterpret_cast<float*>(g_block->dyn.data());",
+                  source.read_text())
+    text = LAUNCH.sub(lambda m: (
+        f"shim_launch(dim3({m.group(2)}), dim3({m.group(3)}), {m.group(4)}, "
+        f"[&]{{ {m.group(1)}({m.group(6)}); }});"), text)
+    cpp = out.with_suffix(".cpp")
+    cpp.write_text(text)
+    subprocess.run(["g++", "-std=c++20", "-O1", "-g", "-fsanitize=address",
+                    "-ffp-contract=off", "-fPIC", "-shared", "-pthread",
+                    f"-I{HERE}", f"-I{source.parent}", "-o", str(out),
+                    str(cpp)], check=True)
+    return ctypes.CDLL(str(out))
+
+
+def window_attn(lib, b, t, h, kv, hd, window, seed, nan_word=None):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    if nan_word is not None:   # a NaN of these bits in q
+        q.view(torch.int32)[0, t // 2, 0, 1] = nan_word
+    out = torch.full_like(q, float("nan"))
+    code = lib.window_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  out.data_ptr(), b, t, h, kv, hd,
+                                  min(window, t + 1), None)
+    want = ref.window_attn_gqa(q, k, v, window)
+    nan = torch.isnan(want)
+    err = float((out[~nan] - want[~nan]).abs().max())
+    ok = code == 0 and err < 2e-5 and torch.equal(torch.isnan(out), nan)
+    print(f"window_attn b {b} t {t} h {h}/{kv} hd {hd} window {window}"
+          f"{'' if nan_word is None else f' NaN {nan_word & 0xffffffff:#x}'}:"
+          f" max_abs_err {err:.3e}{'' if ok else '  FAILED'}", flush=True)
+    return ok
+
+
+def ssd_scan(lib, b, t, h, p, n, chunk, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, t, h, p))
+    dt = np.log1p(np.exp(rng.standard_normal((b, t, h)) - 1))
+    A = -np.exp(rng.standard_normal(h) * 0.3)
+    B = rng.standard_normal((b, t, n)) * 0.5
+    C = rng.standard_normal((b, t, n)) * 0.5
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (x, dt, A, B, C)]
+    nc = t // chunk
+    nan = float("nan")
+    y = torch.full_like(args[0], nan)
+    final = torch.full((b, h, p, n), nan)
+    scratch = (torch.full((b, nc, h, chunk), nan),
+               torch.full((b, nc, chunk, chunk), nan),
+               torch.full((b, nc, h, p, n), nan))
+    code = lib.ssd_scan_launch(*(a.data_ptr() for a in (*args, y, final,
+                                                        *scratch)),
+                               b, t, h, p, n, chunk, None)
+    y_ref, final_ref = ref.ssd_scan(*args, chunk)
+    err = max(float((y - y_ref).abs().max()),
+              float((final - final_ref).abs().max()))
+    ok = code == 0 and err < 2e-4
+    print(f"ssd_scan b {b} t {t} h {h} p {p} n {n} chunk {chunk}: "
+          f"max_abs_err {err:.3e}{'' if ok else '  FAILED'}", flush=True)
+    return ok
+
+
+def main() -> int:
+    out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
+    out.mkdir(parents=True, exist_ok=True)
+    p_, i_ = ctypes.c_void_p, ctypes.c_int
+    wa = build(CSRC / "window_attn.cu", out / "window_attn.so")
+    wa.window_attn_launch.argtypes = [p_, p_, p_, p_] + [i_] * 6 + [p_]
+    ssd = build(CSRC / "ssd_scan.cu", out / "ssd_scan.so")
+    ssd.ssd_scan_launch.argtypes = [p_] * 10 + [i_] * 6 + [p_]
+    ok = [window_attn(wa, *case, seed=i) for i, case in enumerate((
+        (1, 1, 1, 1, 32, 1), (1, 100, 2, 2, 32, 64), (1, 130, 3, 1, 64, 100),
+        (2, 129, 2, 2, 64, 129), (1, 300, 3, 3, 64, 37),
+        (1, 80, 1, 1, 128, 50), (1, 70, 3, 1, 160, 20)))]
+    ok += [window_attn(wa, 1, 200, 2, 2, 64, 50, 5, nan_word=w)
+           for w in (0x7FFFFFFF, -1, 0x7FC00000)]
+    ok += [ssd_scan(ssd, *case, seed=i) for i, case in enumerate((
+        (2, 128, 2, 16, 8, 32), (2, 256, 3, 32, 16, 64),
+        (1, 256, 2, 20, 12, 256), (1, 64, 2, 7, 5, 16),
+        (1, 200, 1, 64, 128, 100), (1, 96, 1, 70, 66, 32)))]
+    print(f"{sum(ok)} of {len(ok)} cases within their tolerance")
+    return 0 if all(ok) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
