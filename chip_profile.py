@@ -15,7 +15,17 @@ generations) four times:
    the whole ranking, crowding, survivor selection, the final-front
    kernel), plus the number of fronts each ranking peels;
 4. once under ``torch.profiler`` (CPU and CUDA activities): the device-busy
-   share of the wall time and the kernels with the most device time.
+   share of the wall time, the kernels with the most device time, and the
+   device time of the two Pareto kernels (K1 ``packed_domination``, K2
+   ``domination_counts``) with each launch's time.
+
+``python3 chip_profile.py --search`` stops there.  ``--cold`` instead
+runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
+timers on the phase-3 search (the first search of the process), then the
+same search again warm.  The search part needs
+of ``chip_smoke.py`` only ``main_spec`` and ``card_line``, so a copy of
+this file beside an older tree's ``chip_smoke.py`` times that tree's search
+the same way.
 
 The stage timers synchronize the device around every stage, so the third
 run can be slower than the second; its stage shares are what it is for.
@@ -114,19 +124,12 @@ def instrument():
     partition_torch.make_runtime_eval_fn = timed_make_eval
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_profile: no CUDA device available", file=sys.stderr)
-        return 2
+def search_profile(dev):
+    """The search path's four runs (warm-up, untimed, stage-timed,
+    profiled, with K1's and K2's device time); returns the last result."""
     from repro_torch.explore import run_spec
 
-    dev = torch.device("cuda", 0)
-    # the numerics of chip_smoke.py: float32 products and convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     spec = chip_smoke.main_spec()
-    print(chip_smoke.card_line())
-
     t = time.perf_counter()
     run_spec(spec, device=str(dev))
     torch.cuda.synchronize()
@@ -140,19 +143,65 @@ def main() -> int:
     print(f"untimed run: wall {wall:.3f} s")
 
     instrument()
+    stage_timed("stage-timed run", lambda: run_spec(spec, device=str(dev)))
+
+    return profiled("search run", lambda: run_spec(spec, device=str(dev)),
+                    groups={
+                        "K1 packed_domination_kernel":
+                            lambda k: "packed_domination" in k,
+                        "K2 domination_counts_kernel":
+                            lambda k: "domination_counts" in k},
+                    each=lambda k: "domination" in k)
+
+
+def stage_timed(label, fn):
+    """``fn()`` (a search, with :func:`instrument` on): its wall and each
+    stage's seconds and share, then the timers cleared."""
     t = time.perf_counter()
-    run_spec(spec, device=str(dev))
+    fn()
     torch.cuda.synchronize()
-    timed_wall = time.perf_counter() - t
-    print(f"stage-timed run: wall {timed_wall:.3f} s")
+    wall = time.perf_counter() - t
+    print(f"{label}: wall {wall:.3f} s")
     for name, s in STAGES.items():
-        print(f"  {name:42s} {s:8.3f} s  {100 * s / timed_wall:5.1f} %")
+        print(f"  {name:42s} {s:8.3f} s  {100 * s / wall:5.1f} %")
     inner = sum(s for n, s in STAGES.items() if n != "ranking total")
     print(f"  {'outside the timed stages (host set-up)':42s} "
-          f"{timed_wall - inner:8.3f} s")
+          f"{wall - inner:8.3f} s")
     print(f"  fronts peeled per ranking call: {FRONTS}")
+    STAGES.clear()
+    FRONTS.clear()
 
-    res = profiled("search run", lambda: run_spec(spec, device=str(dev)))
+
+def cold_search(dev):
+    """``chip_smoke.py``'s phases 1-3 as it runs them, with the stage
+    timers on phase 3's search (the first search of the process), then the
+    same search again, warm."""
+    from repro_torch.explore import run_spec
+    from repro_torch.kernels import _build
+    _build.build_all()
+    chip_smoke.check_kernels(dev)
+    chip_smoke.check_ranking(dev)
+    spec = chip_smoke.main_spec()
+    instrument()
+    for label in ("cold search (phase 3 of chip_smoke.py)", "warm search"):
+        stage_timed(label, lambda: run_spec(spec, device=str(dev)))
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("chip_profile: no CUDA device available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    # the numerics of chip_smoke.py: float32 products and convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(chip_smoke.card_line())
+    if "--cold" in argv:
+        cold_search(dev)
+        return 0
+    res = search_profile(dev)
+    if "--search" in argv:
+        return 0
     lm_profile(dev, chip_smoke.LM_ARCH, groups={
         "sliding-window attention kernel (window_attn)":
             lambda k: "window_attn" in k,
@@ -377,4 +426,4 @@ def qmm_profile(dev=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,7 +10,10 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 1. holds every kernel of the search path against its plain PyTorch version
    on the card, bit for bit (packed domination words and dominator counts
    are integers: tolerance 0), at the main path's shapes and at ragged
-   sizes, and times kernel, plain version and the kernel's lower bound;
+   sizes, on the search's populations and on edge cases (NaN, -0.0, +inf,
+   ties, m 3 and 8), and times kernel, plain version and the kernel's lower
+   bound; it prints both kernels' SASS instructions per pair (FSETP, VOTE,
+   POPC, LDS of their 32-column loop) and the instruction floor they imply;
 2. checks the tiled ranking on the card against the dense ranking on the
    CPU on a small population (exact ranks);
 3. drives the search path once through ``repro_torch.explore.run_spec``:
@@ -79,7 +82,9 @@ device.
 
 from __future__ import annotations
 
+import collections
 import json
+import re
 import subprocess
 import sys
 import time
@@ -247,31 +252,100 @@ def max_abs_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def inner_loop(instrs):
+    """The instructions of the smallest loop (a backward branch) that holds
+    a warp vote: the kernel's walk over 32 columns; None if the listing
+    shows no such loop."""
+    best = None
+    for addr, op, args in instrs:
+        target = re.match(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if target is None or int(target.group(1), 16) >= addr:
+            continue
+        body = [i for i in instrs
+                if int(target.group(1), 16) <= i[0] <= addr]
+        if any(i[1].startswith("VOTE") for i in body) and (
+                best is None or len(body) < len(best)):
+            best = body
+    return best
+
+
+def print_pareto_sass(pairs):
+    """Instructions per pair of K1 and K2 (m <= 3) from their SASS: the
+    loop over 32 columns holds 32 x R pairs a lane (R word rows a warp),
+    and the instruction floor that implies on this card (one warp instruction a
+    clock on each of 4 schedulers an SM, at the card's maximum SM clock).
+    ``pairs``: kernel name -> pair tests of its main-path call."""
+    from repro_torch.kernels import _build, pareto_rank
+    listing = _build.sass("pareto_rank.cu")
+    if listing is None:
+        print("  pareto_rank.cu: no cuobjdump in the toolkit, SASS not read")
+        return
+    lane_pairs = 32 * pareto_rank._lib().pareto_rows_per_lane()
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, n_pairs in pairs.items():
+        instrs = listing[f"{name}_kernel<3>"]
+        loop = inner_loop(instrs)
+        where = "the 32-column loop"
+        if loop is None:
+            loop, where = instrs, "the whole kernel (no loop found)"
+        by_op = collections.Counter(op for _, op, _ in loop)
+        per_pair = len(loop) / lane_pairs
+        floor_ms = per_pair * n_pairs / 32 / (sms * 4 * clock_mhz * 1e6) * 1e3
+        counts = ", ".join(f"{op} {by_op[op] / lane_pairs:.3f}"
+                           for op in ("FSETP", "VOTE", "POPC", "LDS"))
+        top = ", ".join(f"{op} {c}" for op, c in by_op.most_common(8))
+        print(f"  {name} SASS, {where} ({len(loop)} instructions for "
+              f"{lane_pairs} pairs a lane): {per_pair:.3f} a pair ({counts}); "
+              f"most common {top}; instruction floor {floor_ms:.4f} ms for "
+              f"{n_pairs:.3e} pairs ({sms} SMs at {clock_mhz:.0f} MHz)")
+
+
 def check_kernels(dev):
     """Phase 1: each kernel against its plain version on the card; returns
     the per-kernel records (launches filled in after the main path)."""
     from repro_torch.kernels import ops, pareto_rank, ref
+    from repro_torch.testing import edge_population
 
     cases = [(n, p, s) for n in RAGGED for p, s in ((0.3, n), (1.0, n + 1),
                                                     (0.0, n + 2))]
     for n, infeas, seed in cases:
-        F, CV = (torch.from_numpy(a).to(dev) for a in population(
-            n, infeas=infeas, seed=seed))
         alive = torch.from_numpy(np.random.default_rng(seed).random(n)
                                  < 0.5).to(dev)
-        for block in (32, 64):
-            got = pareto_rank.packed_domination(
-                F, CV, F, CV, bp=ops._row_tile(block), bq=ops._COL_TILE)
-            want = ref.packed_domination(F, CV, F, CV, block)
-            assert torch.equal(got, want), ("packed_domination", n, infeas)
-        for mask in (torch.ones_like(alive), alive):
-            assert torch.equal(pareto_rank.domination_counts(F, CV, mask),
-                               ref.domination_counts(F, CV, mask)), (
-                "domination_counts", n, infeas)
-    print(f"ragged sizes {RAGGED} x infeasible share (0.3, 1.0, 0.0): "
-          f"both kernels bit-exact")
+        inputs = [tuple(torch.from_numpy(a) for a in population(
+            n, infeas=infeas, seed=seed))]
+        inputs += [edge_population(n, m, infeas, seed) for m in (3, 8)]
+        for F, CV in inputs:
+            F, CV = F.to(dev), CV.to(dev)
+            for block, bq in ((32, 32), (64, ops._COL_TILE)):
+                got = pareto_rank.packed_domination(
+                    F, CV, F, CV, bp=ops._row_tile(block), bq=bq)
+                want = ref.packed_domination(F, CV, F, CV, block)
+                assert torch.equal(got, want), ("packed_domination", n,
+                                                 infeas)
+            for mask in (torch.ones_like(alive), alive):
+                assert torch.equal(
+                    pareto_rank.domination_counts(F, CV, mask),
+                    ref.domination_counts(F, CV, mask)), (
+                    "domination_counts", n, infeas)
+    print(f"ragged sizes {RAGGED} x infeasible share (0.3, 1.0, 0.0), the "
+          f"search's populations and the edge cases (NaN, -0.0, +inf, ties; "
+          f"m 3 and 8), all alive and under a mask: both kernels bit-exact")
 
     records = []
+    # K1 at the first ranking's shape (the initial population)
+    Fh, CVh = population(POP, seed=5)
+    F, CV = torch.from_numpy(Fh).to(dev), torch.from_numpy(CVh).to(dev)
+    tile = dict(bp=ops._row_tile(RANK_BLOCK), bq=ops._COL_TILE)
+    assert torch.equal(pareto_rank.packed_domination(F, CV, F, CV, **tile),
+                       ref.packed_domination(F, CV, F, CV, RANK_BLOCK))
+    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, F, CV, **tile),
+                 20)
+    print(f"packed_domination at the first ranking's shape (n {POP}, 1 "
+          f"launch a search): kernel {ms:.4f} ms, bit-exact")
     # K1 at the main path's shape: the combined population of a generation
     n2 = 2 * POP
     Fh, CVh = population(n2, seed=1)
@@ -319,6 +393,8 @@ def check_kernels(dev):
         shape=f"F ({POP}, {m}) f32, all alive -> counts ({POP},) int32",
         launches=0, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
         bound_by=b_by, library_ms=None))
+    print_pareto_sass({"packed_domination": n2 * n2,
+                       "domination_counts": POP * POP})
     return records
 
 

@@ -26,6 +26,14 @@ takes their place), all with ``nvcc`` in parallel into
    2 x 8192 tokens through each build of their kernel, against the plain
    forward: the logits' largest error (``chip_smoke.py`` gates 2e-4).
 
+The Pareto kernels (K1 ``packed_domination``, K2 ``domination_counts``,
+``pareto_rank.cu``) come first: each build's K1 time at the search's shape
+(n 32768) and K2's at the final front's (n 16384), both held bit-exact to
+the plain versions, for the word rows a warp holds (R), K2's row splits
+and columns a block, and K2's splits summed by a second launch instead of
+``atomicAdd``; then the shipped K1 at other row and column tiles.
+``python3 chip_variants.py --pareto`` stops there.
+
 It prints the card's name and power limit first.  It imports nothing of
 JAX.  A machine without a CUDA device exits non-zero.
 """
@@ -51,6 +59,35 @@ OUT = ROOT / "build" / "variants"
 
 SPLIT = ("  hi = to_tf32_non_nan(x);\n"
          "  lo = to_tf32(x - __uint_as_float(hi));")
+ROWS_PER_LANE = "constexpr int kRowsPerLane = 4;"
+COUNT_ROWS = "constexpr int kCountRows = 1024;"
+COUNT_COLS = "constexpr int kCountCols = 256;"
+# K2's second-launch combine: each split's sums go to a (splits, n) device
+# array, and a second kernel adds them up per column.
+COUNT_SCRATCH = "constexpr unsigned kAll = 0xffffffffu;"
+COUNT_ADD = "      atomicAdd(&counts[q0 + c], s_count[c]);"
+COUNT_LAUNCHER = "template <int M>\nint launch_counts("
+COUNT_LAUNCH = """  domination_counts_kernel<M><<<grid, kWarps * 32, bytes, s>>>(
+      f_rows, cv_rows, alive_rows, r, f_cols, cv_cols, n, m, out);
+  return static_cast<int>(cudaGetLastError());"""
+SECOND_LAUNCH = [
+    (COUNT_SCRATCH, COUNT_SCRATCH + "\n__device__ int32_t g_partial[1 << 20];"),
+    (COUNT_ADD, "      g_partial[(size_t)blockIdx.y * n + q0 + c] = s_count[c];"),
+    (COUNT_LAUNCHER, """__global__ void count_splits_kernel(int splits, int n, int32_t* counts) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  int32_t s = 0;
+  for (int i = 0; i < splits; ++i) s += g_partial[(size_t)i * n + q];
+  counts[q] = s;
+}
+
+""" + COUNT_LAUNCHER),
+    (COUNT_LAUNCH, """  if ((size_t)grid.y * n > (1u << 20)) return cudaErrorInvalidValue;
+""" + COUNT_LAUNCH.replace("  return static_cast<int>(cudaGetLastError());", """\
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != cudaSuccess) return err;
+  count_splits_kernel<<<(n + 255) / 256, 256, 0, s>>>(grid.y, n, out);
+  return static_cast<int>(cudaGetLastError());"""))]
 # (name, source, {file: [(shipped text, variant text), ...]})
 VARIANTS = (
     ("K5 split: cvt for hi and lo", "window_attn.cu", {
@@ -88,6 +125,18 @@ VARIANTS = (
     ("K4 64 x 128 state tiles at every N", "ssd_scan.cu", {
         "ssd_scan.cu": [("  const bool wide = N > 64;",
                          "  const bool wide = true;")]}),
+    ("K1/K2 R = 1 word row a warp", "pareto_rank.cu", {
+        "pareto_rank.cu": [(ROWS_PER_LANE, ROWS_PER_LANE.replace("4", "1"))]}),
+    ("K1/K2 R = 2 word rows a warp", "pareto_rank.cu", {
+        "pareto_rank.cu": [(ROWS_PER_LANE, ROWS_PER_LANE.replace("4", "2"))]}),
+    ("K1/K2 R = 8 word rows a warp", "pareto_rank.cu", {
+        "pareto_rank.cu": [(ROWS_PER_LANE, ROWS_PER_LANE.replace("4", "8"))]}),
+    ("K2 4 row splits (4096 rows each)", "pareto_rank.cu", {
+        "pareto_rank.cu": [(COUNT_ROWS, COUNT_ROWS.replace("1024", "4096"))]}),
+    ("K2 64 columns a block", "pareto_rank.cu", {
+        "pareto_rank.cu": [(COUNT_COLS, COUNT_COLS.replace("256", "64"))]}),
+    ("K2 splits summed by a second launch", "pareto_rank.cu", {
+        "pareto_rank.cu": SECOND_LAUNCH}),
 )
 
 PEAK_SOURCE = r'''
@@ -274,6 +323,41 @@ def ssd_scan_builds(dev, builds):
         del exact, args
 
 
+def pareto_builds(dev, builds):
+    """K1 at the search's shape (n 32768) and K2 at the final front's (n
+    16384) through each build, bit-exact against the plain versions; then
+    the shipped K1 at other row and column tiles."""
+    from repro_torch.kernels import ops, pareto_rank, ref
+    pop = chip_smoke.POP
+    F, CV = (torch.from_numpy(a).to(dev)
+             for a in chip_smoke.population(2 * pop, seed=1))
+    F2, CV2 = (torch.from_numpy(a).to(dev)
+               for a in chip_smoke.population(pop, seed=2))
+    ones = torch.ones(pop, dtype=torch.bool, device=dev)
+    words = ref.packed_domination(F, CV, F, CV, chip_smoke.RANK_BLOCK)
+    counts = ref.domination_counts(F2, CV2, ones, chip_smoke.RANK_BLOCK)
+    tile = dict(bp=ops._row_tile(chip_smoke.RANK_BLOCK), bq=ops._COL_TILE)
+    print(f"K1 packed_domination at F ({2 * pop}, 3), tiles {tile}; "
+          f"K2 domination_counts at F ({pop}, 3):")
+    for name, so in builds:
+        with using(pareto_rank, so) if so else contextlib.nullcontext():
+            assert torch.equal(pareto_rank.packed_domination(
+                F, CV, F, CV, **tile), words), name
+            assert torch.equal(pareto_rank.domination_counts(F2, CV2, ones),
+                               counts), name
+            k1 = chip_smoke.cuda_ms(
+                lambda: pareto_rank.packed_domination(F, CV, F, CV, **tile),
+                20)
+            k2 = chip_smoke.cuda_ms(
+                lambda: pareto_rank.domination_counts(F2, CV2, ones), 20)
+        print(f"  {name}: K1 {k1:.4f} ms, K2 {k2:.4f} ms, both bit-exact")
+    for bp, bq in ((1024, 256), (4096, 256), (2048, 64), (2048, 128),
+                   (2048, 512), (2048, 1024)):
+        ms = chip_smoke.cuda_ms(lambda: pareto_rank.packed_domination(
+            F, CV, F, CV, bp=bp, bq=bq), 20)
+        print(f"  shipped K1 at bp {bp}, bq {bq}: {ms:.4f} ms")
+
+
 def forwards(dev, arch, module, builds):
     from repro_torch.models.registry import build_model, get_config
     cfg = get_config(arch)
@@ -293,7 +377,7 @@ def forwards(dev, arch, module, builds):
     del model, want
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device available", file=sys.stderr)
         return 2
@@ -302,9 +386,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(chip_smoke.card_line())
     libs, probe = build()
+    shipped = ("shipped", None)
+    pareto_builds(dev, [shipped] + [(n, s) for n, s in libs.items()
+                                    if n.startswith(("K1", "K2"))])
+    if "--pareto" in argv:
+        return 0
     mma_rate(probe)
     print_rounding_sass(probe)
-    shipped = ("shipped", None)
     k5 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K5")]
     k4 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K4")]
     window_attn_builds(dev, k5)
@@ -315,4 +403,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

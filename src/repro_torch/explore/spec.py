@@ -24,6 +24,9 @@ VALID_OBJECTIVES = ("latency", "energy", "throughput", "bandwidth",
 # accepted too (SearchSettings falls back to the live registry)
 VALID_STRATEGIES = ("auto", "exhaustive", "multicut", "nsga2",
                     "torch_nsga2")
+# the JAX package's names for the same settings, mapped to the port's
+REFERENCE_NAMES = {"strategy": {"jit_nsga2": "torch_nsga2"},
+                   "rank_impl": {"pallas": "cuda"}}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,6 +241,16 @@ class SearchSettings:
       (``run_search(..., warm_cuts=...)``, as the online re-partitioner
       does).  ``False`` forces a cold uniform init even when warm cuts are
       available — the A/B switch behind the warm-vs-cold quality tests.
+
+    The JAX package's names load as aliases (``REFERENCE_NAMES``):
+    ``strategy="jit_nsga2"`` becomes ``"torch_nsga2"`` and
+    ``rank_impl="pallas"`` becomes ``"cuda"``, so a spec written by the
+    reference runs here.  The settings keep only the port's names, so
+    ``to_dict``/``to_json`` and a sweep's ``spec_hash`` carry them: a spec
+    loaded from the reference hashes like the same spec written with the
+    port's names, and differs from the reference's own hash — a fleet
+    manifest built by the reference is refused on resume, which is right,
+    since the strategy that runs differs.
     """
 
     strategy: str = "auto"
@@ -255,6 +268,9 @@ class SearchSettings:
     warm_start: bool = True
 
     def __post_init__(self):
+        for field, names in REFERENCE_NAMES.items():
+            value = getattr(self, field)
+            object.__setattr__(self, field, names.get(value, value))
         if self.rank_impl not in ("auto", "ref", "cuda"):
             raise ValueError(f"unknown rank_impl {self.rank_impl!r}; "
                              f"expected 'auto', 'ref' or 'cuda'")

@@ -17,7 +17,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -113,25 +113,52 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
+_SASS_LINE = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+
+
+def parse_sass(listing: str) -> Dict[str, List[Tuple[int, str, str]]]:
+    """Each kernel's instructions in a ``cuobjdump -sass`` listing, as
+    (address, opcode without modifiers or predicate, operands)."""
+    kernels: Dict[str, List[Tuple[int, str, str]]] = {}
+    name = None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = _kernel_name(line.split("Function :")[1].strip())
+            kernels[name] = []
+            continue
+        m = _SASS_LINE.match(line)
+        if name is None or m is None:
+            continue
+        words = m.group(2).split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            kernels[name].append((int(m.group(1), 16),
+                                  words[0].split(".")[0],
+                                  " ".join(words[1:])))
+    return kernels
+
+
+def sass(source: str) -> Optional[Dict[str, List[Tuple[int, str, str]]]]:
+    """:func:`parse_sass` of ``source``'s built library; None where the
+    toolkit has no ``cuobjdump``."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    return parse_sass(subprocess.run(
+        [tool, "-sass", str(build_all()[source])], capture_output=True,
+        text=True, check=True, timeout=300).stdout)
+
+
 def opcode_counts(source: str, opcode: str) -> Optional[Dict[str, int]]:
     """How many ``opcode`` instructions (e.g. ``HMMA``) each kernel of
     ``source``'s built library holds, from ``cuobjdump -sass``; None where
     the toolkit has no ``cuobjdump``."""
-    tool = _cuobjdump()
-    if tool is None:
+    listing = sass(source)
+    if listing is None:
         return None
-    sass = subprocess.run([tool, "-sass", str(build_all()[source])],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts: Dict[str, int] = {}
-    name = None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = _kernel_name(line.split("Function :")[1].strip())
-            counts[name] = 0
-        elif name and re.search(rf"\b{opcode}\b", line):
-            counts[name] += 1
-    return counts
+    return {k: sum(op == opcode for _, op, _ in instrs)
+            for k, instrs in listing.items()}
 
 
 def load(source: str) -> ctypes.CDLL:

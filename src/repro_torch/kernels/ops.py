@@ -37,9 +37,9 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
 
 # -- pareto_rank ----------------------------------------------------------------
 
-# column tile of the packed-domination thread block (one thread per column):
-# rows follow the caller's block (the knob trades per-block work against the
-# number of blocks) while the column width stays fixed at any row count
+# columns a packed-domination block stages in shared memory; its rows follow
+# the caller's block.  The kernel's time is flat over 64-1024 columns and
+# 1024-4096 rows at the search's shape (chip_variants.py --pareto)
 _COL_TILE = 256
 
 

@@ -2,14 +2,15 @@
 
 The kernels (``csrc/pareto_rank.cu``) replace the JAX package's Pallas
 TPU kernels ``repro/kernels/pareto_rank.py::packed_domination`` and
-``::domination_counts``:
+``::domination_counts``.  Both put 32 dominator rows on the 32 lanes of a
+warp and test them against one column at a time with the branch-free Deb
+test:
 
-* :func:`packed_domination` — one thread per output word column, walking
-  its row tile's 32-row words; writes the bit-packed domination rows
-  (32 dominators per 32-bit word, ``nsga2_torch._pack_bits`` layout).
-* :func:`domination_counts` — one thread per column, streaming every
-  dominator row through shared memory and counting the alive ones that
-  dominate it in a register (no atomics: exact and deterministic).
+* :func:`packed_domination` — the warp's vote (``__ballot_sync``) is the
+  packed word (32 dominators per 32-bit word, ``nsga2_torch._pack_bits``
+  layout);
+* :func:`domination_counts` — the vote's popcount, summed over row splits
+  of the grid by integer ``atomicAdd`` (exact, independent of order).
 
 On a CPU tensor each wrapper runs the kernel's plain version
 (``kernels.ref``); on a CUDA tensor it launches the kernel or raises.
@@ -26,7 +27,6 @@ import torch
 from repro_torch.kernels import ref as _ref
 
 _SOURCE = "pareto_rank.cu"
-_COUNT_COLS_PER_BLOCK = 128   # domination_counts: fills 132 SMs at n=16384
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -41,10 +41,11 @@ def _lib() -> ctypes.CDLL:
         _p, _p, _i, _p, _p, _i, _i, _i, _i, _p, _p]
     lib.packed_domination_launch.restype = _i
     lib.domination_counts_launch.argtypes = [
-        _p, _p, _p, _i, _p, _p, _i, _i, _i, _p, _p]
+        _p, _p, _p, _i, _p, _p, _i, _i, _p, _p]
     lib.domination_counts_launch.restype = _i
-    lib.pareto_max_objectives.argtypes = []
-    lib.pareto_max_objectives.restype = _i
+    for name in ("pareto_max_objectives", "pareto_rows_per_lane"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = _i
     lib.pareto_error_string.argtypes = [_i]
     lib.pareto_error_string.restype = ctypes.c_char_p
     return lib
@@ -77,9 +78,10 @@ def packed_domination(f_rows: torch.Tensor, cv_rows: torch.Tensor,
     (f_rows, cv_rows) Deb-dominates column q of (f_cols, cv_cols).
 
     f_rows (r, m), f_cols (n, m) float32; a thread block covers ``bp``
-    rows (a multiple of 32) by ``bq`` columns (one thread per column, a
-    multiple of 32 up to 1024).  Returns (ceil(r/32), n) int32 words
-    carrying the uint32 bit pattern.
+    dominator rows (a multiple of 32; its 8 warps walk them 4 words at a
+    time) by ``bq`` columns (staged in shared memory, a multiple of 32 up
+    to 1024).  Returns (ceil(r/32), n) int32 words carrying the uint32 bit
+    pattern.
     """
     if f_rows.device.type == "cpu":
         return _ref.packed_domination(f_rows, cv_rows, f_cols, cv_cols, bp)
@@ -139,13 +141,12 @@ def domination_counts(F: torch.Tensor, CV: torch.Tensor,
     if m > lib.pareto_max_objectives():
         raise ValueError(f"domination_counts: {m} objectives exceed the "
                          f"kernel's {lib.pareto_max_objectives()}")
-    out = torch.empty(n, dtype=torch.int32, device=dev)
+    out = torch.zeros(n, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.domination_counts_launch(
             F.data_ptr(), CV.data_ptr(), alive.data_ptr(), n, F.data_ptr(),
-            CV.data_ptr(), n, m, _COUNT_COLS_PER_BLOCK, out.data_ptr(),
-            stream)
+            CV.data_ptr(), n, m, out.data_ptr(), stream)
     _check(lib, code, "domination_counts")
     domination_counts.launches += 1
     return out

@@ -16,12 +16,13 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.nsga2_torch import nondominated_rank  # noqa: E402
 from repro_torch.kernels import (ops, pareto_rank,  # noqa: E402
                                  quant_matmul, ref, ssd_scan, window_attn)
+from repro_torch import testing  # noqa: E402
 from repro_torch.models.decoder import DecoderLM  # noqa: E402
 from repro_torch.models.cnn.zoo import reduced_cnn  # noqa: E402
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
 from repro_torch.serving import PartitionedCNNRunner  # noqa: E402
 
-SIZES = (33, 97, 130, 4096)
+SIZES = (33, 97, 130, 4096, 4099)
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -44,17 +45,26 @@ def cuda_device():
 @pytest.mark.parametrize("n", SIZES)
 @pytest.mark.parametrize("infeas", (0.0, 0.3, 1.0))
 def test_kernels_match_plain_versions(cuda_device, n, infeas):
-    F, CV = (torch.from_numpy(a).to(cuda_device)
-             for a in population(n, infeas=infeas, seed=n))
+    """The search's populations and the edge cases of
+    ``testing.edge_population`` (NaN objectives and violations, -0.0, +inf,
+    equal violations, duplicates) at m = 1, 3 and 8, over row and column
+    tiles."""
     alive = torch.from_numpy(np.random.default_rng(n).random(n) < 0.5).to(
         cuda_device)
-    for block in (32, 64, 2048):
-        got = pareto_rank.packed_domination(F, CV, F, CV,
-                                            bp=ops._row_tile(block))
-        assert torch.equal(got, ref.packed_domination(F, CV, F, CV, block))
-    for mask in (torch.ones_like(alive), alive):
-        assert torch.equal(pareto_rank.domination_counts(F, CV, mask),
-                           ref.domination_counts(F, CV, mask))
+    inputs = [tuple(torch.from_numpy(a) for a in population(
+        n, infeas=infeas, seed=n))]
+    inputs += [testing.edge_population(n, m, infeas, seed=n + m)
+               for m in (1, 3, 8)]
+    for F, CV in inputs:
+        F, CV = F.to(cuda_device), CV.to(cuda_device)
+        for block, bq in ((32, 256), (64, 32), (2048, 256), (2048, 1024)):
+            got = pareto_rank.packed_domination(F, CV, F, CV, bq=bq,
+                                                bp=ops._row_tile(block))
+            assert torch.equal(got,
+                               ref.packed_domination(F, CV, F, CV, block))
+        for mask in (torch.ones_like(alive), alive):
+            assert torch.equal(pareto_rank.domination_counts(F, CV, mask),
+                               ref.domination_counts(F, CV, mask))
 
 
 @pytest.mark.cuda
@@ -74,6 +84,22 @@ def test_kernels_count_launches_and_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="objectives exceed"):
         G = torch.zeros((64, 9), device=cuda_device)
         pareto_rank.packed_domination(G, CV, G, CV)
+
+
+@pytest.mark.cuda
+def test_pareto_kernels_pack_and_count_by_warp_vote(cuda_device):
+    """Both Pareto kernels vote (VOTE) in their SASS; the counting kernel
+    takes the vote's popcount (POPC)."""
+    from repro_torch.kernels import _build
+    votes = _build.opcode_counts("pareto_rank.cu", "VOTE")
+    if votes is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump to read the SASS")
+    popc = _build.opcode_counts("pareto_rank.cu", "POPC")
+    for kernel in ("packed_domination_kernel", "domination_counts_kernel"):
+        mine = {k: v for k, v in votes.items() if k.startswith(kernel)}
+        assert mine and all(v > 0 for v in mine.values()), votes
+    assert all(v > 0 for k, v in popc.items()
+               if k.startswith("domination_counts_kernel")), popc
 
 
 @pytest.mark.cuda

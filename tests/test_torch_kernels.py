@@ -236,6 +236,43 @@ def test_kernel_names_from_the_sass_listing():
 
 # -- popcount -----------------------------------------------------------------
 
+def test_sass_listing_parsed_by_kernel():
+    from repro_torch.kernels import _build
+    listing = """
+\t\tFunction : _ZN12_GLOBAL__N_124packed_domination_kernelILi3EEEvPKfS2_iS2_S2_iiiiPj
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   FSETP.GTU.AND P0, PT, R2, RZ, PT ;      /* 0x000000ff0200720b */
+        /*0020*/              @!P0 VOTE.ANY R4, PT, P1 ;                   /* 0x0000000000048806 */
+        /*0030*/               @P0 BRA 0x10 ;                              /* 0xffffffd000000947 */
+        /*0040*/                   EXIT ;                                  /* 0x000000000000794d */
+\t\tFunction : _Z9round_cvtPKfPj
+        /*0000*/                   FSETP.NEU.AND P0, PT, R2, R2, PT ;      /* 0x0000000202007a0b */
+"""
+    got = _build.parse_sass(listing)
+    assert list(got) == ["packed_domination_kernel<3>", "_Z9round_cvtPKfPj"]
+    assert got["packed_domination_kernel<3>"] == [
+        (0x0, "LDC", "R1, c[0x0][0x28]"), (0x10, "FSETP", "P0, PT, R2, RZ, PT"),
+        (0x20, "VOTE", "R4, PT, P1"), (0x30, "BRA", "0x10"), (0x40, "EXIT", "")]
+    assert got["_Z9round_cvtPKfPj"] == [(0x0, "FSETP", "P0, PT, R2, R2, PT")]
+
+
+def test_variant_recipes_match_the_shipped_sources_once(monkeypatch):
+    """Each ``chip_variants.py`` recipe replaces text that its shipped
+    source holds exactly once (that script asserts it on the card)."""
+    from pathlib import Path
+    from repro_torch.kernels import _build
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_variants
+    assert {s for _, s, _ in chip_variants.VARIANTS} >= {
+        "pareto_rank.cu", "window_attn.cu", "ssd_scan.cu"}
+    for name, _, edits in chip_variants.VARIANTS:
+        for f, subs in edits.items():
+            text = (_build.CSRC / f).read_text()
+            for old, new in subs:
+                assert text.count(old) == 1 and old != new, (name, old)
+
+
 def test_popcount32_matches_numpy_including_bit31():
     rng = np.random.default_rng(0)
     u = np.concatenate([

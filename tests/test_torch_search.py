@@ -5,6 +5,8 @@ strategy, merged restarts, exact re-scoring of the front, the
 measured-accuracy fallback, the spec plumbing, and the default ``cuda``
 device refusing to run without a card."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -15,6 +17,8 @@ from repro.core.accuracy import ProxyAccuracy as JProxy  # noqa: E402
 from repro.core.graph import linearize as jlinearize  # noqa: E402
 from repro.core.partition import PartitionEvaluator as JEvaluator  # noqa: E402
 from repro.explore import PlatformSpec as JPlatformSpec  # noqa: E402
+from repro.explore import ExplorationSpec as JSpec  # noqa: E402
+from repro.explore import ModelRef as JModelRef  # noqa: E402
 from repro.explore import SearchSettings as JSettings  # noqa: E402
 from repro.explore import SystemSpec as JSystemSpec  # noqa: E402
 from repro.explore import run_search as jrun_search  # noqa: E402
@@ -23,8 +27,9 @@ from repro_torch.core.accuracy import MeasuredAccuracy, ProxyAccuracy  # noqa: E
 from repro_torch.core.graph import linearize  # noqa: E402
 from repro_torch.core.partition import PartitionEvaluator  # noqa: E402
 from repro_torch.explore import (ExplorationSpec, ModelRef,  # noqa: E402
-                                 PlatformSpec, SearchSettings, SystemSpec,
-                                 TorchNSGA2Search, run_search, run_spec)
+                                 PlatformSpec, SearchSettings, SweepSpec,
+                                 SystemSpec, TorchNSGA2Search, run_search,
+                                 run_spec)
 from repro_torch.explore.strategies import STRATEGIES  # noqa: E402
 from repro_torch.models.cnn.zoo import build_cnn  # noqa: E402
 
@@ -172,8 +177,50 @@ def test_spec_roundtrip_and_validation():
     assert res.n_evaluated == 48 * 4
     assert STRATEGIES["torch_nsga2"] is TorchNSGA2Search
     with pytest.raises(ValueError, match="rank_impl"):
-        SearchSettings(rank_impl="pallas")
+        SearchSettings(rank_impl="triton")
     with pytest.raises(ValueError, match="unknown strategy"):
-        SearchSettings(strategy="jit_nsga2")
+        SearchSettings(strategy="jit_nsga3")
     graph, shared = ModelRef("registry", "smollm-360m", {"seq": 64}).build()
     assert shared is None and len(graph.nodes) == 2 + 2 * 32
+
+
+# -- the reference's names for the search settings ------------------------------
+
+def test_reference_settings_load_with_the_ports_names():
+    d = dataclasses.asdict(JSettings(strategy="jit_nsga2", rank_impl="pallas",
+                                     pop_size=64, rank_block=128))
+    got = SearchSettings(**d)
+    assert (got.strategy, got.rank_impl) == ("torch_nsga2", "cuda")
+    assert got == SearchSettings(strategy="torch_nsga2", rank_impl="cuda",
+                                 pop_size=64, rank_block=128)
+    assert SearchSettings(rank_impl="pallas").strategy == "auto"
+
+
+def test_reference_spec_json_loads_and_hashes_like_the_ports():
+    plats = tuple(JPlatformSpec(n, a, bits=b) for n, a, b in PLATS)
+    jspec = JSpec(model=JModelRef("cnn", "efficientnet_b0", {"in_hw": 64}),
+                  system=JSystemSpec(platforms=plats,
+                                     links=("gige", "gige", "gige")),
+                  objectives=OBJECTIVES,
+                  search=JSettings(strategy="jit_nsga2", rank_impl="pallas",
+                                   pop_size=256, n_gen=4, seed=3))
+    got = ExplorationSpec.from_json(jspec.to_json())
+    want = ExplorationSpec(
+        model=ModelRef("cnn", "efficientnet_b0", {"in_hw": 64}),
+        system=FOUR_PLATFORM, objectives=OBJECTIVES,
+        search=SearchSettings(strategy="torch_nsga2", rank_impl="cuda",
+                              pop_size=256, n_gen=4, seed=3))
+    assert got == want
+    assert got.to_json() == want.to_json()
+    assert (SweepSpec(template=got).spec_hash()
+            == SweepSpec(template=want).spec_hash())
+    assert '"jit_nsga2"' in jspec.to_json() and "jit_nsga2" not in got.to_json()
+
+
+@pytest.mark.parametrize("field,name", [("strategy", "jit_nsga"),
+                                        ("strategy", "pallas"),
+                                        ("rank_impl", "jit_nsga2"),
+                                        ("rank_impl", "interpret")])
+def test_unknown_search_names_still_raise(field, name):
+    with pytest.raises(ValueError, match="unknown"):
+        SearchSettings(**{field: name})

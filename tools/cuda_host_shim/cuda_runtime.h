@@ -50,17 +50,32 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
+inline float __int_as_float(int32_t i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+inline int atomicAdd(int32_t* a, int32_t v) { return __atomic_fetch_add(a, v, __ATOMIC_RELAXED); }
 
 struct ShimBlock {
   std::unique_ptr<std::barrier<>> block_bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
   std::vector<float> shfl;            // [warp][32]
+  std::vector<uint32_t> vote;         // [warp][32]
   std::vector<uint32_t> fa, fb;       // [warp][32][4], [warp][32][2]
   std::vector<char> dyn;
 };
 inline ShimBlock* g_block = nullptr;
 inline void __syncthreads() { g_block->block_bar->arrive_and_wait(); }
 inline void warp_sync() { g_block->warp_bars[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { warp_sync(); }
+inline uint32_t __ballot_sync(unsigned, int pred) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* buf = &g_block->vote[warp * 32];
+  buf[lane] = pred ? 1u << lane : 0u;
+  warp_sync();
+  uint32_t r = 0;
+  for (int i = 0; i < 32; ++i) r |= buf[i];
+  warp_sync();
+  return r;
+}
 inline float __shfl_xor_sync(unsigned, float v, int m, int w = 32) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* buf = &g_block->shfl[warp * 32];
@@ -122,6 +137,7 @@ void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
   for (int w = 0; w < (n + 31) / 32; ++w)
     sb.warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32, n - 32 * w)));
   sb.shfl.resize(n + 32);
+  sb.vote.resize(n + 32);
   sb.fa.resize((n / 32 + 1) * 128);
   sb.fb.resize((n / 32 + 1) * 64);
   sb.dyn.resize(smem);

@@ -1,4 +1,4 @@
-"""Run the port's tensor-core kernels on the CPU through a host shim.
+"""Run the port's CUDA kernels on the CPU through a host shim.
 
 A CUDA source with a plain C interface is rewritten for ``g++`` (each
 ``kernel<<<grid, block, smem, stream>>>(args)`` becomes a call of
@@ -6,9 +6,10 @@ A CUDA source with a plain C interface is rewritten for ``g++`` (each
 launch's bytes) and built against ``cuda_runtime.h`` here, which runs one
 ``std::thread`` per CUDA thread, the blocks one at a time, and supplies what
 ``mma_tf32x3.cuh`` keeps under ``__CUDACC__`` (the rounding, the ``mma`` as
-a warp collective over the fragment layout, ``cp.async`` as a copy).  The
-library is built with AddressSanitizer, so a read past a buffer stops the
-run.  The kernels are then held against their plain PyTorch versions at
+a warp collective over the fragment layout, ``cp.async`` as a copy) and
+what ``pareto_rank.cu`` uses (the warp vote ``__ballot_sync``, ``__popc``,
+``atomicAdd``).  The library is built with AddressSanitizer, so a read past
+a buffer stops the run.  The kernels are then held against their plain PyTorch versions at
 small shapes: a rehearsal before a first chip call, not a measurement (the
 shim sums each ``mma`` in double and rounds to nearest; the card does not).
 
@@ -33,6 +34,7 @@ ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.testing import edge_population  # noqa: E402
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?),\s*([^,]*?),\s*([^,]*?),"
@@ -103,6 +105,29 @@ def ssd_scan(lib, b, t, h, p, n, chunk, seed):
     return ok
 
 
+def pareto_rank(lib, n, m, infeas, seed, bp=2048, bq=256, alive=True):
+    """Both Pareto kernels against their plain versions, bit for bit."""
+    F, CV = edge_population(n, m, infeas, seed)
+    mask = torch.from_numpy(np.random.default_rng(seed).random(n) < 0.5)
+    words = torch.full(((n + 31) // 32, n), -1, dtype=torch.int32)
+    code = lib.packed_domination_launch(
+        F.data_ptr(), CV.data_ptr(), n, F.data_ptr(), CV.data_ptr(), n, m,
+        bp, bq, words.data_ptr(), None)
+    ok = code == 0 and torch.equal(words, ref.packed_domination(F, CV, F, CV))
+    for rows in ((torch.ones(n, dtype=torch.bool), mask) if alive
+                 else (torch.ones(n, dtype=torch.bool),)):
+        counts = torch.zeros(n, dtype=torch.int32)
+        alive_i = rows.to(torch.int32)
+        code = lib.domination_counts_launch(
+            F.data_ptr(), CV.data_ptr(), alive_i.data_ptr(), n, F.data_ptr(),
+            CV.data_ptr(), n, m, counts.data_ptr(), None)
+        ok &= code == 0 and torch.equal(
+            counts, ref.domination_counts(F, CV, rows))
+    print(f"pareto_rank n {n} m {m} infeasible {infeas} bp {bp} bq {bq}: "
+          f"{'bit-exact' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def main() -> int:
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
     out.mkdir(parents=True, exist_ok=True)
@@ -111,7 +136,19 @@ def main() -> int:
     wa.window_attn_launch.argtypes = [p_, p_, p_, p_] + [i_] * 6 + [p_]
     ssd = build(CSRC / "ssd_scan.cu", out / "ssd_scan.so")
     ssd.ssd_scan_launch.argtypes = [p_] * 10 + [i_] * 6 + [p_]
-    ok = [window_attn(wa, *case, seed=i) for i, case in enumerate((
+    pr = build(CSRC / "pareto_rank.cu", out / "pareto_rank.so")
+    pr.packed_domination_launch.argtypes = [p_, p_, i_, p_, p_] + [i_] * 4 + [
+        p_, p_]
+    pr.domination_counts_launch.argtypes = [p_, p_, p_, i_, p_, p_, i_, i_,
+                                            p_, p_]
+    ok = [pareto_rank(pr, n, 3, infeas, seed=n)
+          for n in (33, 97, 130) for infeas in (0.0, 0.3, 1.0)]
+    ok += [pareto_rank(pr, n, m, 0.3, seed=m, bp=bp, bq=bq)
+           for n, m, bp, bq in ((100, 1, 32, 32), (130, 2, 64, 96),
+                                (70, 5, 96, 1024), (97, 8, 128, 64),
+                                (1100, 3, 1024, 256))]
+    ok += [pareto_rank(pr, 4099, 3, 0.3, seed=1, alive=False)]
+    ok += [window_attn(wa, *case, seed=i) for i, case in enumerate((
         (1, 1, 1, 1, 32, 1), (1, 100, 2, 2, 32, 64), (1, 130, 3, 1, 64, 100),
         (2, 129, 2, 2, 64, 129), (1, 300, 3, 3, 64, 37),
         (1, 80, 1, 1, 128, 50), (1, 70, 3, 1, 160, 20)))]
