@@ -362,18 +362,19 @@ def cnn_profile(dev, front):
 
 
 # VGG-16's first classifier layer, and the batches at which the product
-# kernel is timed against it: at M 256 the kernel's 64 x 64 tiles make 256
-# blocks for the card's 132 SMs
+# kernel is timed against it: at M 256 the kernel's 128 x 128 tiles make 64
+# tiles, split over K into 4 ranges (256 blocks) for the card's 132 SMs
 QMM_K, QMM_N, QMM_MS = 25088, 4096, (256, 512, 1024, 2048)
 TRACE_ARGS = ("grid", "block", "registers per thread", "shared memory",
               "blocks per SM", "warps per SM", "est. achieved occupancy %")
 
 
 def qmm_profile(dev=None):
-    """The int8 product kernel at VGG-16's fc0: its launches under the
-    profiler with the trace's launch figures, then kernel and
-    ``torch._int_mm`` times as M grows (a time that grows less than M
-    means the card was not full at the smaller M)."""
+    """The int8 product kernel at VGG-16's fc0: its launches (quantize,
+    product) under the profiler with the trace's launch figures, then
+    kernel and ``torch._int_mm`` times as M grows, with each M's split over
+    K and grid (a time that grows less than M means the card was not full
+    at the smaller M)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import quant_matmul
@@ -395,7 +396,8 @@ def qmm_profile(dev=None):
     quant_matmul.quant_matmul(*a)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        quant_matmul.quant_matmul(*a)
+        for _ in range(2):   # the trace may miss the first launch
+            quant_matmul.quant_matmul(*a)
         torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
         path = f"{d}/trace.json"
@@ -403,7 +405,7 @@ def qmm_profile(dev=None):
         with open(path) as f:
             events = json.load(f)["traceEvents"]
     print(f"quant_matmul at ({QMM_MS[0]}, {QMM_K}) x ({QMM_K}, {QMM_N}), "
-          f"its launches in the profiler's trace:")
+          f"the launches of two calls in the profiler's trace:")
     for e in events:
         if e.get("cat") == "kernel" and "qmm_" in e.get("name", ""):
             figs = ", ".join(f"{k} {e['args'][k]}" for k in TRACE_ARGS
@@ -413,6 +415,7 @@ def qmm_profile(dev=None):
     print("quant_matmul and torch._int_mm (the product alone, on the same "
           "int8 x) as M grows:")
     base = None
+    tile = quant_matmul.TILE
     for m in QMM_MS:
         a = args(m)
         ms = chip_smoke.cuda_ms(lambda: quant_matmul.quant_matmul(*a), 10)
@@ -420,9 +423,12 @@ def qmm_profile(dev=None):
         int_mm = chip_smoke.cuda_ms(lambda: torch._int_mm(xq, w_q), 10)
         base = base or ms
         tops = 2 * m * QMM_K * QMM_N / (ms * 1e-3) / 1e12
+        splits = quant_matmul.split_count(m, QMM_K, QMM_N,
+                                          quant_matmul._sms(dev.index or 0))
         print(f"  M {m}: kernel {ms:.4f} ms ({ms / base:.2f} x M "
               f"{QMM_MS[0]}'s time for {m / QMM_MS[0]:.0f} x the work, "
-              f"{tops:.1f} TOP/s), _int_mm {int_mm:.4f} ms")
+              f"{tops:.1f} TOP/s; splits {splits}, grid {-(-m // tile)} x "
+              f"{-(-QMM_N // tile)} x {splits}), _int_mm {int_mm:.4f} ms")
 
 
 if __name__ == "__main__":

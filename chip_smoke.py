@@ -51,12 +51,17 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    with the forward;
 8. holds the fake-quant int8 product kernel against its plain version on
    the card, at the reference's sweep (x float32 and x rounded through
-   bf16), its block variants' shape, a ragged shape, EfficientNet-B0's
+   bf16), its block variants' shape, ragged shapes, EfficientNet-B0's
    classifier (per-channel int8 weights of the phase-9 model, its pooled
    features of 256 images) and VGG-16's three classifier layers at batch
-   256, and times kernel, plain version, bound and ``torch._int_mm`` on the
-   same int8 operands (the product only: no single PyTorch call quantizes,
-   multiplies and scales);
+   256, and bit for bit against the exact reference
+   (``repro_torch.testing.quant_matmul_exact``) at each; prints each
+   launch's split over K, grid and copy width of w_q; times kernel, plain
+   version, bound and ``torch._int_mm`` on the same int8 operands (the
+   product only: no single PyTorch call quantizes, multiplies and scales;
+   at the head the wrapper's host time exceeds the card's, which
+   ``chip_variants.py --qmm`` times alone in a CUDA graph);
+   counts the IMMA (int8 tensor-core) and IDP4A instructions of its SASS;
 9. drives the accuracy path once at full width: EfficientNet-B0 at 224
    with seeded weights on the card (BatchNorm scales, shifts and biases
    drawn as the CPU tests draw them, running statistics measured on a
@@ -164,14 +169,18 @@ CNN_CALIB = 64
 # images (0.94 on that probe; a stage on wrong weights agrees on ~1/1000)
 CNN_MIN_CLASSES, QUANT_MOVE, QUANT_AGREE = 16, 1e-3, 0.5
 QMM_SWEEP = ((128, 128, 128), (256, 384, 128), (128, 256, 256))
-QMM_BLOCKS, QMM_RAGGED = (256, 256, 256), (100, 96, 50)
+QMM_BLOCKS = (256, 256, 256)
+QMM_RAGGED = ((100, 96, 50), (1, 1, 1), (3, 5, 7), (65, 130, 67),
+              (100, 96, 1000), (1, 1280, 1000), (70, 443, 129))
 VGG_FC = ((25088, 4096), (4096, 4096), (4096, 1000))
 # quant_matmul against its plain version: int32 sums are exact, the plain
 # version's float32 sums of integer products too while they stay below
 # 2^24 (they do here), and the epilogue is the same two products: the
 # reference's tolerance 1e-5 (rtol and atol) at its sweep and the ragged
 # shape; at the classifiers' shapes (K up to 25088) a relative bound,
-# max_abs_err <= 1e-6 * max|y|
+# max_abs_err <= 1e-6 * max|y|.  Against the exact reference (the sum in
+# float64, rounded once to float32, the same two products) the kernel's
+# int32 sum is equal bit for bit at every shape: tolerance 0
 QMM_TOL, QMM_REL = 1e-5, 1e-6
 # the model's int8 classifier through the kernel against the same
 # classifier fake-quantized in float32 (x and per-channel weights each
@@ -252,9 +261,10 @@ def max_abs_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-def inner_loop(instrs):
+def inner_loop(instrs, holding="VOTE"):
     """The instructions of the smallest loop (a backward branch) that holds
-    a warp vote: the kernel's walk over 32 columns; None if the listing
+    an instruction ``holding`` (a warp vote: the Pareto kernels' walk over
+    32 columns; IMMA: the int8 product's k-step); None if the listing
     shows no such loop."""
     best = None
     for addr, op, args in instrs:
@@ -263,7 +273,7 @@ def inner_loop(instrs):
             continue
         body = [i for i in instrs
                 if int(target.group(1), 16) <= i[0] <= addr]
-        if any(i[1].startswith("VOTE") for i in body) and (
+        if any(i[1].startswith(holding) for i in body) and (
                 best is None or len(body) < len(best)):
             best = body
     return best
@@ -915,6 +925,7 @@ def check_quant_matmul(dev, card, model, pooled):
     filled in by phase 9)."""
     from repro_torch.kernels import ops, quant_matmul
     from repro_torch.nn.module import kaiming
+    from repro_torch.testing import quant_matmul_exact
 
     def operands(m, k, n, bf16, seed):
         """The reference sweep's distribution (tests/test_kernels.py)."""
@@ -933,7 +944,23 @@ def check_quant_matmul(dev, card, model, pooled):
             torch.testing.assert_close(got, want, rtol=QMM_TOL, atol=QMM_TOL)
         else:
             assert err <= rel * float(want.abs().max()), (err, rel)
+        exact = quant_matmul_exact(*args)
+        assert torch.equal(got, exact), (
+            f"{int((got != exact).sum())} of {got.numel()} elements differ "
+            f"from the exact reference")
         return got, err
+
+    def design(args):
+        """The launch's split over K, grid and copy width of w_q."""
+        x, w_q = args[:2]
+        m, k = x.shape
+        n = w_q.shape[1]
+        splits = quant_matmul.split_count(m, k, n, quant_matmul._sms(0))
+        width = quant_matmul._lib().quant_matmul_copy_width(w_q.data_ptr(),
+                                                            n)
+        tile = quant_matmul.TILE
+        return (f"splits {splits}, grid {-(-m // tile)} x {-(-n // tile)} x "
+                f"{splits}, copy width {width}")
 
     def measure(label, args, out):
         x, w_q, w_scale, x_scale = args
@@ -944,22 +971,28 @@ def check_quant_matmul(dev, card, model, pooled):
         n_bytes = 4 * m * k + k * n + 4 * n + 4 + 4 * m * n
         b_ms, b_by = bound(n_bytes, 2 * m * k * n, PEAK_INT8_OPS_S)
         xq = torch.clamp(torch.round(x / x_scale), -128, 127).to(torch.int8)
+        # torch._int_mm takes M > 16 and K, N multiples of 8; cuBLASLt then
+        # refuses M = 100 (CUBLAS_STATUS_NOT_SUPPORTED on an H100): M too
         int_mm = (cuda_ms(lambda: torch._int_mm(xq, w_q), 20)
-                  if m > 16 and k % 8 == 0 and n % 8 == 0 else None)
+                  if m > 16 and m % 8 == 0 and k % 8 == 0 and n % 8 == 0
+                  else None)
         lib = "n/a" if int_mm is None else f"{int_mm:.4f} ms"
         print(f"  {label} ({m}, {k}) x ({k}, {n}): kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
               f"_int_mm (product only) {lib}, max_abs_err {out[1]:.3e} "
-              f"(max |y| {float(out[0].abs().max()):.3e}) [{card}]")
+              f"(max |y| {float(out[0].abs().max()):.3e}), bit-exact; "
+              f"{design(args)} [{card}]")
         return ms, plain_ms, b_ms, b_by, int_mm
 
     print(f"quant_matmul at the reference's sweep (x float32 and through "
-          f"bf16), its block variants' shape and a ragged shape, within "
-          f"{QMM_TOL}:")
+          f"bf16), its block variants' shape and ragged shapes, within "
+          f"{QMM_TOL} of the plain version and bit for bit the exact "
+          f"reference:")
     cases = [(f"sweep{' bf16' if bf16 else ''}", shape, bf16, sum(shape))
              for shape in QMM_SWEEP for bf16 in (False, True)]
-    cases += [("blocks", QMM_BLOCKS, False, 0),
-              ("ragged", QMM_RAGGED, False, 1)]
+    cases += [("blocks", QMM_BLOCKS, False, 0)]
+    cases += [("ragged", shape, False, i + 1)
+              for i, shape in enumerate(QMM_RAGGED)]
     for label, shape, bf16, seed in cases:
         args = operands(*shape, bf16, seed)
         measure(label, args, check(args))
@@ -974,6 +1007,11 @@ def check_quant_matmul(dev, card, model, pooled):
         name="quant_matmul", route="cuda",
         source="src/repro_torch/kernels/csrc/quant_matmul.cu",
         replaces="src/repro/kernels/quant_matmul.py:44",
+        design=("int8 tensor cores (mma.sync m16n8k32, csrc/mma_s8.cuh), "
+                "128 x 128 tiles, 64-deep k-steps in a 4-stage cp.async "
+                "ring, codes in fragment order, w_q transposed in shared "
+                "memory by __byte_perm, split K added in int32 by atomicAdd "
+                "and scaled by an epilogue launch; " + design(head)),
         shape=f"x ({CNN_BATCH}, 1280) f32, w_q (1280, 1000) int8",
         launches=0, max_abs_err=out[1], ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None, int_mm_ms=int_mm)
@@ -988,6 +1026,18 @@ def check_quant_matmul(dev, card, model, pooled):
         measure(f"vgg16 classifier fc{i}", args, out)
         h = torch.relu(out[0])
         del args, w
+    from repro_torch.kernels import _build
+    imma = _build.opcode_counts("quant_matmul.cu", "IMMA")
+    if imma is None:
+        print("  quant_matmul.cu: no cuobjdump in the toolkit, IMMA not "
+              "counted")
+        return record
+    dp4a = _build.opcode_counts("quant_matmul.cu", "IDP4A")
+    print("  quant_matmul.cu IMMA / IDP4A instructions by kernel: "
+          + ", ".join(f"{k} {imma[k]} / {dp4a[k]}" for k in sorted(imma)))
+    product = [k for k in imma if k.startswith("qmm_product_kernel")]
+    assert product and all(imma[k] > 0 and dp4a[k] == 0
+                           for k in product), (imma, dp4a)
     return record
 
 
@@ -1154,7 +1204,7 @@ def main() -> int:
               f"max_abs_err {r['max_abs_err']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
-            "library_ms", "launches_in")
+            "library_ms", "launches_in", "design")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
     print(card)

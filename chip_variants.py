@@ -34,12 +34,31 @@ and columns a block, and K2's splits summed by a second launch instead of
 ``atomicAdd``; then the shipped K1 at other row and column tiles.
 ``python3 chip_variants.py --pareto`` stops there.
 
+``python3 chip_variants.py --qmm`` measures the int8 product kernel (K3,
+``quant_matmul.cu``) instead, and stops: the card's ``mma.sync`` m16n8k32
+int8 rate (the data sheet's 1979 TOP/s is ``wgmma``'s) and the
+instructions of the product's k-step loop in its SASS; then at
+EfficientNet-B0's classifier (256 x 1280 x 1000) and VGG-16's three
+(256 x 25088 x 4096, 256 x 4096 x 4096, 256 x 4096 x 1000) each build's
+time with the shipped split, through the wrapper and in a CUDA graph
+(the device's time alone), bit for bit against the exact reference: a
+ring of 3 or 5 staged k-steps, warps as 4 x 2 (32 x 64 each), one block
+an SM, the splits combined as int32 tiles by the last block of a tile to
+arrive at its counter (the shipped kernel adds them to the zeroed (M, N)
+sums by ``atomicAdd``, then an epilogue launch scales them), the
+quantize fused into the product's staging (the shipped one is a launch
+of its own); at fc0 builds without the transpose, the copies, both, or
+the products (results wrong, only timed: what holds the k-step); then the
+shipped build at 1 to 32 splits in a CUDA graph, and the wrapper's own
+floor at 1 x 1 x 1.
+
 It prints the card's name and power limit first.  It imports nothing of
 JAX.  A machine without a CUDA device exits non-zero.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import shutil
@@ -88,6 +107,99 @@ SECOND_LAUNCH = [
   if (err != cudaSuccess) return err;
   count_splits_kernel<<<(n + 255) / 256, 256, 0, s>>>(grid.y, n, out);
   return static_cast<int>(cudaGetLastError());"""))]
+# K3's splits combined as int32 tiles in scratch and a per-tile arrival
+# counter (zeroed by the quantize launch): the last block of a tile to
+# arrive adds the other splits' tiles and applies the epilogue (the shipped
+# kernel adds them to the (M, N) sums by atomicAdd, then an epilogue launch)
+QMM_ATOMICS = """  if (splits > 1) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = m0 + r0 + 16 * mt + g + 8 * (e >> 1);
+          const int n = n0 + c0 + 8 * nt + 2 * t + (e & 1);
+          if (m < M && n < N)
+            atomicAdd(sums + (size_t)m * N + n, acc[mt][nt][e]);
+        }
+    return;
+  }
+"""
+QMM_LAST_ARRIVAL = [
+    (QMM_ATOMICS, """  if (splits > 1) {
+    __shared__ int last;
+    const int tiles = gridDim.x * gridDim.y;
+    const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+    int* counters = sums;
+    int* partial = sums + (tiles + 63) / 64 * 64;
+    int* own = partial + ((size_t)tile * splits + z) * (kBM * kBN) + tid;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          own[((mt * kNT + nt) * 4 + e) * kThreads] = acc[mt][nt][e];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) last = atomicAdd(counters + tile, 1) == splits - 1;
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    for (int o = 0; o < splits; ++o) {
+      if (o == z) continue;
+      const int* other = partial + ((size_t)tile * splits + o) * (kBM * kBN) +
+                         tid;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][nt][e] += __ldcg(other + ((mt * kNT + nt) * 4 + e) *
+                                                 kThreads);
+    }
+    if (tid == 0) counters[tile] = 0;
+  }
+"""),
+    ("  return codes_bytes(M, K) + (splits > 1 ? (size_t)M * N * 4 : 0);",
+     """  const size_t tiles = round_up(M, kBM) / kBM * (round_up(N, kBN) / kBN);
+  return codes_bytes(M, K) +
+         (splits > 1 ? (round_up(tiles, 64) + tiles * splits * kBM * kBN) * 4
+                     : 0);"""),
+    ("  const long long n_sums = splits > 1 ? (long long)M * N : 0;",
+     "  const long long n_sums =\n"
+     "      splits > 1 ? ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) : 0;"),
+    ("  if (splits == 1) return static_cast<int>(cudaGetLastError());",
+     "  if (true) return static_cast<int>(cudaGetLastError());")]
+# K3 with one part of its k-step taken out, to see what holds the product
+# loop: the result is wrong and only timed
+QMM_TRANSPOSE = [
+    ("      transpose(bt + ((i + 1) & 1) * kBt, slot(i + 1) + kBM * kBK);",
+     ";"),
+    ("  if (count > 0) transpose(bt, slot(0) + kBM * kBK);", ";")]
+QMM_COPIES = [("    if (i < count) {\n      unsigned char* as = slot(i);",
+               "    if (false) {\n      unsigned char* as = slot(i);")]
+QMM_PRODUCTS = [
+    ("    product(acc, slot(i), bt + (i & 1) * kBt, r0, c0, g, t);", ";")]
+# K3 with the quantize in the product's staging: each block quantizes its
+# rows of x for each k-step (N / 128 times over), one launch (and a memset
+# of the counters where the launch splits K)
+QMM_STAGE = """        cp_async16(as + 16 * (tid + j * kThreads),
+                   a_src + (size_t)i * (kBM * kBK) + 16 * j * kThreads, true);"""
+QMM_FUSED = [
+    (QMM_STAGE, """        *reinterpret_cast<uint4*>(as + 16 * (tid + j * kThreads)) =
+            code_chunk(reinterpret_cast<const float*>(xq), __ldg(x_scale), M,
+                       K, chunk_row(m0, tid + j * kThreads),
+                       chunk_k((first + i) * kBK, tid + j * kThreads),
+                       K % 4 == 0 &&
+                           reinterpret_cast<uintptr_t>(xq) % 16 == 0);"""),
+    ("""  if (threads > 0) {
+    const bool vec4""", """  if (n_sums > 0) cudaMemsetAsync(sums, 0, 4 * (size_t)n_sums, s);
+  xq = reinterpret_cast<signed char*>(const_cast<float*>(x));
+  if (false) {
+    const bool vec4""")]
 # (name, source, {file: [(shipped text, variant text), ...]})
 VARIANTS = (
     ("K5 split: cvt for hi and lo", "window_attn.cu", {
@@ -137,10 +249,32 @@ VARIANTS = (
         "pareto_rank.cu": [(COUNT_COLS, COUNT_COLS.replace("256", "64"))]}),
     ("K2 splits summed by a second launch", "pareto_rank.cu", {
         "pareto_rank.cu": SECOND_LAUNCH}),
+    ("K3 3-stage ring", "quant_matmul.cu", {"quant_matmul.cu": [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 3;")]}),
+    ("K3 5-stage ring", "quant_matmul.cu", {"quant_matmul.cu": [
+        ("constexpr int kStages = 4;", "constexpr int kStages = 5;")]}),
+    ("K3 warps 4 x 2 (32 x 64 a warp)", "quant_matmul.cu", {
+        "quant_matmul.cu": [("constexpr int kWarpsM = 2;",
+                             "constexpr int kWarpsM = 4;")]}),
+    ("K3 one block an SM", "quant_matmul.cu", {"quant_matmul.cu": [
+        ("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")]}),
+    ("K3 splits combined by the last arrival at a tile's counter",
+     "quant_matmul.cu", {"quant_matmul.cu": QMM_LAST_ARRIVAL}),
+    ("K3 quantize fused into the product", "quant_matmul.cu", {
+        "quant_matmul.cu": QMM_FUSED}),
+    ("K3 without the transpose", "quant_matmul.cu", {
+        "quant_matmul.cu": QMM_TRANSPOSE}),
+    ("K3 without the copies", "quant_matmul.cu", {
+        "quant_matmul.cu": QMM_COPIES}),
+    ("K3 without the copies or the transpose", "quant_matmul.cu", {
+        "quant_matmul.cu": QMM_COPIES + QMM_TRANSPOSE}),
+    ("K3 without the products", "quant_matmul.cu", {
+        "quant_matmul.cu": QMM_PRODUCTS}),
 )
 
 PEAK_SOURCE = r'''
 #include <cuda_runtime.h>
+#include "mma_s8.cuh"
 #include "mma_tf32x3.cuh"
 __global__ void mma_peak(float* out, int iters) {
   uint32_t a[4], b[8][2];
@@ -168,6 +302,27 @@ __global__ void round_integer(const float* x, uint32_t* out) {
 extern "C" int mma_peak_launch(float* out, int iters, int blocks,
                                void* stream) {
   mma_peak<<<blocks, 128, 0, (cudaStream_t)stream>>>(out, iters);
+  return cudaGetLastError();
+}
+__global__ void imma_peak(int* out, int iters) {
+  uint32_t a[4], b[8][2];
+  for (int i = 0; i < 4; ++i) a[i] = threadIdx.x * 0x01010101u + i;
+  for (int n = 0; n < 8; ++n) {
+    b[n][0] = n * 0x01020304u;
+    b[n][1] = threadIdx.x;
+  }
+  int d[8][4] = {};
+  for (int it = 0; it < iters; ++it)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) s8::mma_m16n8k32(d[n], a, b[n]);
+  int s = 0;
+  for (int n = 0; n < 8; ++n)
+    for (int e = 0; e < 4; ++e) s += d[n][e];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+extern "C" int imma_peak_launch(int* out, int iters, int blocks,
+                                void* stream) {
+  imma_peak<<<blocks, 128, 0, (cudaStream_t)stream>>>(out, iters);
   return cudaGetLastError();
 }
 '''
@@ -209,7 +364,8 @@ def build():
 
 @contextlib.contextmanager
 def using(module, so):
-    """``module``'s wrapper launches the library ``so`` inside the block."""
+    """``module``'s wrapper launches the library ``so`` inside the block
+    (and plans its scratch with it, where the wrapper caches a plan)."""
     from repro_torch.kernels import _build
     load, lib = _build.load, module._lib
     _build.load = lambda source: ctypes.CDLL(str(so))
@@ -217,11 +373,16 @@ def using(module, so):
         variant = module._lib.__wrapped__()   # the wrapper's signatures
     finally:
         _build.load = load
+    plan = getattr(module, "_plan", None)
     module._lib = lambda: variant
     try:
+        if plan is not None:
+            plan.cache_clear()
         yield
     finally:
         module._lib = lib
+        if plan is not None:
+            plan.cache_clear()
 
 
 def mma_rate(so):
@@ -236,6 +397,106 @@ def mma_rate(so):
     flops = blocks * 4 * iters * 8 * 2 * 16 * 8 * 8
     print(f"mma.sync m16n8k8 TF32: {flops / ms / 1e9:.1f} TFLOP/s "
           f"({blocks} blocks of 4 warps, 8 independent accumulators)")
+
+
+def imma_rate(so):
+    lib = ctypes.CDLL(str(so))
+    lib.imma_peak_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    blocks, iters = 132 * 16, 4096
+    out = torch.empty(blocks * 128, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = chip_smoke.cuda_ms(
+        lambda: lib.imma_peak_launch(out.data_ptr(), iters, blocks, stream),
+        3)
+    ops = blocks * 4 * iters * 8 * 2 * 16 * 8 * 32
+    print(f"mma.sync m16n8k32 int8: {ops / ms / 1e9:.1f} TOP/s "
+          f"({blocks} blocks of 4 warps, 8 independent accumulators)")
+
+
+def qmm_operands(dev, m, k, n, seed):
+    """x relu(normal) (M, K) and per-channel int8 weights of a Kaiming
+    (N, K) draw, as chip_smoke.py phase 8's VGG layers."""
+    from repro_torch.nn.module import kaiming
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.relu(torch.randn((m, k), generator=g, device=dev))
+    w = kaiming((n, k), fan_in=k, generator=g, device=dev)
+    return (x, *chip_smoke.int8_columns(w), chip_smoke.act_scale(x))
+
+
+def print_qmm_sass():
+    """The product kernel's k-step loop in its SASS (16-byte copies of
+    w_q): its instructions for its IMMA, the most common opcodes."""
+    from repro_torch.kernels import _build
+    listing = _build.sass("quant_matmul.cu")
+    if listing is None:
+        print("no cuobjdump in the toolkit: K3's SASS not read")
+        return
+    loop = chip_smoke.inner_loop(listing["qmm_product_kernel<16>"], "IMMA")
+    ops = collections.Counter(op for _, op, _ in loop)
+    print(f"K3's k-step loop (qmm_product_kernel<16>): {len(loop)} "
+          f"instructions for {ops['IMMA']} IMMA; "
+          + ", ".join(f"{op} {n}" for op, n in ops.most_common(12)))
+
+
+def device_ms(fn, reps=20):
+    """Milliseconds a call of ``fn`` holds the card: ``reps`` calls
+    captured in a CUDA graph, the graph replayed and timed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return chip_smoke.cuda_ms(graph.replay, 5) / reps
+
+
+def qmm_builds(dev, builds):
+    """K3 through each build at the classifiers' shapes, bit for bit
+    against the exact reference (a build "without" a part of the k-step is
+    only timed, at fc0); then the shipped build's splits, and the wrapper's
+    floor."""
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.testing import quant_matmul_exact
+    shapes = (("efficientnet_b0 head", (chip_smoke.CNN_BATCH, 1280, 1000)),
+              *((f"vgg16 fc{i}", (chip_smoke.CNN_BATCH, k, n))
+                for i, (k, n) in enumerate(chip_smoke.VGG_FC)))
+    sms = qm._sms(0)
+    ablations = [b for b in builds if b[0].startswith("K3 without")]
+    builds = [b for b in builds if b not in ablations]
+    for label, shape in shapes:
+        args = qmm_operands(dev, *shape, 1)
+        exact = quant_matmul_exact(*args)
+        xq = torch.clamp(torch.round(args[0] / args[3]), -128, 127).to(
+            torch.int8)
+        int_mm = chip_smoke.cuda_ms(lambda: torch._int_mm(xq, args[1]), 20)
+        print(f"K3 at {label} {shape}, splits {qm.split_count(*shape, sms)}"
+              f" (torch._int_mm, product only: {int_mm:.4f} ms):")
+        for name, so in builds + builds[:1]:
+            with using(qm, so) if so else contextlib.nullcontext():
+                assert torch.equal(qm.quant_matmul(*args), exact), name
+                ms = chip_smoke.cuda_ms(lambda: qm.quant_matmul(*args), 20)
+                dev_ms = device_ms(lambda: qm.quant_matmul(*args))
+            print(f"  {name}: {ms:.4f} ms, in a CUDA graph {dev_ms:.4f} ms, "
+                  f"bit-exact")
+        line = []
+        for splits in (1, 2, 3, 4, 6, 8, 12, 16, 32):
+            assert torch.equal(qm.quant_matmul(*args, splits=splits), exact)
+            line.append(f"{splits}: " + format(device_ms(
+                lambda: qm.quant_matmul(*args, splits=splits)), ".4f"))
+        print(f"  shipped in a CUDA graph at splits {', '.join(line)} ms, "
+              f"bit-exact")
+        for name, so in ablations if label == "vgg16 fc0" else ():
+            with using(qm, so):
+                dev_ms = device_ms(lambda: qm.quant_matmul(*args))
+            print(f"  {name}: in a CUDA graph {dev_ms:.4f} ms (result not "
+                  f"compared)")
+        del args, exact, xq
+    tiny = qmm_operands(dev, 1, 1, 1, 2)
+    print(f"K3's wrapper at 1 x 1 x 1: "
+          f"{chip_smoke.cuda_ms(lambda: qm.quant_matmul(*tiny), 50):.4f} ms "
+          f"a call, in a CUDA graph "
+          f"{device_ms(lambda: qm.quant_matmul(*tiny)):.4f} ms")
 
 
 def print_rounding_sass(so):
@@ -387,6 +648,12 @@ def main(argv) -> int:
     print(chip_smoke.card_line())
     libs, probe = build()
     shipped = ("shipped", None)
+    if "--qmm" in argv:
+        imma_rate(probe)
+        print_qmm_sass()
+        qmm_builds(dev, [shipped] + [(n, s) for n, s in libs.items()
+                                     if n.startswith("K3")])
+        return 0
     pareto_builds(dev, [shipped] + [(n, s) for n, s in libs.items()
                                     if n.startswith(("K1", "K2"))])
     if "--pareto" in argv:

@@ -1,5 +1,6 @@
 // Float32-accurate matrix products on Hopper's tensor cores (sm_90a): the
-// 3xTF32 split, shared by window_attn.cu and ssd_scan.cu.
+// 3xTF32 split, shared by window_attn.cu and ssd_scan.cu, and the cp.async
+// helpers those two and quant_matmul.cu stage their tiles with.
 //
 // A float32 x is split into two TF32 values, hi = rna(x) and lo = rna(x -
 // hi) (x - hi is exact in float32; rna rounds to 10 mantissa bits, ties
@@ -69,6 +70,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
                "l"(gmem), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// The same for 8 bytes, both addresses 8-byte aligned.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem,
+                                          bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;" ::"r"(s),
+               "l"(gmem), "r"(in ? 8 : 0)
                : "memory");
 }
 

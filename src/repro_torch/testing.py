@@ -1,8 +1,10 @@
-"""Inputs made to reach every tie rule of the port's kernels.
+"""Inputs made to reach every tie rule of the port's kernels, and the
+exact result of the int8 product.
 
 Shared by the tests, the host-shim rehearsal and ``chip_smoke.py``, which
 hold the Pareto kernels against their plain versions
-(``kernels/ref.py``) on them.
+(``kernels/ref.py``) on these inputs, and the int8 product kernel against
+:func:`quant_matmul_exact` bit for bit.
 """
 
 from __future__ import annotations
@@ -30,3 +32,17 @@ def edge_population(n: int, m: int = 3, infeas: float = 0.3,
     CV = np.where(rng.random(n) < infeas, bad[rng.integers(0, 6, n)],
                   feas[rng.integers(0, 3, n)]).astype(np.float32)
     return torch.from_numpy(F), torch.from_numpy(CV)
+
+
+def quant_matmul_exact(x: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor,
+                       x_scale: torch.Tensor) -> torch.Tensor:
+    """The fake-quant int8 product as the kernel computes it: codes
+    ``clamp(round(x / x_scale), -128, 127)``, their sum of products with
+    w_q taken in float64 (exact: |sum| <= K * 128 * 128 < 2^53) and rounded
+    once to float32, then ``* x_scale * w_scale`` in that order.  Where
+    ``kernels.ref.quant_matmul`` sums in float32 (exact only below 2^24),
+    this equals the kernel bit for bit at every K the kernel takes."""
+    codes = torch.clamp(torch.round(x / x_scale), -128, 127)
+    acc = (codes.double() @ w_q.double()).float()
+    return acc * x_scale * w_scale[None, :]

@@ -326,12 +326,16 @@ def qmm_inputs(m, k, n, bf16, seed, device):
 # products are exact while they stay below 2^24 (they do at these shapes),
 # the epilogue is the same two products: the reference's tolerance, 1e-5,
 # at its sweep, ragged shapes and EfficientNet-B0's head; at K = 25088
-# (VGG-16's first classifier layer) a relative bound of 1e-6 of max|y|
+# (VGG-16's first classifier layer) a relative bound of 1e-6 of max|y|.
+# Against the exact reference (the sum in float64, rounded once) the kernel
+# is equal bit for bit at every shape.
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(128, 128, 128), (256, 384, 128),
                                    (128, 256, 256), (256, 256, 256),
                                    (100, 96, 50), (1, 1, 1), (3, 5, 7),
-                                   (65, 130, 67), (256, 1280, 1000)])
+                                   (65, 130, 67), (256, 1280, 1000),
+                                   (1, 1280, 1000), (5, 40, 1000),
+                                   (70, 443, 129)])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_quant_matmul_kernel_matches_plain_version(cuda_device, m, k, n,
                                                    bf16):
@@ -339,6 +343,7 @@ def test_quant_matmul_kernel_matches_plain_version(cuda_device, m, k, n,
     got = quant_matmul.quant_matmul(*args)
     torch.testing.assert_close(got, ops.quant_matmul(*args, impl="ref"),
                                rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, testing.quant_matmul_exact(*args))
 
 
 @pytest.mark.cuda
@@ -347,6 +352,49 @@ def test_quant_matmul_kernel_at_vgg16_depth(cuda_device):
     got = quant_matmul.quant_matmul(*args)
     want = ops.quant_matmul(*args, impl="ref")
     assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    assert torch.equal(got, testing.quant_matmul_exact(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(256, 1280, 1000), (130, 443, 260),
+                                   (3, 25088, 7)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+def test_quant_matmul_every_split_gives_the_same_bits(cuda_device, m, k, n,
+                                                      splits):
+    args = qmm_inputs(m, k, n, False, splits, cuda_device)
+    got = quant_matmul.quant_matmul(*args, splits=splits)
+    assert torch.equal(got, testing.quant_matmul_exact(*args))
+
+
+@pytest.mark.cuda
+def test_quant_matmul_two_calls_agree_on_one_and_on_two_streams(cuda_device):
+    args = qmm_inputs(256, 1280, 1000, False, 3, cuda_device)
+    want = testing.quant_matmul_exact(*args)
+    assert torch.equal(quant_matmul.quant_matmul(*args), want)
+    assert torch.equal(quant_matmul.quant_matmul(*args), want)
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(quant_matmul.quant_matmul(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_product_runs_on_int8_tensor_cores(cuda_device):
+    """The product kernel's SASS holds IMMA (int8 tensor-core) instructions
+    and no IDP4A (the CUDA cores' 4-way dot product)."""
+    from repro_torch.kernels import _build
+    imma = _build.opcode_counts("quant_matmul.cu", "IMMA")
+    if imma is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump to read the SASS")
+    dp4a = _build.opcode_counts("quant_matmul.cu", "IDP4A")
+    product = [k for k in imma if k.startswith("qmm_product_kernel")]
+    assert product and all(imma[k] > 0 and dp4a[k] == 0 for k in product), (
+        imma, dp4a)
 
 
 @pytest.mark.cuda

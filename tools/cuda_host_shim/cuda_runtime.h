@@ -30,8 +30,12 @@ inline thread_local uint3s threadIdx, blockIdx;
 inline thread_local dim3 blockDim, gridDim;
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { uint32_t x, y; };
+struct alignas(16) uint4 { uint32_t x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
@@ -39,6 +43,7 @@ typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
+inline int cudaGetDevice(int* device) { *device = 0; return 0; }
 inline const char* cudaGetErrorString(int) { return "shim error"; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -53,6 +58,13 @@ inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); r
 inline float __int_as_float(int32_t i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline int atomicAdd(int32_t* a, int32_t v) { return __atomic_fetch_add(a, v, __ATOMIC_RELAXED); }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {   // prmt
+  const uint64_t v = (uint64_t)y << 32 | x;
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i) r |= (uint32_t)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
 
 struct ShimBlock {
   std::unique_ptr<std::barrier<>> block_bar;
@@ -122,12 +134,47 @@ inline void mma_m16n8k8(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&
 inline void cp_async16(void* s, const void* g, bool in) {
   if (in) std::memcpy(s, g, 16); else std::memset(s, 0, 16);
 }
+inline void cp_async8(void* s, const void* g, bool in) {
+  if (in) std::memcpy(s, g, 8); else std::memset(s, 0, 8);
+}
 inline void cp_async4(void* s, const void* g, bool in) {
   if (in) std::memcpy(s, g, 4); else std::memset(s, 0, 4);
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
 }  // namespace tf32x3
+
+namespace s8 {
+// mma.sync m16n8k32 s32.s8.s8.s32 as a warp collective over the layout of
+// mma_s8.cuh, summed exactly in 64 bits (the card's int32 sum is exact
+// while it stays below 2^31)
+inline void mma_m16n8k32(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* A = &g_block->fa[warp * 128];
+  uint32_t* B = &g_block->fb[warp * 64];
+  for (int i = 0; i < 4; ++i) A[lane * 4 + i] = a[i];
+  for (int i = 0; i < 2; ++i) B[lane * 2 + i] = b[i];
+  warp_sync();
+  auto byte = [](uint32_t w, int k) { return (int)(int8_t)(w >> (8 * (k % 4))); };
+  auto Aat = [&](int m, int k) {   // a0 (g, 4t..) a1 (g+8, 4t..) a2 (g, 4t+16..) a3 (g+8, 4t+16..)
+    const int lane_of = (m % 8) * 4 + (k % 16) / 4;
+    return byte(A[lane_of * 4 + (m >= 8 ? 1 : 0) + (k >= 16 ? 2 : 0)], k);
+  };
+  auto Bat = [&](int k, int n) {   // b0 (4t.., g) b1 (4t+16.., g)
+    return byte(B[(n * 4 + (k % 16) / 4) * 2 + (k >= 16 ? 1 : 0)], k);
+  };
+  const int g = lane / 4, t = lane % 4;
+  int out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int m = g + (e >= 2 ? 8 : 0), n = 2 * t + (e & 1);
+    int64_t s = d[e];
+    for (int k = 0; k < 32; ++k) s += (int64_t)Aat(m, k) * Bat(k, n);
+    out[e] = (int)s;
+  }
+  warp_sync();
+  for (int e = 0; e < 4; ++e) d[e] = out[e];
+}
+}  // namespace s8
 
 template <class F>
 void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {

@@ -5,13 +5,18 @@ A CUDA source with a plain C interface is rewritten for ``g++`` (each
 ``shim_launch``, the dynamic shared array a pointer into a buffer of the
 launch's bytes) and built against ``cuda_runtime.h`` here, which runs one
 ``std::thread`` per CUDA thread, the blocks one at a time, and supplies what
-``mma_tf32x3.cuh`` keeps under ``__CUDACC__`` (the rounding, the ``mma`` as
-a warp collective over the fragment layout, ``cp.async`` as a copy) and
-what ``pareto_rank.cu`` uses (the warp vote ``__ballot_sync``, ``__popc``,
-``atomicAdd``).  The library is built with AddressSanitizer, so a read past
-a buffer stops the run.  The kernels are then held against their plain PyTorch versions at
-small shapes: a rehearsal before a first chip call, not a measurement (the
-shim sums each ``mma`` in double and rounds to nearest; the card does not).
+``mma_tf32x3.cuh`` and ``mma_s8.cuh`` keep under ``__CUDACC__`` (the
+rounding, each ``mma`` as a warp collective over its fragment layout,
+``cp.async`` as a copy), what ``pareto_rank.cu`` uses (the warp vote
+``__ballot_sync``, ``__popc``, ``atomicAdd``) and what ``quant_matmul.cu``
+uses (``__byte_perm``, ``__ldg``, ``cudaGetDevice``).  The library is
+built with AddressSanitizer, so a read past a buffer stops the run.  The
+kernels are then held against their plain PyTorch versions at small
+shapes, the int8 product bit for bit against
+``repro_torch.testing.quant_matmul_exact``: a rehearsal before a first chip
+call, not a measurement (the shim sums each TF32 ``mma`` in double and
+rounds to nearest; the card does not; its int8 ``mma`` is exact, as the
+card's).
 
     LD_PRELOAD=$(g++ -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0 \\
         PYTHONPATH=src python3 tools/cuda_host_shim/rehearse.py [out_dir]
@@ -34,7 +39,8 @@ ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.testing import edge_population  # noqa: E402
+from repro_torch.testing import (edge_population,  # noqa: E402
+                                 quant_matmul_exact)
 
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?),\s*([^,]*?),\s*([^,]*?),"
@@ -43,8 +49,8 @@ LAUNCH = re.compile(r"(\w+(?:<[^<>;]*>)?)\s*<<<(.*?),\s*([^,]*?),\s*([^,]*?),"
 
 def build(source: Path, out: Path) -> ctypes.CDLL:
     """``source`` rewritten for the shim and built into ``out``."""
-    text = re.sub(r"extern __shared__ __align__\(16\) float (\w+)\[\];",
-                  r"float* \1 = reinterpret_cast<float*>(g_block->dyn.data());",
+    text = re.sub(r"extern __shared__ __align__\(16\) ([\w ]+?) (\w+)\[\];",
+                  r"\1* \2 = reinterpret_cast<\1*>(g_block->dyn.data());",
                   source.read_text())
     text = LAUNCH.sub(lambda m: (
         f"shim_launch(dim3({m.group(2)}), dim3({m.group(3)}), {m.group(4)}, "
@@ -128,6 +134,39 @@ def pareto_rank(lib, n, m, infeas, seed, bp=2048, bq=256, alive=True):
     return ok
 
 
+def quant_matmul(lib, m, k, n, splits, seed, w_offset=0, x_offset=0):
+    """The int8 product twice in a row on one scratch (filled with 0xab
+    first: each call zeroes the split sums it adds to), bit for bit against
+    the exact reference.  ``w_offset`` / ``x_offset`` start w_q / x that
+    many elements into their buffers (a narrower copy of w_q, the
+    quantize's scalar loads)."""
+    rng = np.random.default_rng(seed)
+    x_buf = torch.from_numpy(rng.standard_normal(m * k + x_offset).astype(
+        np.float32))
+    x = x_buf[x_offset:].view(m, k)
+    w_buf = torch.from_numpy(rng.integers(-128, 128, k * n + w_offset).astype(
+        np.int8))
+    w_q = w_buf[w_offset:].view(k, n)
+    w_scale = torch.from_numpy((rng.random(n) * 1e-2 + 1e-3).astype(
+        np.float32))
+    x_scale = x.abs().max() / 127.0 if x.numel() else torch.tensor(1.0)
+    scratch = torch.full((lib.quant_matmul_scratch_bytes(m, k, n, splits),),
+                         0xab, dtype=torch.uint8)
+    want = quant_matmul_exact(x, w_q, w_scale, x_scale)
+    ok = True
+    for _ in range(2):
+        out = torch.full((m, n), float("nan"))
+        code = lib.quant_matmul_launch(
+            x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+            x_scale.data_ptr(), out.data_ptr(), scratch.data_ptr(), m, k, n,
+            splits, None)
+        ok &= code == 0 and torch.equal(out, want)
+    width = lib.quant_matmul_copy_width(w_q.data_ptr(), n)
+    print(f"quant_matmul m {m} k {k} n {n} splits {splits} copy width "
+          f"{width}: {'bit-exact twice' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def main() -> int:
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
     out.mkdir(parents=True, exist_ok=True)
@@ -141,7 +180,18 @@ def main() -> int:
         p_, p_]
     pr.domination_counts_launch.argtypes = [p_, p_, p_, i_, p_, p_, i_, i_,
                                             p_, p_]
-    ok = [pareto_rank(pr, n, 3, infeas, seed=n)
+    qm = build(CSRC / "quant_matmul.cu", out / "quant_matmul.so")
+    qm.quant_matmul_launch.argtypes = [p_] * 6 + [i_] * 4 + [p_]
+    qm.quant_matmul_scratch_bytes.argtypes = [i_] * 4
+    qm.quant_matmul_scratch_bytes.restype = ctypes.c_size_t
+    qm.quant_matmul_copy_width.argtypes = [p_, i_]
+    ok = [quant_matmul(qm, *case, seed=i) for i, case in enumerate((
+        (1, 1, 1, 1), (3, 5, 7, 1), (65, 130, 67, 2), (100, 96, 50, 1),
+        (3, 150, 1000, 2), (20, 443, 40, 3), (4, 64, 16, 3),
+        (130, 256, 256, 2)))]
+    ok += [quant_matmul(qm, 3, 70, 100, 1, seed=9, w_offset=4),
+           quant_matmul(qm, 5, 96, 64, 2, seed=10, w_offset=8, x_offset=1)]
+    ok += [pareto_rank(pr, n, 3, infeas, seed=n)
           for n in (33, 97, 130) for infeas in (0.0, 0.3, 1.0)]
     ok += [pareto_rank(pr, n, m, 0.3, seed=m, bp=bp, bq=bq)
            for n, m, bp, bq in ((100, 1, 32, 32), (130, 2, 64, 96),
