@@ -75,10 +75,26 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    reaches no kernel: its launches of the product kernel are counted and
    reported (0).  Then the model's int8 classifier runs through the
    product kernel (``ops.quant_matmul``), with the count set to 0 just
-   before and read just after, and agrees with the fake-quant classifier.
+   before and read just after, and agrees with the fake-quant classifier;
+10. drives online re-partitioning once: ``OnlineRepartitioner`` on phase
+    3's spec takes a cold update on the baseline chain, then the drift
+    mission of ``repro_torch.launch.drift`` (link 0 slowed 4x, then 32x,
+    platform 1 dropped, link 0 recovered with the node still down), each
+    update with the Pareto kernels' counts set to 0 just before and read
+    just after; every front equals the exact NumPy evaluator on its
+    drifted system, the dropped platform gets no layers, each warm update
+    counts a warm start, all five systems keep one table shape signature,
+    and the decisions' Chrome trace validates;
+11. drives a campaign and the fleet once: the paper's six CNNs at 224 on
+    phase 3's chain and on two platforms, searched as phase 3 searches,
+    first serially through ``Campaign.run`` (launch counts read; its copy
+    of phase 3's cell finds phase 3's front), then by two fleet worker
+    processes on the same card through ``run_fleet``, whose merged report
+    has the serial report's fingerprint; a second ``run_fleet`` on the
+    complete manifest starts no worker and rewrites no shard.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 9),
+card's name and power limit (also beside every time of phases 6 to 11),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -88,6 +104,7 @@ device.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import re
 import subprocess
@@ -187,6 +204,12 @@ QMM_TOL, QMM_REL = 1e-5, 1e-6
 # dequantized, then summed in float): the same products rounded and summed
 # in another order, so a bound relative to the largest sum of |terms|
 HEAD_REL = 1e-5
+
+# phase 11: the paper's six CNNs, searched as phase 3
+# searches, serially and then by two fleet worker processes on the one card
+CAMPAIGN_MODELS = ("vgg16", "resnet50", "squeezenet11", "googlenet",
+                   "regnetx_400mf", "efficientnet_b0")
+FLEET_WORKERS = 2
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -442,38 +465,30 @@ def main_spec():
                               n_gen=N_GEN, seed=SEED))
 
 
-def main_path(dev, records):
-    """Phase 3: the search path once, with the launch counts read."""
-    from repro_torch.core.accuracy import ProxyAccuracy
-    from repro_torch.core.graph import linearize
-    from repro_torch.core.partition import PartitionEvaluator
-    from repro_torch.explore import run_spec
+def pareto_kernels():
+    """The two search kernels' wrappers by name (each counts its launches
+    in its ``launches`` attribute)."""
     from repro_torch.kernels import pareto_rank
+    return {"packed_domination": pareto_rank.packed_domination,
+            "domination_counts": pareto_rank.domination_counts}
 
-    spec = main_spec()
-    kernels = {"packed_domination": pareto_rank.packed_domination,
-               "domination_counts": pareto_rank.domination_counts}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    for k in kernels.values():
-        k.launches = 0
-    t0 = time.perf_counter()
-    res = run_spec(spec, device=str(dev))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+
+def read_launches(kernels):
+    """The launch counts of ``kernels``; fails unless each launched."""
     launches = {name: k.launches for name, k in kernels.items()}
-    for rec in records:
-        rec["launches"] = launches[rec["name"]]
     assert all(v > 0 for v in launches.values()), launches
-    assert res.strategy_used == "torch_nsga2", res.strategy_used
-    assert res.pareto, "empty front"
-    assert len(res.schedule) == 207, len(res.schedule)
+    return launches
 
-    # the front against the exact NumPy evaluator on the same cuts
-    graph, _ = spec.model.build()
-    system = spec.system.build()
-    schedule = linearize(graph, spec.schedule_policy)
+
+def assert_exact_front(res, graph, schedule, system_spec):
+    """The front of ``res`` is the exact NumPy ``evaluate_batch`` of its cut
+    vectors on ``system_spec``, bit for bit, and the scalar ``evaluate``
+    within rtol 1e-12 (it sums in another order)."""
+    from repro_torch.core.accuracy import ProxyAccuracy
+    from repro_torch.core.partition import PartitionEvaluator
+
     assert [l.name for l in schedule] == [l.name for l in res.schedule]
+    system = system_spec.build()
     ev = PartitionEvaluator(graph, schedule, system,
                             accuracy_fn=ProxyAccuracy(schedule, system))
     cuts = np.array([p.cuts for p in res.pareto])
@@ -486,6 +501,34 @@ def main_path(dev, records):
             [p.latency_s, p.energy_j, p.throughput, p.accuracy],
             [exact.latency_s, exact.energy_j, exact.throughput,
              exact.accuracy], rtol=1e-12)
+
+
+def main_path(dev, records):
+    """Phase 3: the search path once, with the launch counts read."""
+    from repro_torch.core.graph import linearize
+    from repro_torch.explore import run_spec
+
+    spec = main_spec()
+    kernels = pareto_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = run_spec(spec, device=str(dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    assert res.strategy_used == "torch_nsga2", res.strategy_used
+    assert res.pareto, "empty front"
+    assert len(res.schedule) == 207, len(res.schedule)
+
+    # the front against the exact NumPy evaluator on the same cuts
+    graph, _ = spec.model.build()
+    assert_exact_front(res, graph, linearize(graph, spec.schedule_policy),
+                       spec.system)
     F = np.array([p.as_objectives(spec.objectives) for p in res.pareto])
     assert np.isfinite(F).all() and F.shape == (len(res.pareto), 3)
     evals_s = POP * (N_GEN + 1) / wall
@@ -1152,6 +1195,181 @@ def cnn_path(dev, records, card, model, vx, vy, xd, front):
           f"{path_launches}, in the int8 classifier {launches}; peak device "
           f"memory of the accuracy path {peak:.0f} MiB [{card}]")
 
+class FrontCount:
+    """While installed, counts the fronts the searches' peel takes (one
+    host sync each: the bottleneck of the search, PERF.md §5)."""
+
+    def __enter__(self):
+        from repro_torch.core import nsga2_torch
+        self.module, self.peel, self.fronts = nsga2_torch, nsga2_torch._peel, 0
+
+        def counting(*args):
+            out = self.peel(*args)
+            self.fronts += out[1]
+            return out
+
+        nsga2_torch._peel = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.module._peel = self.peel
+
+
+def online_path(dev, card):
+    """Phase 10: ``OnlineRepartitioner`` on the card over the reference's
+    drift mission, phase 3's spec, each update's launch counts read."""
+    import tempfile
+
+    from repro_torch.core.graph import linearize
+    from repro_torch.explore import OnlineRepartitioner
+    from repro_torch.launch.drift import drift_schedule, table_signature
+    from repro_torch.obs import (Obs, load_chrome_trace,
+                                 validate_chrome_trace, write_chrome_trace)
+    from repro_torch.obs.metrics import default_registry
+
+    spec = main_spec()
+    graph, _ = spec.model.build()
+    schedule = linearize(graph, spec.schedule_policy)
+    kernels = pareto_kernels()
+    warm = default_registry().counter("search_warm_starts")
+    warm0 = warm.value
+    obs = Obs.on()
+    rp = OnlineRepartitioner(spec, device=str(dev), obs=obs)
+    mission = [spec.system] + drift_schedule(spec.system)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for step, system in enumerate(mission):
+        for k in kernels.values():
+            k.launches = 0
+        with FrontCount() as fronts:
+            d = rp.update(system)
+        launches = read_launches(kernels)
+        assert d.strategy_used == "torch_nsga2", d.strategy_used
+        assert d.result.pareto, f"empty front at {d.label}"
+        assert_exact_front(d.result, graph, schedule, system)
+        if step >= 3:                     # platform 1 dropped
+            b = [-1] + list(d.cuts)
+            assert d.feasible and b[2] <= b[1], (d.label, d.cuts)
+        print(f"online {d.label}: {d.repartition_ms:.1f} ms, cuts "
+              f"{d.cuts}, changed {d.changed}, feasible {d.feasible}, "
+              f"front {d.pareto_size}, fronts peeled {fronts.fronts}, "
+              f"launches {launches} [{card}]")
+    assert warm.value - warm0 == len(mission) - 1, warm.value - warm0
+    sigs = {table_signature(rp, system) for system in mission}
+    assert len(sigs) == 1, "drift changed a table shape"
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/online_trace.json"
+        write_chrome_trace(path, obs.tracer)
+        trace = load_chrome_trace(path)
+    assert validate_chrome_trace(trace) == []
+    marks = [e for e in trace["traceEvents"] if e.get("ph") == "i"]
+    assert len(marks) == len(mission), len(marks)
+    ms = [d.repartition_ms for d in rp.decisions]
+    summary = obs.metrics.histogram("repartition_ms").summary()
+    print(f"online path: efficientnet_b0 224, 4 platforms, torch_nsga2 pop "
+          f"{POP} x {N_GEN} gen, {len(mission)} decisions: cold "
+          f"{ms[0]:.1f} ms, warm {[round(m, 1) for m in ms[1:]]} ms, "
+          f"repartition_ms {json.dumps(summary)}, 1 table shape signature, "
+          f"trace {len(trace['traceEvents'])} events valid; peak device "
+          f"memory {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB "
+          f"[{card}]")
+
+
+def campaign_sweep():
+    """Phase 11's sweep: the paper's six CNNs at 224 on phase 3's chain and
+    on two platforms, with phase 3's search settings."""
+    from repro_torch.explore import (Campaign, ModelRef, PlatformSpec,
+                                     SystemSpec)
+    spec = main_spec()
+    four = dataclasses.replace(spec.system, name="4-chain")
+    two = SystemSpec(platforms=(PlatformSpec("sensor", "eyr", bits=16),
+                                PlatformSpec("central", "smb", bits=8)),
+                     links=("gige",), name="2-chain")
+    models = [ModelRef("cnn", name, {"in_hw": 224, "w": 1.0})
+              for name in CAMPAIGN_MODELS]
+    return Campaign(spec, models=models, systems=[four, two])
+
+
+def campaign_path(dev, card, main_res):
+    """Phase 11: the campaign serially on the card, then as a fleet of two
+    worker processes on the same card, merged and compared; then a resume
+    of the complete manifest."""
+    import tempfile
+
+    from repro_torch.fleet import launch, report_fingerprint, run_fleet
+
+    camp = campaign_sweep()
+    kernels = pareto_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with FrontCount() as fronts:
+        serial = camp.run(device=str(dev))
+    torch.cuda.synchronize()
+    serial_wall = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    assert len(serial.entries) == 2 * len(CAMPAIGN_MODELS)
+    for e in serial.entries:
+        assert e.result.strategy_used == "torch_nsga2", e.result.strategy_used
+        assert e.result.pareto, (e.model, e.system)
+    # the campaign's own copy of phase 3's cell finds phase 3's front
+    cell = serial.get("efficientnet_b0", "4-chain")
+    assert cell.pareto == main_res.pareto
+    for e in serial.entries:
+        print(f"campaign {e.model} x {e.system}: {e.wall_s:.3f} s, "
+              f"{len(e.result.schedule)} positions, front "
+              f"{len(e.result.pareto)} [{card}]")
+
+    # every worker's exit code, kept from the launcher's wait
+    codes = []
+    wait = launch.wait_workers
+
+    def keep_codes(procs):
+        got = wait(procs)
+        codes.extend(got)
+        return got
+
+    launch.wait_workers = keep_codes
+    torch.cuda.empty_cache()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            manifest = camp.to_manifest(tmp)
+            t0 = time.perf_counter()
+            merged = run_fleet(tmp, workers=FLEET_WORKERS, device=str(dev))
+            fleet_wall = time.perf_counter() - t0
+            assert codes == [0] * FLEET_WORKERS, codes
+            failed = list(Path(tmp, "failed").iterdir())
+            assert not failed, failed
+            assert report_fingerprint(merged) == \
+                report_fingerprint(serial.report), "fleet != serial"
+            assert [(e["model"], e["system"]) for e in merged.entries] == \
+                [(e["model"], e["system"]) for e in serial.report.entries]
+            shards = {c.id: Path(manifest._shard_path(c.id)).stat()
+                      .st_mtime_ns for c in manifest.cells}
+            codes.clear()
+            again = run_fleet(tmp, workers=FLEET_WORKERS, device=str(dev))
+            assert codes == [], "a resume of a complete manifest started " \
+                "workers"
+            assert report_fingerprint(again) == report_fingerprint(merged)
+            assert {c.id: Path(manifest._shard_path(c.id)).stat()
+                    .st_mtime_ns for c in manifest.cells} == shards
+    finally:
+        launch.wait_workers = wait
+    for e in merged.entries:
+        print(f"fleet {e['model']} x {e['system']}: {e['wall_s']:.3f} s "
+              f"[{card}]")
+    print(f"campaign path: {len(CAMPAIGN_MODELS)} CNNs x 2 systems, "
+          f"torch_nsga2 pop {POP} x {N_GEN} gen: serial wall "
+          f"{serial_wall:.3f} s (launches {launches}, fronts peeled "
+          f"{fronts.fronts}, peak device memory "
+          f"{peak:.0f} MiB), fleet of {FLEET_WORKERS} worker processes "
+          f"{fleet_wall:.3f} s wall ({merged.wall_s:.3f} s in cells), "
+          f"fleet == serial by fingerprint, resume started no worker and "
+          f"rewrote no shard [{card}]")
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -1189,6 +1407,9 @@ def main() -> int:
     del pooled
     cnn_path(dev, records, card, model, vx, vy, xd,
              [p.cuts for p in res.pareto])
+    del model, vx, vy, xd
+    online_path(dev, card)
+    campaign_path(dev, card, res)
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")

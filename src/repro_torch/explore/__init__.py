@@ -27,6 +27,9 @@ Search / NSGA-II (§IV)                    :class:`SearchStrategy` protocol —
 Pareto front + Def.-2 selection           ``runner.run_search`` →
                                           :class:`ExplorationResult`
 Selected cuts → LM block cuts             ``deploy.lm_block_cuts``
+Fleet-level studies (many models/         :class:`Campaign` →
+systems, shared cost tables)              :class:`CampaignReport`
+Re-partitioning under drift               :class:`OnlineRepartitioner`
 ========================================  ====================================
 
 Specs are JSON-round-trippable (``ExplorationSpec.to_json``/``from_json``),
@@ -36,6 +39,12 @@ strategy on ``device`` (default ``"cuda"``).
 """
 
 from repro_torch.explore.deploy import lm_block_cuts
+from repro_torch.explore.campaign import (Campaign, CampaignEntry,
+                                          CampaignReport, CampaignResult,
+                                          campaign_entry_dict)
+from repro_torch.explore.online import (OnlineRepartitioner,
+                                        RepartitionDecision, degrade_link,
+                                        drop_node)
 from repro_torch.explore.filters import (candidate_positions, feasible_cut_rows,
                                          link_feasibility, link_filter,
                                          memory_filter)
@@ -54,12 +63,15 @@ from repro_torch.explore.strategies import (ExhaustiveSearch, MultiCutScan,
                                             scaled_nsga_defaults)
 
 __all__ = [
-    "AccuracySpec", "DEFAULT_OBJECTIVES", "ExhaustiveSearch",
+    "AccuracySpec", "Campaign", "CampaignEntry", "CampaignReport",
+    "CampaignResult", "DEFAULT_OBJECTIVES", "ExhaustiveSearch",
     "ExplorationResult", "ExplorationSpec", "LinkSpec", "ModelRef",
-    "MultiCutScan", "NSGA2Search", "PlatformSpec", "SearchContext",
-    "SearchSettings", "SearchStrategy", "StrategyOutput", "SweepSpec",
-    "SystemSpec", "TorchNSGA2Search", "candidate_positions",
-    "eval_from_dict", "eval_to_dict", "explore_graph", "feasible_cut_rows",
+    "MultiCutScan", "NSGA2Search", "OnlineRepartitioner", "PlatformSpec",
+    "RepartitionDecision", "SearchContext", "SearchSettings",
+    "SearchStrategy", "StrategyOutput", "SweepSpec", "SystemSpec",
+    "TorchNSGA2Search", "campaign_entry_dict", "candidate_positions",
+    "degrade_link", "drop_node", "eval_from_dict", "eval_to_dict",
+    "explore_graph", "feasible_cut_rows",
     "link_feasibility", "link_filter", "lm_block_cuts", "memory_filter",
     "register_strategy",
     "run_search", "run_spec", "scaled_nsga_defaults", "select_weighted",

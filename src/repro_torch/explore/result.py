@@ -2,7 +2,8 @@
 
 :class:`ExplorationResult` is the in-memory outcome of one search (full
 ``PartitionEval`` objects, live schedule); ``to_report()`` flattens it into
-plain JSON-safe dicts for storage (e.g. inside a campaign report).
+plain JSON-safe dicts for storage inside a
+:class:`~repro_torch.explore.campaign.CampaignReport`.
 
 ``summary()`` and the report paths are total: they tolerate empty Pareto
 fronts (``selected is None``) and cut indices outside the schedule (the

@@ -5,7 +5,8 @@ constraints*, *which search strategy*.
 Everything here is data.  Resolution to live objects (layer graphs,
 ``SystemConfig``) happens in :meth:`ModelRef.build` / :meth:`SystemSpec.build`
 so a spec can be stored, diffed, and shipped between machines, then executed
-by :func:`repro_torch.explore.runner.run_spec`.
+by :func:`repro_torch.explore.runner.run_spec` or fanned out by
+:class:`repro_torch.explore.campaign.Campaign`.
 """
 
 from __future__ import annotations
@@ -353,8 +354,10 @@ class SweepSpec:
     """A whole campaign as data: one spec template fanned across
     ``models`` × ``systems`` (defaulting to the template's own).
 
-    This is the durable form a fleet manifest is built from: cell order is
-    model-major / system-minor — the serial campaign iteration order — and
+    This is the durable form a fleet manifest is built from
+    (:meth:`repro_torch.explore.campaign.Campaign.to_manifest`): cell order is
+    model-major / system-minor — exactly the serial
+    :meth:`~repro_torch.explore.campaign.Campaign.run` iteration order — and
     :meth:`spec_hash` fingerprints the canonical JSON so workers refuse to
     execute against a manifest built from a different sweep.
     """

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import time
 import warnings
 from typing import Dict, List, Optional, Protocol, Tuple, Type, runtime_checkable
 
@@ -42,6 +43,7 @@ from repro_torch.core.partition import (Constraints, PartitionEval,
                                   PartitionEvaluator)
 from repro_torch.explore.filters import feasible_cut_rows
 from repro_torch.explore.spec import SearchSettings
+from repro_torch.obs.metrics import default_registry
 
 # full per-point scans are kept (for Fig.-2-style plots) only below this size
 _ALL_EVALS_CAP = 16384
@@ -326,6 +328,13 @@ class TorchNSGA2Search:
     inside O(pop · rank_block) working memory, ``n_restarts`` runs that many
     independently seeded searches and merges their fronts, and
     ``rank_devices`` > 1 is clamped to the one search device.
+
+    Each search records, in :func:`repro_torch.obs.metrics.default_registry`,
+    its wall (histogram ``search_wall_s``, from the evaluation set-up until
+    X/F/CV are on the host) and, when it is seeded from a previous front, one
+    ``search_warm_starts``.  The reference's compiled-runner counters
+    (``search_jit_runner_cache_hits``/``_misses``) and its compile time
+    (``search_jit_compile_s``) have no counterpart: nothing is compiled here.
     """
 
     name = "torch_nsga2"
@@ -367,6 +376,8 @@ class TorchNSGA2Search:
         n_restarts = settings.n_restarts
         _rank_devices(settings.rank_devices)
         tables = evaluator.torch_tables(ctx.device)
+        reg = default_registry()
+        t_search = time.perf_counter()
         eval_cuts = make_runtime_eval_fn(tables, ctx.objectives,
                                          ctx.constraints)
 
@@ -381,6 +392,8 @@ class TorchNSGA2Search:
             rank_block=settings.rank_block, rank_impl=settings.rank_impl,
             device=ctx.device)
         warm = _warm_genes(ctx, table)
+        if warm is not None:
+            reg.counter("search_warm_starts").inc()
         if n_restarts > 1:
             X0s = None
             if warm is not None:
@@ -399,6 +412,7 @@ class TorchNSGA2Search:
                                      pop, n_cuts, 0, len(table) - 1, warm)
             X, F, CV = torch_nsga2(_eval_genes, seed=settings.seed, X0=X0,
                                    **knobs)
+        reg.histogram("search_wall_s").observe(time.perf_counter() - t_search)
         if len(X) > self._DENSE_PARETO_MAX:
             p_idx = pareto_indices_blocked(X, F, CV,
                                            block=settings.rank_block or 2048,

@@ -2,8 +2,8 @@
 nothing in ``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` or
 ``tools/cuda_host_shim/rehearse.py`` imports JAX or the JAX package
 ``repro``, and a CPU search, an LM generation, an SSM forward and
-generation and a CNN's measured accuracy run in a process where JAX cannot
-be imported at all."""
+generation, a CNN's measured accuracy, an online re-partition and a
+two-cell campaign run in a process where JAX cannot be imported at all."""
 
 import ast
 import os
@@ -67,6 +67,7 @@ def test_scanner_catches_forbidden_imports(tmp_path):
 
 def test_cpu_search_runs_with_jax_blocked():
     code = """
+        import dataclasses
         import sys
         sys.modules["jax"] = None          # any `import jax` now fails
         import numpy as np
@@ -109,6 +110,18 @@ def test_cpu_search_runs_with_jax_blocked():
         acc = cnn_measured_accuracy(cnn, linearize(cnn.to_graph()), vx, vy,
                                     [QuantSpec(16), QuantSpec(8)])((40,))
         assert 0.0 <= acc <= 1.0
+        from repro_torch.explore import (Campaign, OnlineRepartitioner,
+                                         degrade_link)
+        small = dataclasses.replace(
+            spec, model=ModelRef("cnn", "squeezenet11", {"in_hw": 64}),
+            search=SearchSettings(strategy="torch_nsga2", pop_size=16,
+                                  n_gen=1, seed=0))
+        rp = OnlineRepartitioner(small, device="cpu")
+        d = rp.update(degrade_link(small.system, 0, 4.0))
+        assert d.strategy_used == "torch_nsga2" and d.cuts is not None
+        camp = Campaign(small, models=[small.model, ModelRef(
+            "cnn", "vgg16", {"in_hw": 64})]).run(device="cpu")
+        assert len(camp.report.entries) == 2
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked
