@@ -19,8 +19,9 @@ generations) four times:
    device time of the two Pareto kernels (K1 ``packed_domination``, K2
    ``domination_counts``) with each launch's time.
 
-``python3 chip_profile.py --search`` stops there.  ``--cold`` instead
-runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
+``python3 chip_profile.py --search`` stops there; ``--serve`` runs only
+:func:`serve_profile` (the serve path of ``chip_smoke.py`` phase 12).
+``--cold`` instead runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
 timers on the phase-3 search (the first search of the process), then the
 same search again warm.  The search part needs
 of ``chip_smoke.py`` only ``main_spec`` and ``card_line``, so a copy of
@@ -200,6 +201,9 @@ def main(argv) -> int:
         cold_search(dev)
         return 0
     res = search_profile(dev)
+    if "--serve" in argv:
+        serve_profile(dev)
+        return 0
     if "--search" in argv:
         return 0
     lm_profile(dev, chip_smoke.LM_ARCH, groups={
@@ -292,6 +296,72 @@ def lm_profile(dev, arch, groups=None, each=None):
              f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate,
              groups=groups)
 
+
+
+def serve_profile(dev):
+    """The serve path of ``chip_smoke.py`` phase 12 (smollm-360m at full
+    width, two stages cut after block 15): one wave decode step of a stage
+    alone in one thread (host wall a step, then under the profiler: device
+    busy share and launches a step), then phase 12's burst through one and
+    through two replicas, async and serial (tok/s, each stage's occupancy
+    a wave step)."""
+    from repro_torch.core.link import get_link
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serve import (PipelineServeEngine, ReplicaRouter,
+                                   Request, ServeLink, poisson_traffic)
+    from repro_torch.serving import PartitionedLMRunner
+    from repro_torch.serving.engine import _bump_pos
+
+    cs = chip_smoke
+    cfg = get_config(cs.LM_ARCH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(cs.SEED))
+    runner = PartitionedLMRunner(model, [cfg.n_layers // 2 - 1])
+    capacity = cs.GEN_PROMPT + cs.GEN_NEW
+    lanes = cs.SERVE_SLOTS // cs.SERVE_GROUPS
+    fn, w = runner.stage_step_fn(0), runner.stage_weights(0)
+    caches = _bump_pos(runner.init_stage_caches(0, lanes, capacity,
+                                                lanes=True))
+    tok = torch.zeros((lanes, 1), dtype=torch.int64, device=dev)
+    steps = 20
+
+    def decode_steps():
+        nonlocal caches
+        for _ in range(steps):
+            _, caches = fn(w, caches, tok)
+        torch.cuda.synchronize()
+
+    decode_steps()
+    t = time.perf_counter()
+    decode_steps()
+    wall = time.perf_counter() - t
+    print(f"serve: stage 0 ({runner.ranges[0]}) wave decode step, {lanes} "
+          f"lanes, one thread: {wall / steps * 1e3:.2f} ms a step of host "
+          f"wall over {steps} steps")
+    profiled(f"serve: stage 0 wave decode x {steps}", decode_steps, top_n=6)
+
+    reqs = [Request(r.rid, r.prompt, r.max_new, 0.0) for r in poisson_traffic(
+        cs.SERVE_REQUESTS, rate_rps=cs.SERVE_RPS, vocab=cfg.vocab,
+        prompt_len=cs.GEN_PROMPT, max_new=cs.SERVE_NEW, seed=cs.SERVE_SEED)]
+    for n_rep in (1, 2):
+        for mode in ("async", "serial"):
+            replicas = [PipelineServeEngine(
+                runner, n_slots=cs.SERVE_SLOTS, n_groups=cs.SERVE_GROUPS,
+                mode=mode, capacity=capacity, name=f"replica{i}",
+                links=[ServeLink(model=get_link(cs.SERVE_LINK))])
+                for i in range(n_rep)]
+            for eng in replicas:
+                eng.warmup(prompt_len=cs.GEN_PROMPT)
+            burst = reqs[:cs.SERVE_SLOTS * n_rep]
+            rep = ReplicaRouter(replicas).serve(burst, realtime=False,
+                                                max_wall_s=600.0)
+            assert rep.n_done == len(burst)
+            occ = [st["stage_step_s"] for st in (e.stats for e in replicas)]
+            print(f"serve: {n_rep} replica(s) {mode}, {len(burst)} requests "
+                  f"x {cs.SERVE_NEW}: {rep.summary()['tokens_per_s']} "
+                  f"tok/s, wall {rep.wall_s:.3f} s, stage_step_s {occ}, "
+                  f"measured steps/s "
+                  f"{[e.stats['measured_steps_per_s'] for e in replicas]}")
 
 
 def _depthwise(k):

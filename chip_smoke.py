@@ -91,10 +91,24 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     of phase 3's cell finds phase 3's front), then by two fleet worker
     processes on the same card through ``run_fleet``, whose merged report
     has the serial report's fingerprint; a second ``run_fleet`` on the
-    complete manifest starts no worker and rewrites no shard.
+    complete manifest starts no worker and rewrites no shard;
+12. drives the serve runtime once at full width, with every launch count
+    set to 0 just before and read just after (0 for all five kernels, as
+    in the reference: the cached attention takes no kernel): phase 5's
+    smollm-360m cut at phase 5's block cuts, a Poisson burst of 16
+    requests (prompt 128, 8 new tokens, greedy) routed by a
+    ``ReplicaRouter`` over two ``PipelineServeEngine`` replicas (8 slots in
+    4 waves, eth10 links), once with a thread and a CUDA stream per stage
+    and link and once serially; nothing is dropped, the two modes give the
+    same tokens, and each request's tokens are ``GenerationEngine``'s
+    except after a printed near tie (top-2 logits within ``LOGIT_TOL``);
+    ``SlotDecoder`` admits a second request mid-flight without changing
+    the first's tokens; then the drift driver's ``--serve`` and
+    ``--measured`` run on the card, the latter firing its re-partition
+    from the measured link divergence.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 11),
+card's name and power limit (also beside every time of phases 6 to 12),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -210,6 +224,19 @@ HEAD_REL = 1e-5
 CAMPAIGN_MODELS = ("vgg16", "resnet50", "squeezenet11", "googlenet",
                    "regnetx_400mf", "efficientnet_b0")
 FLEET_WORKERS = 2
+
+# phase 12: the serve runtime at full width with the reference launcher's
+# replicas (src/repro/launch/serve.py: 8 slots in 4 waves each, eth10
+# links, seed 123) and caches (prompt 128 + 32 new tokens), the burst sent
+# twice, through the async pipeline and through the serial handoff.  Its
+# requests ask 8 new tokens, not phase 5's 32: on the card machine a
+# 16-block stage step took ~85 ms of host wall with the two serial
+# replicas' threads sharing the interpreter and ~340 ms with the two async
+# replicas' four stage threads, so 32 tokens took 75 s of the phase
+# (PERF.md §6)
+SERVE_REQUESTS, SERVE_RPS, SERVE_SEED, SERVE_NEW = 16, 200.0, 123, 8
+SERVE_REPLICAS, SERVE_SLOTS, SERVE_GROUPS = 2, 8, 4
+SERVE_LINK = "eth10"
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -733,6 +760,7 @@ def lm_path(dev, records):
           f"{gen.decode_s:.3f} s ({gen.tokens_per_s:.1f} tok/s); first-step "
           f"logits vs forward max_abs_err {first_err:.3e}")
     print(f"LM path: launches {launches}, peak device memory {peak:.0f} MiB")
+    return model, cuts
 
 
 def ssd_work(b, t, h, p, n, chunk):
@@ -1371,6 +1399,169 @@ def campaign_path(dev, card, main_res):
           f"rewrote no shard [{card}]")
 
 
+def all_kernels():
+    """The five kernels' wrappers by name."""
+    from repro_torch.kernels import (pareto_rank, quant_matmul, ssd_scan,
+                                     window_attn)
+    return {"packed_domination": pareto_rank.packed_domination,
+            "domination_counts": pareto_rank.domination_counts,
+            "quant_matmul": quant_matmul.quant_matmul,
+            "ssd_scan": ssd_scan.ssd_scan,
+            "window_attn": window_attn.window_attn}
+
+
+def first_vs_rest(times, first):
+    """``times``' first ``first`` entries (ms) and the median of the rest,
+    the rest's the steady state: what a run's first items pay more."""
+    ms = [round(t * 1e3, 2) for t in times]
+    rest = sorted(ms[first:])
+    return ms[:first], rest[len(rest) // 2] if rest else None
+
+
+def near_tie(model, prompt, tokens, step):
+    """The two largest logits of the next token after ``prompt`` and
+    ``tokens[:step]`` (the forward without cache), and their tokens."""
+    dev = model.device
+    seq = np.concatenate([prompt, np.asarray(tokens[:step], prompt.dtype)])
+    with torch.no_grad():
+        logits = model({"tokens": torch.from_numpy(seq[None]).to(dev)})
+    top = torch.topk(logits[0, -1], 2)
+    return top.values.tolist(), top.indices.tolist()
+
+
+def serve_path(dev, card, model, cuts):
+    """Phase 12: the serve runtime at full width on phase 5's model and
+    cuts, async and serial, with every kernel's launch count read; then
+    the drift driver's serve modes."""
+    import tempfile
+
+    from repro_torch.core.link import get_link
+    from repro_torch.launch.drift import main as drift_main
+    from repro_torch.serve import (PipelineServeEngine, ReplicaRouter,
+                                   Request, ServeLink, poisson_traffic)
+    from repro_torch.serving import GenerationEngine, PartitionedLMRunner
+    from repro_torch.serving.engine import SlotDecoder
+
+    cfg = model.cfg
+    capacity = GEN_PROMPT + GEN_NEW
+    runner = PartitionedLMRunner(model, cuts)
+    reqs = [Request(r.rid, r.prompt, r.max_new, 0.0) for r in poisson_traffic(
+        SERVE_REQUESTS, rate_rps=SERVE_RPS, vocab=cfg.vocab,
+        prompt_len=GEN_PROMPT, max_new=SERVE_NEW, seed=SERVE_SEED)]
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+
+    tokens, summaries = {}, {}
+    for mode in ("async", "serial"):
+        replicas = [PipelineServeEngine(
+            runner, n_slots=SERVE_SLOTS, n_groups=SERVE_GROUPS, eos=None,
+            mode=mode, capacity=capacity, name=f"replica{i}",
+            links=[ServeLink(model=get_link(SERVE_LINK))
+                   for _ in range(runner.n_stages - 1)])
+            for i in range(SERVE_REPLICAS)]
+        for eng in replicas:
+            eng.warmup(prompt_len=GEN_PROMPT)
+        rep = ReplicaRouter(replicas).serve(reqs, realtime=False,
+                                            max_wall_s=600.0)
+        assert rep.n_done == len(reqs) and rep.n_failed == 0, (
+            mode, rep.n_done, rep.n_failed)
+        assert all(len(r.tokens) == SERVE_NEW for r in rep.records)
+        tokens[mode] = {r.rid: r.tokens for r in rep.records}
+        summaries[mode] = s = rep.summary()
+        print(f"serve {mode}: {runner.n_stages} stages {runner.ranges}, "
+              f"{SERVE_REPLICAS} replicas x {SERVE_SLOTS} slots in "
+              f"{SERVE_GROUPS} waves, {len(reqs)} requests x {SERVE_NEW} "
+              f"tokens: wall {s['wall_s']} s, {s['tokens_per_s']} tok/s, "
+              f"TTFT p50/p95 {s['ttft_p50_ms']}/{s['ttft_p95_ms']} ms, "
+              f"latency p50/p95 {s['latency_p50_ms']}/"
+              f"{s['latency_p95_ms']} ms, routed "
+              f"{s['routed_per_replica']} [{card}]")
+        for eng in replicas:
+            st = eng.stats
+            ttft = {r.rid: round(r.ttft_s * 1e3, 1) for r in rep.records
+                    if r.replica == eng.name}
+            print(f"  {eng.name}: decode steps {st['decode_steps']}, Def.-4 "
+                  f"{st['def4_steps_per_s']} steps/s against measured "
+                  f"{st['measured_steps_per_s']}, stage_step_s "
+                  f"{st['stage_step_s']}, link_step_s {st['link_step_s']}, "
+                  f"link_model_s {st['link_model_s']}; TTFT ms by rid "
+                  f"{ttft}")
+            for si, stage in enumerate(eng.stages):
+                print(f"    stage {si}: first prefill/steady ms "
+                      f"{first_vs_rest(stage.prefill_s, 1)}, first "
+                      f"{SERVE_GROUPS} decodes/steady ms "
+                      f"{first_vs_rest(stage.decode_s, SERVE_GROUPS)}")
+    assert tokens["async"] == tokens["serial"], "async != serial tokens"
+    ratio = (summaries["async"]["tokens_per_s"]
+             / summaries["serial"]["tokens_per_s"])
+    print(f"serve: async == serial tokens; async/serial tok/s {ratio:.3f}")
+
+    engine = GenerationEngine(model, max_seq=capacity)
+    prompts = np.stack([r.prompt for r in reqs])
+    gen = engine.generate(prompts, max_new=SERVE_NEW)
+    ties = 0
+    for i, r in enumerate(reqs):
+        got, want = tokens["serial"][r.rid], list(gen.tokens[i])
+        diff = [s for s in range(SERVE_NEW) if got[s] != want[s]]
+        if not diff:
+            continue
+        step = diff[0]
+        vals, idx = near_tie(model, r.prompt, want, step)
+        gap = vals[0] - vals[1]
+        print(f"serve: rid {r.rid} departs from GenerationEngine at step "
+              f"{step}: served {got[step]}, engine {want[step]}, top-2 "
+              f"tokens {idx} logits {vals} (gap {gap:.3e}, LOGIT_TOL "
+              f"{LOGIT_TOL})")
+        assert gap <= LOGIT_TOL and {got[step], want[step]} <= set(idx), (
+            r.rid, step, vals, idx)
+        ties += 1
+    print(f"serve: tokens equal GenerationEngine's for "
+          f"{len(reqs) - ties}/{len(reqs)} requests, the others after a "
+          f"near tie")
+
+    rng = np.random.default_rng(SERVE_SEED)
+    pa, pb = rng.integers(0, cfg.vocab, (2, GEN_PROMPT)).astype(np.int32)
+
+    def roll(interleave):
+        sd = SlotDecoder(model, n_slots=2, max_seq=capacity)
+        seq, rows = [int(np.argmax(sd.prefill(0, pa)))], []
+        for step in range(8):
+            if interleave and step == 2:
+                sd.prefill(1, pb)          # admission into the other slot
+            logits = sd.decode(np.array([seq[-1], 0], np.int32))
+            rows.append(logits[0])
+            seq.append(int(np.argmax(logits[0])))
+        return seq, np.stack(rows)
+
+    alone, alone_logits = roll(False)
+    mixed, mixed_logits = roll(True)
+    assert alone == mixed, (alone, mixed)
+    bleed = float(np.abs(alone_logits - mixed_logits).max())
+    launches = {name: k.launches for name, k in kernels.items()}
+    assert all(v == 0 for v in launches.values()), launches
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    print(f"serve: SlotDecoder slot 0 unchanged by a mid-flight admission "
+          f"(tokens equal, logits max|diff| {bleed:.3e}); launches "
+          f"{launches}; peak device memory {peak:.0f} MiB [{card}]")
+
+    common = ["--device", str(dev), "--pop", "128", "--gens", "16"]
+    t0 = time.perf_counter()
+    assert drift_main(common + ["--serve"]) == 0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/drift_timeline.json"
+        assert drift_main(common + ["--measured", "--timeline", path]) == 0
+        with open(path) as f:
+            timeline = json.load(f)
+    assert timeline["decision"]["trigger"] == "measured", timeline["decision"]
+    print(f"drift driver on the card: --serve and --measured in "
+          f"{time.perf_counter() - t0:.1f} s, measured trigger fired after "
+          f"{len(timeline['divergence_series'])} observations, decision "
+          f"{timeline['decision']} [{card}]")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1399,7 +1590,7 @@ def main() -> int:
     check_ranking(dev)
     res = main_path(dev, records)
     records.append(check_window_attn(dev))
-    lm_path(dev, records)
+    lm_model, lm_cuts = lm_path(dev, records)
     records.append(check_ssd_scan(dev, card))
     ssm_path(dev, records, card)
     model, vx, vy, xd, pooled = cnn_setup(dev)
@@ -1410,6 +1601,8 @@ def main() -> int:
     del model, vx, vy, xd
     online_path(dev, card)
     campaign_path(dev, card, res)
+    serve_path(dev, card, lm_model, lm_cuts)
+    del lm_model
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")

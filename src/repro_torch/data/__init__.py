@@ -1,1 +1,1 @@
-from repro_torch.data.synthetic import SyntheticImages
+from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens

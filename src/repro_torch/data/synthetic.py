@@ -11,8 +11,13 @@ dynamics without ImageNet.  The templates live in host memory as float32:
 ``n_classes * channels * hw * hw * 4`` bytes, 602 MB at ``n_classes=1000,
 hw=224``.
 
-The reference module's token streams and batch helpers are not copied:
-no slice of the port uses them yet.
+``SyntheticTokens``: Zipf-ish Markov token streams for LM training —
+a learnable bigram process so training loss actually drops.  The serve
+runtime's ``poisson_traffic`` draws its prompts from it.
+
+The reference module's batch helpers (``make_batch_for``,
+``batch_iterator``) are not copied: only its training loop uses them
+(``ROADMAP.md`` B4).
 """
 
 from __future__ import annotations
@@ -50,3 +55,33 @@ class SyntheticImages:
 
     def eval_set(self, n: int, seed: int = 999):
         return self.batch(n, seed)
+
+
+@dataclasses.dataclass
+class SyntheticTokens:
+    vocab: int
+    order: int = 1
+    seed: int = 7
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        v = min(self.vocab, 2048)      # transition table cap
+        self._v = v
+        # sparse-ish bigram transition: each token prefers ~8 successors
+        succ = rng.integers(0, v, size=(v, 8))
+        self._succ = succ
+
+    def batch(self, batch_size: int, seq_len: int, seed: int) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        out = np.empty((batch_size, seq_len + 1), np.int32)
+        cur = rng.integers(0, self._v, size=batch_size)
+        out[:, 0] = cur
+        for t in range(1, seq_len + 1):
+            choice = rng.integers(0, 8, size=batch_size)
+            nxt = self._succ[cur, choice]
+            # occasional random jump keeps entropy non-zero
+            jump = rng.random(batch_size) < 0.1
+            nxt = np.where(jump, rng.integers(0, self._v, size=batch_size), nxt)
+            out[:, t] = nxt
+            cur = nxt
+        return out

@@ -19,9 +19,12 @@ reference (``params`` explicit)        port (weights held by the module)
 =====================================  =====================================
 
 Caches keep the reference's stacked layout, ``{"dense": {"k": (L, B, S,
-Kv, hd), "v": ..., "pos": (L,)}}``, and are written in place.  Only the
-dense family is carried here (``cfg.family == "dense"``, no MLA; the ssm
-and hybrid families are ``models.ssm_lm.SSMLM``); the graph
+Kv, hd), "v": ..., "pos": (L,)}}``, and are written in place.  Lane caches
+(``stacked_caches(..., lanes=True)``) give every batch row its own write
+position, ``pos`` (L, B): the reference's per-slot batch-1 caches under
+``jax.vmap``, as one batch.  Only the dense family is carried here
+(``cfg.family == "dense"``, no MLA; the ssm and hybrid families are
+``models.ssm_lm.SSMLM``); the graph
 (:func:`lm_graph`) covers every family the reference's ``DecoderLM`` does,
 since it needs the configuration only.
 """
@@ -118,15 +121,31 @@ def run_blocks(blocks: Sequence[DecoderBlock], x: torch.Tensor,
 
 
 def stacked_caches(cfg: ModelConfig, n_layers: int, batch_size: int,
-                   capacity: int, dtype=torch.bfloat16, device=None) -> Dict:
+                   capacity: int, dtype=torch.bfloat16, device=None,
+                   lanes: bool = False) -> Dict:
     """Fresh stacked KV caches for ``n_layers`` blocks (``pos`` = 0); the
-    capacity is capped at the window, as the reference's ``init_caches``."""
+    capacity is capped at the window, as the reference's ``init_caches``.
+    ``lanes``: one write position per batch row, ``pos`` (L, B)."""
     if cfg.window is not None:
         capacity = min(capacity, cfg.window)
     shape = (n_layers, batch_size, capacity, cfg.n_kv, cfg.resolved_head_dim)
+    pos_shape = (n_layers, batch_size) if lanes else (n_layers,)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros(n_layers, dtype=torch.int32, device=device)}
+            "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+
+
+def step_positions(pos0: Optional[torch.Tensor], b: int, t: int,
+                   device) -> torch.Tensor:
+    """Positions (B, T) of ``t`` tokens appended at ``pos0``: a device
+    scalar (the batch's write position), a (B,) tensor (each lane's), or
+    None (from 0)."""
+    positions = torch.arange(t, device=device)
+    if pos0 is not None and pos0.dim():
+        return pos0[:, None] + positions[None]
+    if pos0 is not None:
+        positions = positions + pos0
+    return positions[None].expand(b, t)
 
 
 class TokenLM(nn.Module):
@@ -142,17 +161,13 @@ class TokenLM(nn.Module):
 
     def embed_tokens(self, batch, pos0=None):
         """Token embeddings (B, T, D) and the batch's positions (B, T): when
-        the batch has none, ``pos0 + arange(T)`` (``pos0`` a device scalar,
-        0 when None)."""
+        the batch has none, ``pos0 + arange(T)`` (``pos0`` a device scalar
+        or one position per row of shape (B,), 0 when None)."""
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         x = F.embedding(tokens, self.embed)
         positions = batch.get("positions")
         if positions is None:
-            b, t = tokens.shape
-            positions = torch.arange(t, device=self.device)
-            if pos0 is not None:
-                positions = positions + pos0
-            positions = positions[None].expand(b, t)
+            positions = step_positions(pos0, *tokens.shape, self.device)
         return x, positions
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -204,15 +219,17 @@ class DecoderLM(TokenLM):
 
     # -- serving ------------------------------------------------------------------
     def init_caches(self, batch_size: int, capacity: int,
-                    dtype=torch.bfloat16) -> Dict:
+                    dtype=torch.bfloat16, lanes: bool = False) -> Dict:
+        """Fresh caches; ``lanes``: one write position per batch row."""
         return {"dense": stacked_caches(self.cfg, self.cfg.n_layers,
                                         batch_size, capacity, dtype,
-                                        self.device)}
+                                        self.device, lanes)}
 
     def decode_step(self, caches, batch, *, impl: str = "ref"):
         """Append ``batch["tokens"]`` (B, T) to the caches and return
         ``(logits, new_caches)``.  Positions continue from the caches' write
-        position, which stays on the device (no host sync)."""
+        position (each lane's own with lane caches), which stays on the
+        device (no host sync)."""
         x, positions = self.embed_tokens(batch, caches["dense"]["pos"][0])
         x, new = run_blocks(self.blocks, x, positions, caches=caches["dense"],
                             impl=impl)

@@ -13,6 +13,12 @@ Differences from the reference:
 * ``cache_update`` writes into the cache's ``k`` and ``v`` in place (one
   copy of the cache on the device) and returns the cache with its new
   position.
+* A cache's ``pos`` is a scalar (one write position for the whole batch,
+  as the reference's) or of shape (B,): one write position per row, a
+  *lane*.  The reference gives each lane a batch-1 cache and ``jax.vmap``s
+  the step over them (``SlotDecoder``, the serve runtime); here the lanes
+  are the batch rows of one cache, so a step over every lane is one
+  batched call.
 * ``impl``: ``"ref"`` (the default) is the reference's ``"ref"``;
   ``"cuda"`` and ``"auto"`` take the reference's ``"pallas"`` branch, the
   sliding-window kernel of ``kernels.ops.window_attn``.
@@ -114,13 +120,17 @@ def chunked_sdpa(q, k, v, window: Optional[int] = None,
 # -- KV caches ----------------------------------------------------------------
 
 def init_cache(batch: int, n_kv: int, capacity: int, head_dim: int,
-               dtype=torch.bfloat16, device=None) -> Cache:
+               dtype=torch.bfloat16, device=None,
+               lanes: bool = False) -> Cache:
+    """Zero cache; ``lanes``: one write position per batch row (``pos`` of
+    shape (B,)), else one for the batch (a scalar ``pos``)."""
     return {
         "k": torch.zeros((batch, capacity, n_kv, head_dim), dtype=dtype,
                          device=device),
         "v": torch.zeros((batch, capacity, n_kv, head_dim), dtype=dtype,
                          device=device),
-        "pos": torch.zeros((), dtype=torch.int32, device=device),
+        "pos": torch.zeros((batch,) if lanes else (), dtype=torch.int32,
+                           device=device),
     }
 
 
@@ -129,17 +139,29 @@ def cache_update(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
     """Append T_new tokens, writing ``cache["k"]``/``["v"]`` in place.
     ``ring``: wrap around (sliding-window cache).  Without ``ring`` the
     write starts at ``min(pos, capacity - T_new)``, as the reference's
-    ``dynamic_update_slice`` clamps it.  The position stays on the device."""
+    ``dynamic_update_slice`` clamps it.  The position stays on the device.
+    With lanes (``pos`` of shape (B,)) each row is written from its own
+    position, as the reference's update ``vmap``ped over batch-1 lanes."""
     cap = cache["k"].shape[1]
     t_new = k_new.shape[1]
     pos = cache["pos"]
+    if not ring and t_new > cap:
+        raise ValueError(f"cache_update: {t_new} new tokens exceed the "
+                         f"cache's capacity {cap}")
     step = torch.arange(t_new, device=pos.device)
+    if pos.dim():
+        start = pos[:, None] if ring else torch.clamp(
+            pos, max=cap - t_new)[:, None]
+        idx = start + step                                      # (B, T)
+        if ring:
+            idx = idx % cap
+        rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        cache["k"][rows, idx] = k_new.to(cache["k"].dtype)
+        cache["v"][rows, idx] = v_new.to(cache["v"].dtype)
+        return {"k": cache["k"], "v": cache["v"], "pos": pos + t_new}
     if ring:
         idx = (pos + step) % cap
     else:
-        if t_new > cap:
-            raise ValueError(f"cache_update: {t_new} new tokens exceed the "
-                             f"cache's capacity {cap}")
         idx = torch.clamp(pos, max=cap - t_new) + step
     cache["k"].index_copy_(1, idx, k_new.to(cache["k"].dtype))
     cache["v"].index_copy_(1, idx, v_new.to(cache["v"].dtype))
@@ -147,10 +169,13 @@ def cache_update(cache: Cache, k_new: torch.Tensor, v_new: torch.Tensor,
 
 
 def cache_positions(cache: Cache, ring: bool) -> torch.Tensor:
-    """Absolute position of each cache slot (-1 = empty)."""
+    """Absolute position of each cache slot (-1 = empty): (S,) for a scalar
+    ``pos``, (B, S) for lanes."""
     cap = cache["k"].shape[1]
     pos = cache["pos"]
     slots = torch.arange(cap, device=pos.device)
+    if pos.dim():
+        pos = pos[:, None]
     if ring:
         # slot s holds absolute position: the last `cap` tokens
         n_wraps = torch.clamp((pos - 1 - slots) // cap, min=0)
@@ -234,11 +259,11 @@ class GQAAttention(nn.Module):
         else:
             ring = self.window is not None and cache["k"].shape[1] <= self.window
             new_cache = cache_update(cache, k, v, ring=ring)
-            kpos = cache_positions(new_cache, ring)                  # (S,)
-            mask = (kpos[None, None, :] >= 0) & (kpos[None, None, :]
-                                                 <= positions[:, :, None])
+            kpos = cache_positions(new_cache, ring)        # (S,) or (B, S)
+            kpos = (kpos if kpos.dim() == 2 else kpos[None])[:, None, :]
+            mask = (kpos >= 0) & (kpos <= positions[:, :, None])
             if self.window is not None:
-                mask &= kpos[None, None, :] > positions[:, :, None] - self.window
+                mask &= kpos > positions[:, :, None] - self.window
             y = sdpa(q, new_cache["k"].to(q.dtype),
                      new_cache["v"].to(q.dtype), mask)
         return y.reshape(b, t, self.h * self.hd) @ self.wo, new_cache

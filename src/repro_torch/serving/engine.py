@@ -1,18 +1,25 @@
 """Batched generation engine: prefill + decode against KV caches.
 
-:class:`GenerationEngine` — a wave of requests is prefilled together, then
-decoded in lockstep; finished sequences are masked.  Greedy or temperature
-sampling.  Prefill and decode both go through the model's
-``decode_step`` against the cache, as in the JAX package's
-``repro.serving.engine``.  The slot API (``SlotDecoder``) waits for the
-serve runtime.
+Two execution modes, as in the JAX package's ``repro.serving.engine``:
+
+* :class:`GenerationEngine` — a wave of requests is prefilled together,
+  then decoded in lockstep; finished sequences are masked.  Greedy or
+  temperature sampling.  Prefill and decode both go through the model's
+  ``decode_step`` against the cache.  The serial reference the
+  ``repro_torch.serve`` runtime is checked against.
+* :class:`SlotDecoder` — the slot API under ``repro_torch.serve``
+  continuous batching: every slot is a cache lane with its own write
+  position, and one decode step over all lanes is one batched call (the
+  lanes are the rows of one lane cache, where the reference ``vmap``s a
+  step over batch-1 caches), so per-request admission and eviction never
+  share cache state across requests.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,3 +122,73 @@ class GenerationEngine:
         tokens = np.stack(out, axis=1)
         return GenResult(tokens, prefill_s=t1 - t0, decode_s=t2 - t1,
                          n_valid=valid_token_count(tokens, eos))
+
+
+def _bump_pos(cache):
+    """Sentinel variant of a fresh cache: ``pos`` advanced past one zero
+    key/value row (every lane's, with lane caches) so a never-admitted lane
+    still has >= 1 visible cache entry — an all-masked attention row
+    softmaxes to NaN otherwise."""
+    if isinstance(cache, dict):
+        return {k: (v + 1 if k == "pos" else _bump_pos(v))
+                for k, v in cache.items()}
+    return cache
+
+
+def write_lane(lanes: Dict, lane: int, one: Dict) -> None:
+    """Splice the stacked batch-1 cache ``one`` (``k`` (L, 1, S, ...),
+    ``pos`` (L,)) into lane ``lane`` of the stacked lane caches ``lanes``
+    (``k`` (L, B, S, ...), ``pos`` (L, B)), in place."""
+    lanes["k"][:, lane] = one["k"][:, 0]
+    lanes["v"][:, lane] = one["v"][:, 0]
+    lanes["pos"][:, lane] = one["pos"]
+
+
+class SlotDecoder:
+    """Per-slot KV cache lanes + one batched decode step (the engine slot
+    API).
+
+    Each of the ``n_slots`` lanes has its own write position; :meth:`decode`
+    advances every lane in one batched call (idle lanes compute garbage
+    that is never sampled — the fixed cost of static-slot continuous
+    batching), while :meth:`prefill` replaces a single lane's cache
+    wholesale with a freshly prefilled one, so no token of an evicted
+    request can leak into its successor.  ``model``: a ``DecoderLM`` (its
+    caches take lanes).
+    """
+
+    def __init__(self, model, n_slots: int, max_seq: int,
+                 cache_dtype=torch.float32):
+        self.model = model
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.cache_dtype = cache_dtype
+        self._idle = _bump_pos(model.init_caches(1, max_seq, cache_dtype))
+        self.caches = _bump_pos(model.init_caches(n_slots, max_seq,
+                                                  cache_dtype, lanes=True))
+
+    def prefill(self, slot: int, prompt: np.ndarray) -> np.ndarray:
+        """Admit a prompt (T,) into ``slot``: fresh batch-1 cache,
+        full-prompt prefill, cache written into the lane.  Returns the
+        last-position logits."""
+        fresh = self.model.init_caches(1, self.max_seq, self.cache_dtype)
+        toks = torch.as_tensor(np.asarray(prompt, np.int64),
+                               device=self.model.device)[None]
+        logits, new = self.model.decode_step(fresh, {"tokens": toks})
+        write_lane(self.caches["dense"], slot, new["dense"])
+        return logits[0, -1].cpu().numpy()
+
+    def free(self, slot: int) -> None:
+        """Reset a lane to the idle sentinel (eviction hygiene — admission
+        via :meth:`prefill` overwrites the lane anyway)."""
+        write_lane(self.caches["dense"], slot, self._idle["dense"])
+
+    def decode(self, tokens: np.ndarray) -> np.ndarray:
+        """One decode step for every lane. ``tokens``: (n_slots,) int —
+        idle lanes get a dummy token whose logits the caller ignores.
+        Returns (n_slots, vocab) logits."""
+        toks = torch.as_tensor(np.asarray(tokens, np.int64),
+                               device=self.model.device)[:, None]
+        logits, self.caches = self.model.decode_step(self.caches,
+                                                     {"tokens": toks})
+        return logits[:, -1].cpu().numpy()

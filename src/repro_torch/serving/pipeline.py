@@ -10,11 +10,11 @@ accuracy oracle of the explorer (``quantize.evaluate``).
 
 On one device the stages run in turn; the throughput model (Def. 4) comes
 from per-stage timings.  With quantization off the partitioned output
-equals the monolithic model's.
+equals the monolithic model's.  The serve runtime (``repro_torch.serve``)
+drives each LM stage on its own through ``stage_step_fn``.
 
 Not ported yet: quantized LM stages (the reference calibrates each weight
-over the stage's stacked layers; ``ROADMAP.md`` B7) and ``stage_step_fn``
-(with the serve runtime, C4).
+over the stage's stacked layers; ``ROADMAP.md`` B7).
 """
 
 from __future__ import annotations
@@ -28,7 +28,11 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.core.quant import QuantSpec, quantize_pytree, quantize_tensor
-from repro_torch.models.decoder import run_blocks, stacked_caches
+import torch.nn.functional as F
+
+from repro_torch.models.decoder import (run_blocks, stacked_caches,
+                                        step_positions)
+from repro_torch.nn.layers import rms_norm
 from repro_torch.serving.engine import sync
 
 
@@ -190,9 +194,47 @@ class PartitionedLMRunner:
         return w
 
     def init_stage_caches(self, si: int, batch: int, capacity: int,
-                          dtype=torch.float32) -> Dict:
+                          dtype=torch.float32, lanes: bool = False) -> Dict:
         """Fresh decode caches for stage ``si``'s block range (leading
-        block axis, ``pos`` = 0)."""
+        block axis, ``pos`` = 0); ``lanes``: one write position per batch
+        row, ``pos`` (blocks, batch)."""
         a, b = self.ranges[si]
         return stacked_caches(self.model.cfg, b - a, batch, capacity, dtype,
-                              self.model.device)
+                              self.model.device, lanes)
+
+    def stage_step_fn(self, si: int):
+        """``(weights, caches, x) -> (out, new_caches)`` for one prefill or
+        decode step of stage ``si`` (the serve runtime's execution layer),
+        over ``stage_weights(si)`` and caches of ``init_stage_caches(si,
+        ...)``, which it writes in place.
+
+        Stage 0 takes ``x`` as integer tokens (B, T) and embeds them; later
+        stages take the predecessor's activations (B, T, D).  The last
+        stage applies the final norm and the head and returns logits.
+        Token positions continue from the caches' write position exactly
+        as in ``DecoderLM.decode_step`` — each lane's own with lane caches,
+        so lanes admitted at different times decode at their own positions,
+        and a step over every lane is one call.
+        """
+        cfg = self.model.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                "step-wise stage serving supports dense decoder stacks")
+        a, b = self.ranges[si]
+        if b <= a:
+            raise ValueError(f"stage {si} owns no blocks (cuts {self.cuts})")
+        first, last = si == 0, si == self.n_stages - 1
+        tied = cfg.tied_embeddings
+
+        def fn(weights, caches, x):
+            if first:
+                x = F.embedding(x, weights["embed"])
+            bsz, t, _ = x.shape
+            positions = step_positions(caches["pos"][0], bsz, t, x.device)
+            x, new_caches = run_blocks(weights["blocks"], x, positions,
+                                       caches=caches)
+            if last:
+                x = rms_norm(x, weights["final_norm"])
+                x = x @ (weights["embed"].T if tied else weights["head"])
+            return x, new_caches
+        return fn

@@ -2,8 +2,9 @@
 nothing in ``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` or
 ``tools/cuda_host_shim/rehearse.py`` imports JAX or the JAX package
 ``repro``, and a CPU search, an LM generation, an SSM forward and
-generation, a CNN's measured accuracy, an online re-partition and a
-two-cell campaign run in a process where JAX cannot be imported at all."""
+generation, a CNN's measured accuracy, an online re-partition, a
+two-cell campaign and a served burst run in a process where JAX cannot be
+imported at all."""
 
 import ast
 import os
@@ -122,6 +123,15 @@ def test_cpu_search_runs_with_jax_blocked():
         camp = Campaign(small, models=[small.model, ModelRef(
             "cnn", "vgg16", {"in_hw": 64})]).run(device="cpu")
         assert len(camp.report.entries) == 2
+        from repro_torch.serve import (PipelineServeEngine, ReplicaRouter,
+                                       poisson_traffic)
+        from repro_torch.serving import PartitionedLMRunner
+        served = ReplicaRouter([PipelineServeEngine(
+            PartitionedLMRunner(model, [0]), n_slots=2, n_groups=1,
+            capacity=16)]).serve(poisson_traffic(
+                2, rate_rps=1000.0, vocab=512, prompt_len=4, max_new=2),
+            realtime=False)
+        assert served.n_done == 2 and served.total_tokens == 4
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked

@@ -437,3 +437,31 @@ def test_cnn_runner_on_card_equals_monolithic(cuda_device, cuts):
     part, rep = PartitionedCNNRunner(model, cuts).run(x, time_stages=True)
     assert torch.equal(part, mono)
     assert len(rep.latency_s) == len(cuts) + 1
+
+
+# -- the serve runtime ------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_served_tokens_async_equal_serial_on_card(cuda_device):
+    """A reduced smollm-360m served on the card through two stages, each
+    on its own stream: the async pipeline gives the serial handoff's
+    greedy tokens exactly (the same stage programs at the same shapes)."""
+    from repro_torch.serve import (PipelineServeEngine, Request,
+                                   poisson_traffic, stream_of)
+    from repro_torch.serving import PartitionedLMRunner
+    cfg = get_config("smollm-360m").reduced()
+    model = DecoderLM(cfg, device=cuda_device)
+    runner = PartitionedLMRunner(model, cuts=[0])
+    reqs = [Request(r.rid, r.prompt, r.max_new, 0.0) for r in poisson_traffic(
+        8, rate_rps=1000.0, vocab=cfg.vocab, prompt_len=12, max_new=8,
+        seed=1)]
+    tokens = {}
+    for mode in ("serial", "async"):
+        eng = PipelineServeEngine(runner, n_slots=4, n_groups=2, mode=mode,
+                                  capacity=32)
+        assert all(st.stream is not None for st in eng.stages)
+        eng.warmup(prompt_len=12)
+        rep = eng.run(stream_of(reqs), max_wall_s=120.0)
+        assert rep.n_done == len(reqs)
+        tokens[mode] = {r.rid: r.tokens for r in rep.records}
+    assert tokens["async"] == tokens["serial"]

@@ -560,6 +560,26 @@ def test_default_device_raises_without_a_card(tmp_path, monkeypatch):
     from repro_torch.launch.drift import main as drift_main
     with pytest.raises(RuntimeError, match="no CUDA device"):
         drift_main(["--pop", "16", "--gens", "1"])
-    with pytest.raises(NotImplementedError, match="C4"):
-        drift_main(["--serve", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        drift_main(["--serve", "--pop", "16", "--gens", "1"])
     assert not os.listdir(os.path.join(d, "shards"))
+
+
+def test_drift_driver_serves_and_fires_the_measured_trigger(tmp_path,
+                                                            capsys):
+    """``--serve`` serves every request of the baseline burst on the CPU;
+    ``--measured`` fires the warm re-partition from the measured link
+    divergence and writes a timeline whose decision says so."""
+    import json
+
+    from repro_torch.launch.drift import main as drift_main
+    common = ["--device", "cpu", "--pop", "16", "--gens", "1"]
+    assert drift_main(common + ["--serve", "--requests", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "serve[baseline]: 2 stages, 4/4 done" in out
+    path = tmp_path / "timeline.json"
+    assert drift_main(common + ["--measured", "--timeline", str(path)]) == 0
+    timeline = json.loads(path.read_text())
+    assert timeline["decision"]["trigger"] == "measured"
+    assert timeline["signals"] and timeline["divergence_series"]
+    assert timeline["served"] == {"n_done": 8, "n_requests": 8}
