@@ -20,7 +20,11 @@ generations) four times:
    ``domination_counts``) with each launch's time.
 
 ``python3 chip_profile.py --search`` stops there; ``--serve`` runs only
-:func:`serve_profile` (the serve path of ``chip_smoke.py`` phase 12).
+:func:`serve_profile` (the serve path of ``chip_smoke.py`` phase 12), and
+``--train`` only :func:`train_profile` (a train step of smollm-360m at
+full width, ``chip_smoke.py`` phase 13), and ``--optim`` only
+:func:`optim_compare` (the multi-tensor AdamW against the same rules a
+leaf at a time, in the LM's and the oracle's train steps).
 ``--cold`` instead runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
 timers on the phase-3 search (the first search of the process), then the
 same search again warm.  The search part needs
@@ -68,6 +72,7 @@ and N.  That part alone:
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import sys
 import tempfile
@@ -199,6 +204,12 @@ def main(argv) -> int:
     print(chip_smoke.card_line())
     if "--cold" in argv:
         cold_search(dev)
+        return 0
+    if "--train" in argv:
+        train_profile(dev)
+        return 0
+    if "--optim" in argv:
+        optim_compare(dev)
         return 0
     res = search_profile(dev)
     if "--serve" in argv:
@@ -362,6 +373,323 @@ def serve_profile(dev):
                   f"tok/s, wall {rep.wall_s:.3f} s, stage_step_s {occ}, "
                   f"measured steps/s "
                   f"{[e.stats['measured_steps_per_s'] for e in replicas]}")
+
+
+def train_profile(dev):
+    """Where a train step of smollm-360m at full width goes (phase 13's
+    AdamW step at 8 x 128 tokens): synchronized host timers around the
+    forward and loss, the backward and the optimizer step, with remat on
+    (as configured) and off (the backward's difference is the recompute);
+    then one whole step under the profiler: device-busy share, launches,
+    the matrix products against the elementwise passes, the reductions
+    and the copies.  Then the same for a step of the ``cnn_fakequant``
+    oracle's training (:func:`oracle_profile`)."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+                                   stacked_grads, stacked_params,
+                                   warmup_cosine)
+    from repro_torch.training import init_params, lm_loss, make_train_step
+
+    cfg = get_config(chip_smoke.LM_ARCH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(chip_smoke.SEED))
+    steps = chip_smoke.TRAIN_STEPS
+    opt = adamw(warmup_cosine(chip_smoke.TRAIN_LR, steps // 10, steps))
+    step = make_train_step(model, cfg, opt)
+    state = opt.init(init_params(model))
+    batch = make_batch_for(cfg, chip_smoke.TRAIN_B, chip_smoke.TRAIN_T)
+    labels = torch.as_tensor(batch["labels"], device=dev)
+    leaves = reference_leaves(model)
+    for _ in range(2):                                     # warm-up
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+
+    def parts(remat, reps=3):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        nonlocal state
+        times = collections.defaultdict(list)
+        for _ in range(reps):
+            t = [time.perf_counter()]
+            loss = lm_loss(cfg, model(batch, train=True),
+                           {"labels": labels}, {})[0]
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            loss.backward()
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            grads, _ = clip_by_global_norm(stacked_grads(leaves), 1.0)
+            with torch.no_grad():
+                upd, state = opt.update(grads, state, stacked_params(leaves))
+                apply_updates(leaves, upd)
+            torch.cuda.synchronize()
+            t.append(time.perf_counter())
+            for name, a, b in zip(("forward + loss", "backward",
+                                   "optimizer (clip, update, apply)"),
+                                  t, t[1:]):
+                times[name].append(round((b - a) * 1e3, 2))
+        model.cfg = cfg
+        return times
+
+    on, off = parts(True), parts(False)
+    for name in on:
+        print(f"train step part, {name}: remat on {on[name]} ms, off "
+              f"{off[name]} ms")
+    med = {k: sorted(v)[len(v) // 2] for k, v in on.items()}
+    recompute = med["backward"] - sorted(off["backward"])[1]
+    print(f"recompute (backward with remat less without): {recompute:.2f} "
+          f"ms; step with remat {sum(med.values()):.2f} ms")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batch)
+
+    profiled(f"{chip_smoke.LM_ARCH} AdamW train step {chip_smoke.TRAIN_B} x "
+             f"{chip_smoke.TRAIN_T} tokens, remat on", one, top_n=15,
+             groups=TRAIN_GROUPS)
+    del model, state, step
+    oracle_profile(dev)
+
+
+def oracle_profile(dev):
+    """A step of the ``cnn_fakequant`` oracle's training (EfficientNet-B0
+    at full width on 64 images of 32 x 32, AdamW over its unstacked
+    leaves): forward, backward and optimizer by synchronized host timers,
+    the mean of 10 whole steps, then one step under the profiler."""
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.models.cnn.zoo import build_cnn
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+                                   stacked_grads, stacked_params,
+                                   warmup_cosine)
+    from repro_torch.training import (cross_entropy, init_params,
+                                      make_classifier_train_step)
+
+    model = build_cnn("efficientnet_b0", **chip_smoke.FQ_OPTS).init_weights(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    total = chip_smoke.FQ_STEPS
+    opt = adamw(warmup_cosine(2e-3, total // 10, total))
+    state = opt.init(init_params(model))
+    step = make_classifier_train_step(model, opt)
+    ds = SyntheticImages(noise=0.2)
+    x, y = ds.batch(64, 0)
+    for _ in range(3):                                     # warm-up
+        state, _ = step(state, x, y)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(10):
+        state, _ = step(state, x, y)
+    torch.cuda.synchronize()
+    whole = (time.perf_counter() - t) / 10 * 1e3
+    leaves = reference_leaves(model)
+    xd, yd = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    t = [time.perf_counter()]
+    model.train()
+    loss = cross_entropy(model(xd), yd)
+    model.eval()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    loss.backward()
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    grads, _ = clip_by_global_norm(stacked_grads(leaves), 1.0)
+    with torch.no_grad():
+        upd, state = opt.update(grads, state, stacked_params(leaves))
+        apply_updates(leaves, upd)
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    ms = [round((b - a) * 1e3, 2) for a, b in zip(t, t[1:])]
+    print(f"cnn_fakequant oracle step (efficientnet_b0 "
+          f"{chip_smoke.FQ_OPTS}, batch 64, {len(leaves)} leaves): "
+          f"{whole:.2f} ms a step over 10; forward + loss {ms[0]} ms, "
+          f"backward {ms[1]} ms, optimizer (clip, update, apply) {ms[2]} ms")
+
+    def one():
+        nonlocal state
+        state, _ = step(state, x, y)
+
+    profiled("cnn_fakequant oracle train step", one, top_n=10, groups={
+        **TRAIN_GROUPS,
+        "convolutions (*conv*)": lambda k: "conv" in k.lower(),
+        "BatchNorm (*batch_norm*, *bn_*)":
+            lambda k: "batch_norm" in k.lower() or "bn_" in k.lower()})
+
+
+def per_leaf_adamw(lr, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.01):
+    """``repro_torch.optim.adamw``'s rules with a leaf at a time in each
+    elementwise operation (the multi-tensor version takes every leaf at
+    once): the same operations in the same order on each element, the
+    other dispatch.  With :func:`per_leaf_clip` and
+    :func:`per_leaf_apply`."""
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import Optimizer, _to_schedule
+
+    sched = _to_schedule(lr)
+
+    def update(grads, state, params):
+        step = state["step"] + 1
+        t = step.float()
+        bc1, bc2 = 1 - b1 ** t, 1 - b2 ** t
+        lr_t = sched(step)
+        m, v, out = {}, {}, {}
+        for k, g in grads.items():
+            g = g.float()
+            m[k] = state["m"][k] * b1
+            m[k].add_(g * (1 - b1))
+            v[k] = state["v"][k] * b2
+            v[k].add_((g * g) * (1 - b2))
+            den = torch.sqrt(v[k] / bc2)
+            den.add_(eps)
+            u = (m[k] / bc1) / den
+            if weight_decay and params[k].dim() >= 2:
+                u.add_(params[k].float() * weight_decay)
+            out[k] = u * -lr_t
+        return out, {"m": m, "v": v, "step": step}
+
+    return Optimizer(adamw(lr).init, update)
+
+
+def per_leaf_clip(grads, max_norm):
+    norms = [torch.linalg.vector_norm(g.float()) for g in grads.values()]
+    gn = torch.sqrt(torch.sum(torch.square(torch.stack(norms))))
+    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+    return {k: g * scale for k, g in grads.items()}, gn
+
+
+@torch.no_grad()
+def per_leaf_apply(leaves, updates):
+    for k, leaf in leaves.items():
+        for p, u in zip(leaf.params, leaf.unstack(updates[k])):
+            p.add_(u)
+
+
+def optim_compare(dev, rounds=3):
+    """The port's multi-tensor AdamW (``torch._foreach_*`` over every
+    reference leaf; clip and apply likewise) against the same rules a leaf
+    at a time (:func:`per_leaf_adamw`), in one process on one optimizer
+    state that both advance: a smollm-360m step at full width (8 x 128,
+    remat on, phase 13's peak learning rate) and a ``cnn_fakequant``
+    oracle step (EfficientNet-B0 at ``chip_smoke.FQ_OPTS``, batch 64).
+    First both variants' updates from one gradient and state (their
+    largest difference); then ``rounds`` rounds of multi-tensor, per-leaf,
+    each a block of whole steps (host wall between synchronizes, and the
+    peak device memory of the block) and the optimizer alone on fixed
+    gradients (clip, update, apply; CUDA events)."""
+    from repro_torch.data.synthetic import SyntheticImages, make_batch_for
+    from repro_torch.models.cnn.zoo import build_cnn
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.training import cross_entropy, lm_loss
+
+    card = chip_smoke.card_line()
+    cfg = get_config(chip_smoke.LM_ARCH)
+    lm = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(chip_smoke.SEED))
+    batch = make_batch_for(cfg, chip_smoke.TRAIN_B, chip_smoke.TRAIN_T)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    _compare_variants(
+        f"{chip_smoke.LM_ARCH} {chip_smoke.TRAIN_B} x {chip_smoke.TRAIN_T}, "
+        f"remat on", lm, lambda: lm_loss(cfg, lm(batch, train=True), batch,
+                                         {})[0],
+        chip_smoke.TRAIN_LR, 4, rounds, card)
+    del lm
+    torch.cuda.empty_cache()
+
+    cnn = build_cnn("efficientnet_b0", **chip_smoke.FQ_OPTS).init_weights(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    x, y = SyntheticImages(noise=0.2).batch(64, 0)
+    x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+
+    def cnn_loss():
+        cnn.train()
+        try:
+            return cross_entropy(cnn(x), y)
+        finally:
+            cnn.eval()
+
+    _compare_variants(f"cnn_fakequant oracle efficientnet_b0 "
+                      f"{chip_smoke.FQ_OPTS}, batch 64", cnn, cnn_loss, 2e-3,
+                      10, rounds, card)
+
+
+def _compare_variants(label, model, loss_of, peak_lr, n, rounds, card):
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.nn.module import trainable
+    from repro_torch.optim import (adamw, apply_updates, clip_by_global_norm,
+                                   stacked_grads, stacked_params,
+                                   warmup_cosine)
+
+    trainable(model)
+    leaves = reference_leaves(model)
+    lr = warmup_cosine(peak_lr, 1, 1000)      # no step reaches the decay's end
+    variants = {
+        "multi-tensor": (adamw(lr), clip_by_global_norm, apply_updates),
+        "per-leaf": (per_leaf_adamw(lr), per_leaf_clip, per_leaf_apply)}
+    state = variants["multi-tensor"][0].init(stacked_params(leaves))
+
+    def step(variant):
+        nonlocal state
+        opt, clip, apply = variants[variant]
+        loss_of().backward()
+        grads, _ = clip(stacked_grads(leaves), 1.0)
+        with torch.no_grad():
+            upd, state = opt.update(grads, state, stacked_params(leaves))
+            apply(leaves, upd)
+
+    for v in variants:                                     # warm-up
+        step(v)
+    loss_of().backward()
+    grads = stacked_grads(leaves)
+    with torch.no_grad():
+        params = stacked_params(leaves)
+        ups = {v: opt.update(clip(grads, 1.0)[0], state, params)[0]
+               for v, (opt, clip, _) in variants.items()}
+        diff = max(float((ups["multi-tensor"][k] - ups["per-leaf"][k]
+                          ).abs().max()) for k in grads)
+        top = max(float(u.abs().max()) for u in ups["per-leaf"].values())
+    del ups, params
+    print(f"optimizer variants, {label}: {len(leaves)} leaves; one update "
+          f"from the same gradient and state differs by at most {diff:.3e} "
+          f"(largest update {top:.3e})")
+
+    def opt_only(variant):
+        nonlocal state
+        opt, clip, apply = variants[variant]
+        with torch.no_grad():
+            g, _ = clip(grads, 1.0)
+            upd, state = opt.update(g, state, stacked_params(leaves))
+            apply(leaves, upd)
+
+    res = collections.defaultdict(lambda: collections.defaultdict(list))
+    for _ in range(rounds):
+        for v in variants:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            for _ in range(n):
+                step(v)
+            torch.cuda.synchronize()
+            res[v]["step ms"].append(
+                round((time.perf_counter() - t) / n * 1e3, 2))
+            res[v]["peak GiB"].append(
+                round(torch.cuda.max_memory_allocated() / 2 ** 30, 2))
+            res[v]["optimizer ms"].append(
+                round(chip_smoke.cuda_ms(lambda: opt_only(v), 3), 2))
+    for v, metrics in res.items():
+        print(f"optimizer variants, {label}, {v}: " + "; ".join(
+            f"{name} {vals}" for name, vals in metrics.items())
+            + f" (rounds alternate multi-tensor, per-leaf; {n} steps a "
+            f"block) [{card}]")
+
+
+TRAIN_GROUPS = {
+    "matrix products (*gemm*)":
+        lambda k: "gemm" in k.lower() or "xmma" in k.lower(),
+    "elementwise (*elementwise*)": lambda k: "elementwise" in k.lower(),
+    "reductions (*reduce*)": lambda k: "reduce" in k.lower(),
+    "copies and stacks (*copy*, *cat*)":
+        lambda k: "copy" in k.lower() or "cat" in k.lower(),
+    "softmax": lambda k: "softmax" in k.lower()}
 
 
 def _depthwise(k):

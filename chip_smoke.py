@@ -105,10 +105,34 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     ``SlotDecoder`` admits a second request mid-flight without changing
     the first's tokens; then the drift driver's ``--serve`` and
     ``--measured`` run on the card, the latter firing its re-partition
-    from the measured link divergence.
+    from the measured link divergence;
+13. drives the training side once at full width, with every launch count
+    set to 0 just before and read just after (0 for all five kernels in
+    every train step, as in the reference, whose training takes ``impl=
+    "ref"``; K1 and K2 only in the search that picks the oracle's cut
+    vectors): smollm-360m at its published size (remat on) takes one SGD
+    step on the card and on the CPU from the same seeded weights (loss and
+    parameters agree), SGD steps with remat on and off and with four
+    microbatches against one (parameters agree), two Adafactor steps
+    (the loss falls) and 10 AdamW steps on ``launch/train.py``'s schedule
+    at 8 x 128 tokens (finite losses, the last below the first; step
+    times, tok/s, the optimizer step alone, grad norm, peak memory); then
+    the registered ``cnn_fakequant`` oracle, built through its
+    ``AccuracySpec`` on the card, trains EfficientNet-B0 at full width and
+    its own data size (32 x 32, 10 classes, eval set 256; 100 steps) and
+    scores up to 8 cut vectors of a search over its graph on phase 3's
+    chain (float top-1 above 0.30; a fresh runner over the model it
+    trained gives each score again bit for bit),
+    and QAT at 4 bits keeps the reference test's three gates;
+14. runs the launchers in-process: ``launch.train`` at full width for 4
+    steps with a checkpoint, restored into a fresh model (every tensor and
+    the logits bit for bit), then ``launch.serve`` at the reference's
+    defaults (reduced smollm-360m warm-trained 30 steps, 16 requests,
+    prompt 8, 12 new tokens, 2 replicas, eth10): nothing dropped, async
+    tokens equal to serial tokens.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 12),
+card's name and power limit (also beside every time of phases 6 to 14),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -237,6 +261,40 @@ FLEET_WORKERS = 2
 SERVE_REQUESTS, SERVE_RPS, SERVE_SEED, SERVE_NEW = 16, 200.0, 123, 8
 SERVE_REPLICAS, SERVE_SLOTS, SERVE_GROUPS = 2, 8, 4
 SERVE_LINK = "eth10"
+
+# phase 13: training at full width.  smollm-360m at its published size
+# (32 blocks, d 960, vocab 49152, remat on as its config sets it), AdamW on
+# launch/train.py's schedule (warmup_cosine(3e-4, steps // 10, steps)) for
+# 10 steps of make_batch_for(cfg, 8, 128, seed=i)
+TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 8, 128, 10, 3e-4
+# one SGD step (momentum 0, lr 0.1, no clip) at 1 x 32 tokens from the
+# seeded weights, on the card and on the CPU: the same float32 operations
+# summed in other orders (cuBLAS against the CPU's GEMMs, the embedding's
+# backward by atomics on the card), so the losses agree within 1e-5
+# (relative) and each parameter within SGD_PARAM_REL of the step's largest
+# change |lr * g|: a relative error of 1e-4 in a gradient is ~100x what
+# float32 sums over these lengths (<= 49152 terms) leave
+SGD_B, SGD_T, SGD_LR = 1, 32, 0.1
+SGD_LOSS_REL, SGD_PARAM_REL = 1e-5, 1e-4
+# remat on against off, grad_accum 4 against 1 (SGD, no clip, 8 x 128):
+# recomputing a block repeats its operations (only the atomics' order may
+# differ), and tests/test_grad_accum.py's bound for four microbatches
+REMAT_TOL, ACCUM_TOL = 1e-6, 1e-4
+# Adafactor, 2 steps on one batch (tests/test_training_serving.py:39-51's
+# check at its learning rate and batch)
+ADAFACTOR_LR, ADAFACTOR_B, ADAFACTOR_T = 1e-2, 4, 32
+# the cnn_fakequant oracle on EfficientNet-B0 at full width and its own
+# data size (src/repro/core/accuracy.py:141-174: 32 x 32, 10 classes,
+# batch 64, eval set 256), phase 3's chain and search settings over this
+# model's graph, up to 8 cut vectors of the front; the trained float top-1
+# above the reference's bar (tests/test_training_serving.py:77).  100
+# steps, not the oracle's default 200, to keep phases 13-14 near 45 s
+FQ_OPTS = {"in_hw": 32, "w": 1.0, "n_classes": 10}
+FQ_STEPS, FQ_EVAL, FQ_BAR = 100, 256, 0.30
+# QAT at 4 bits, 40 steps of adamw(5e-4) from the trained model, at the
+# reference test's batch 64 from seed 500 (tests/test_training_serving.py:
+# 80-92, whose three gates phase 13 keeps)
+QAT_BITS, QAT_STEPS, QAT_LR = 4, 40, 5e-4
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -1562,6 +1620,303 @@ def serve_path(dev, card, model, cuts):
           f"{timeline['decision']} [{card}]")
 
 
+def snapshot(model):
+    """A copy of every parameter, to start each comparison from."""
+    return [p.detach().clone() for p in model.parameters()]
+
+
+@torch.no_grad()
+def restore_params(model, snap):
+    for p, s in zip(model.parameters(), snap):
+        p.copy_(s)
+
+
+def params_max_diff(a, b):
+    """Largest |a - b| over two models' (or snapshots') parameters, on the
+    device of ``b``."""
+    pa = a if isinstance(a, list) else list(a.parameters())
+    pb = b if isinstance(b, list) else list(b.parameters())
+    return max(float((x.detach().to(y.device) - y.detach()).abs().max())
+               for x, y in zip(pa, pb))
+
+
+def one_step(model, cfg, opt, batch, **kw):
+    """One train step of ``model`` from a fresh optimizer state; returns
+    its metrics (device tensors)."""
+    from repro_torch.training import init_params, make_train_step
+    step = make_train_step(model, cfg, opt, **kw)
+    _, metrics = step(opt.init(init_params(model)), batch)
+    return metrics
+
+
+def lm_train_path(dev, card, kernels):
+    """Phase 13, the LM part: smollm-360m at full width trained 10 AdamW
+    steps (times, tok/s, optimizer-step ms, grad norm, peak memory); one
+    SGD step on the card against the CPU; remat on against off;
+    grad_accum 4 against 1; Adafactor's loss falls."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models.convert import reference_leaves
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim import (adafactor, adamw, apply_updates,
+                                   clip_by_global_norm, sgd, stacked_grads,
+                                   stacked_params, warmup_cosine)
+    from repro_torch.training import init_params, lm_loss, make_train_step
+
+    cfg = get_config(LM_ARCH)
+    assert cfg.remat, "full-size configs checkpoint their blocks"
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = snapshot(model)
+
+    # one SGD step on the card and on the CPU from the same weights
+    cpu = build_model(cfg, device="meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    batch = make_batch_for(cfg, SGD_B, SGD_T, SEED)
+    losses = {}
+    for name, m in (("cuda", model), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        losses[name] = float(one_step(m, cfg, sgd(SGD_LR, momentum=0.0),
+                                      batch, clip_norm=None)["loss"])
+        print(f"SGD step on {name}: loss {losses[name]:.7f} in "
+              f"{time.perf_counter() - t0:.2f} s")
+    change = params_max_diff(snap, cpu)
+    sgd_diff = params_max_diff(model, cpu)
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"SGD step (lr {SGD_LR}, {SGD_B} x {SGD_T} tokens), card vs CPU: "
+          f"loss rel diff {rel:.3e} (bound {SGD_LOSS_REL}), parameters max "
+          f"|diff| {sgd_diff:.3e} against the step's largest change "
+          f"{change:.3e} (bound {SGD_PARAM_REL} of it) [{card}]")
+    assert rel <= SGD_LOSS_REL, rel
+    assert sgd_diff <= SGD_PARAM_REL * change, (sgd_diff, change)
+    del cpu
+
+    # remat on against off, grad_accum 4 against 1 (SGD, no clip)
+    batch = make_batch_for(cfg, TRAIN_B, TRAIN_T, SEED)
+    after = {}
+    for name, remat, accum in (("remat", True, 1), ("no remat", False, 1),
+                               ("accum 4", True, 4)):
+        restore_params(model, snap)
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        m, s = timed(lambda: one_step(model, model.cfg, sgd(
+            SGD_LR, momentum=0.0), batch, clip_norm=None, grad_accum=accum))
+        after[name] = snapshot(model)
+        print(f"SGD step, {name}: loss {float(m['loss']):.6f}, {s:.3f} s, "
+              f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    model.cfg = cfg
+    remat_diff = params_max_diff(after["remat"], after["no remat"])
+    accum_diff = params_max_diff(after["remat"], after["accum 4"])
+    del after
+    print(f"remat on vs off: parameters max |diff| {remat_diff:.3e} (bound "
+          f"{REMAT_TOL}); grad_accum 4 vs 1: {accum_diff:.3e} (bound "
+          f"{ACCUM_TOL})")
+    assert remat_diff <= REMAT_TOL, remat_diff
+    assert accum_diff <= ACCUM_TOL, accum_diff
+
+    # Adafactor: two steps on one batch, the loss falls
+    restore_params(model, snap)
+    opt = adafactor(ADAFACTOR_LR)
+    step = make_train_step(model, cfg, opt)
+    state = opt.init(init_params(model))
+    batch = make_batch_for(cfg, ADAFACTOR_B, ADAFACTOR_T, SEED)
+    ada = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        ada.append(float(m["loss"]))
+    print(f"Adafactor (lr {ADAFACTOR_LR}) 2 steps on one batch: losses "
+          f"{ada}")
+    assert ada[1] < ada[0], ada
+    del state, step
+
+    # AdamW on the train launcher's schedule, 10 steps at 8 x 128
+    restore_params(model, snap)
+    del snap
+    opt = adamw(warmup_cosine(TRAIN_LR, TRAIN_STEPS // 10, TRAIN_STEPS))
+    step = make_train_step(model, cfg, opt)
+    state = opt.init(init_params(model))
+    batches = [make_batch_for(cfg, TRAIN_B, TRAIN_T, i)
+               for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_s, metrics = [], []
+    for b in batches:
+        (state, m), s = timed(lambda: step(state, b))
+        step_s.append(s)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    toks = TRAIN_B * TRAIN_T
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+
+    # the optimizer step alone (update + apply), timed on fresh gradients
+    leaves = reference_leaves(model)
+    lm_loss(cfg, model(batches[0], train=True), {"labels": torch.as_tensor(
+        batches[0]["labels"], device=dev)}, {})[0].backward()
+    grads, _ = clip_by_global_norm(stacked_grads(leaves), 1.0)
+
+    def opt_step():
+        nonlocal state
+        with torch.no_grad():
+            upd, state = opt.update(grads, state, stacked_params(leaves))
+            apply_updates(leaves, upd)
+    opt_ms = cuda_ms(opt_step, 3)
+    print(f"train: {LM_ARCH} {n_params / 1e6:.1f}M parameters, {len(leaves)} "
+          f"reference leaves over {sum(1 for _ in model.parameters())} "
+          f"tensors, AdamW warmup_cosine({TRAIN_LR}, {TRAIN_STEPS // 10}, "
+          f"{TRAIN_STEPS}), {TRAIN_B} x {TRAIN_T} tokens, remat on: step s "
+          f"first {step_s[0]:.3f}, steady (median of the rest) {steady:.4f} "
+          f"(all {[round(x, 4) for x in step_s]}); {toks / steady:.0f} "
+          f"tok/s; optimizer step {opt_ms:.2f} ms; losses "
+          f"{[round(x, 4) for x in losses]}; grad norm first {gnorm[0]:.3f} "
+          f"last {gnorm[-1]:.3f}; peak device memory {peak:.2f} GiB [{card}]")
+    launches = {name: k.launches for name, k in kernels.items()}
+    assert all(v == 0 for v in launches.values()), launches
+    print(f"train steps: launches {launches}")
+
+
+def fakequant_path(dev, card, kernels):
+    """Phase 13, the CNN part: the ``cnn_fakequant`` oracle on
+    EfficientNet-B0 at full width, scoring up to 8 cut vectors of a search
+    over its graph (K1/K2 launch there only), a fresh runner scoring them
+    again bit for bit, then QAT at 4 bits."""
+    from repro_torch.core.graph import linearize
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.data.synthetic import batch_iterator
+    from repro_torch.explore import AccuracySpec, ModelRef, run_spec
+    from repro_torch.optim import adamw
+    from repro_torch.quantize.evaluate import (cnn_measured_accuracy,
+                                               qat_finetune, quantized_eval)
+    from repro_torch.training import evaluate_classifier
+
+    spec = dataclasses.replace(
+        main_spec(), model=ModelRef("cnn", "efficientnet_b0", FQ_OPTS))
+    res, search_s = timed(lambda: run_spec(spec, device=str(dev)))
+    search_launches = {name: k.launches for name, k in kernels.items()}
+    assert search_launches["packed_domination"] > 0, search_launches
+    assert res.pareto, "empty front"
+    cuts = list(dict.fromkeys([tuple(p.cuts) for p in res.pareto[:CNN_CUTS]]
+                              + [(-1, -1, -1)]))
+    print(f"cnn_fakequant search: efficientnet_b0 {FQ_OPTS} "
+          f"({len(res.schedule)} positions), phase 3's chain, pop {POP} x "
+          f"{N_GEN}: {search_s:.3f} s, front {len(res.pareto)} points; "
+          f"launches {search_launches}")
+    for k in kernels.values():
+        k.launches = 0
+
+    # the registered oracle, built as a spec builds it on the search's
+    # device; the model it trained and its data come with it for QAT
+    graph, _ = spec.model.build()
+    system = spec.system.build()
+    oracle = AccuracySpec(kind="measured", measure="cnn_fakequant", options={
+        "name": "efficientnet_b0", "steps": FQ_STEPS, "eval_size": FQ_EVAL,
+        **FQ_OPTS})
+    acc, train_s = timed(lambda: oracle.build(graph, res.schedule, system,
+                                              dev))
+    model, ds = acc.measure.model, acc.measure.dataset
+    assert model.device.type == dev.type, model.device
+    assert [l.name for l in linearize(model.to_graph(), spec.schedule_policy)
+            ] == [l.name for l in res.schedule]
+    vx, vy = ds.eval_set(FQ_EVAL)
+    acc_fp = evaluate_classifier(model, vx, vy)
+    scores, score_s = timed(lambda: [acc(c) for c in cuts])
+    again = cnn_measured_accuracy(model, res.schedule, vx, vy,
+                                  [p.quant for p in system.platforms])
+    assert [again(c) for c in cuts] == scores, "a fresh runner disagrees"
+    assert all(0.0 <= a <= 1.0 for a in scores), scores
+    print(f"cnn_fakequant oracle built (trained {FQ_STEPS} AdamW steps at "
+          f"batch 64) in {train_s:.2f} s ({FQ_STEPS / train_s:.1f} steps/s), "
+          f"float top-1 "
+          f"{acc_fp:.4f} over {FQ_EVAL} (bar {FQ_BAR}); {len(cuts)} cut "
+          f"vectors scored in {score_s:.3f} s, again bit for bit by a fresh "
+          f"runner: " + ", ".join(f"{c}: {a:.4f}" for c, a in
+                                  zip(cuts, scores)) + f" [{card}]")
+    assert acc_fp > FQ_BAR, acc_fp
+
+    spec_q = QuantSpec(bits=QAT_BITS)
+    acc_q = quantized_eval(model, vx, vy, spec_q)
+    _, qat_s = timed(lambda: qat_finetune(
+        model, spec_q, adamw(QAT_LR), batch_iterator(ds, 64, start_seed=500),
+        steps=QAT_STEPS))
+    acc_qat = quantized_eval(model, vx, vy, spec_q)
+    print(f"QAT at {QAT_BITS} bits: float {acc_fp:.4f}, quantized "
+          f"{acc_q:.4f}, after {QAT_STEPS} steps of adamw({QAT_LR}) "
+          f"{acc_qat:.4f} ({qat_s:.2f} s) [{card}]")
+    assert acc_q <= acc_fp + 0.02, (acc_q, acc_fp)
+    assert acc_qat >= acc_q - 0.02, (acc_qat, acc_q)
+    assert acc_qat >= 0.9 * acc_q, (acc_qat, acc_q)
+    launches = {name: k.launches for name, k in kernels.items()}
+    assert all(v == 0 for v in launches.values()), launches
+    print(f"cnn_fakequant training, scoring and QAT: launches {launches}")
+
+
+def train_phase(dev, card):
+    """Phase 13: the training side at full width, every kernel's launches
+    counted over the phase (0 in every train step; K1/K2 only in the
+    search that picks the oracle's cut vectors)."""
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    lm_train_path(dev, card, kernels)
+    fakequant_path(dev, card, kernels)
+    print(f"phase 13 in {time.perf_counter() - t0:.1f} s")
+
+
+def launcher_phase(dev, card):
+    """Phase 14: ``launch.train`` at full width with a checkpoint restored
+    into a fresh model bit for bit, then ``launch.serve`` at the
+    reference's defaults."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.launch import serve, train
+    from repro_torch.models.convert import (load_reference_params,
+                                            reference_params)
+    from repro_torch.models.registry import build_model
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = train.run(["--arch", LM_ARCH, "--steps", "4", "--log-every",
+                         "2", "--ckpt", tmp, "--device", str(dev)])
+        model = run.model
+        fresh = build_model(model.cfg, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 1))
+        like = {k: v.cpu().numpy() for k, v in
+                reference_params(fresh).items()}
+        load_reference_params(fresh, restore(tmp, like))
+    for (n, a), (_, b) in zip(model.named_parameters(),
+                              fresh.named_parameters()):
+        assert torch.equal(a, b), n
+    batch = {"tokens": torch.from_numpy(make_batch_for(
+        model.cfg, 2, TRAIN_T, SEED)["tokens"]).to(dev)}
+    with torch.no_grad():
+        same = torch.equal(model(batch), fresh(batch))
+    assert same, "restored logits differ"
+    print(f"launch.train: {LM_ARCH} at full width, 4 steps, checkpoint "
+          f"restored into a fresh model: every tensor and the logits bit "
+          f"for bit; losses {[round(float(m['loss']), 4) for m in run.metrics]} "
+          f"[{card}]")
+    del run, model, fresh
+
+    out = serve.run(["--device", str(dev)])
+    assert not out.dropped, "dropped requests"
+    tokens = [{r.rid: r.tokens for r in rep.records}
+              for rep in (out.async_report, out.serial_report)]
+    assert tokens[0] == tokens[1], "async != serial tokens"
+    print(f"launch.serve: {len(tokens[0])} requests, no drops, async tokens "
+          f"== serial tokens, block cuts {out.cuts}; phase 14 in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1603,6 +1958,8 @@ def main() -> int:
     campaign_path(dev, card, res)
     serve_path(dev, card, lm_model, lm_cuts)
     del lm_model
+    train_phase(dev, card)
+    launcher_phase(dev, card)
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")

@@ -13,8 +13,8 @@ Two implementations of the ``accuracy_fn(cuts) -> float`` protocol:
   (e.g. fake-quant inference of a trained model on a validation set for
   each platform assignment).  Results are cached per cut vector.
 
-The built-in ``cnn_fakequant`` measure, which trains a CNN, is not part of
-this package yet; the ``table`` measure is.
+Two measured oracles are registered by name: ``cnn_fakequant``, which
+trains a CNN and scores partitioned fake-quant inference, and ``table``.
 """
 
 from __future__ import annotations
@@ -110,7 +110,8 @@ class MeasuredAccuracy:
 #
 # A spec is pure data, so ``accuracy: {kind: "measured", measure: <name>}``
 # references a factory registered here.  A factory is called as
-# ``factory(graph=..., schedule=..., system=..., **options)`` and returns the
+# ``factory(graph=..., schedule=..., system=..., device=..., **options)``,
+# ``device`` being the one the search runs on, and returns the
 # ``measure(cuts) -> float`` callable that MeasuredAccuracy wraps (so every
 # declarative measured oracle gets per-cut caching for free).
 
@@ -141,7 +142,62 @@ def get_accuracy_measure(name: str) -> Callable:
             f"(see repro_torch.core.accuracy.register_accuracy_measure)")
 
 
-def _table_measure(graph=None, schedule=None, system=None, *,
+def train_oracle_cnn(name: str, steps: int = 200, device="cuda",
+                     **build_opts):
+    """The ``cnn_fakequant`` oracle's model: ``build_cnn(name,
+    **build_opts)`` on ``device`` (weights from a generator seeded 0),
+    trained ``steps`` steps of AdamW on a warmup-cosine schedule (peak
+    2e-3, a tenth of the steps warm) at batch 64 of
+    ``SyntheticImages(noise=0.2)``.  Returns ``(model, dataset)``."""
+    import torch
+
+    from repro_torch.data.synthetic import SyntheticImages
+    from repro_torch.explore.runner import resolve_device
+    from repro_torch.models.cnn.zoo import build_cnn
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.training.train_lib import (init_params,
+                                                make_classifier_train_step)
+
+    dev = resolve_device(device)
+    m = build_cnn(name, **build_opts).init_weights(
+        torch.Generator(device=dev).manual_seed(0), device=dev)
+    ds = SyntheticImages(noise=0.2)
+    opt = adamw(warmup_cosine(2e-3, max(steps // 10, 1), steps))
+    os_ = opt.init(init_params(m))
+    step = make_classifier_train_step(m, opt)
+    for i in range(steps):
+        x, y = ds.batch(64, i)
+        os_, _ = step(os_, x, y)
+    return m, ds
+
+
+def _cnn_fakequant_measure(graph=None, schedule=None, system=None,
+                           device="cuda", *, name: str, steps: int = 200,
+                           eval_size: int = 256, **build_opts):
+    """Built-in measured oracle: trains a CNN-zoo model on the synthetic
+    task (:func:`train_oracle_cnn`, on the search's ``device``) and scores
+    real partitioned fake-quant inference per cut vector
+    (``repro_torch.quantize.evaluate.cnn_measured_accuracy``), weights at
+    each platform's bit width.  ``build_opts`` must mirror the spec's
+    ``ModelRef`` options (e.g. ``in_hw``/``w``/``n_classes``) so the trained
+    model's graph matches the explorer schedule the cut indices refer to.
+    Heavy — meant for §IV-C-style studies, not the search inner loop
+    (MeasuredAccuracy caches per cut vector on top).  The returned callable
+    carries the trained ``model`` and its ``dataset``, for a caller that
+    fine-tunes the model further (QAT)."""
+    from repro_torch.quantize.evaluate import cnn_measured_accuracy
+
+    m, ds = train_oracle_cnn(name, steps, device, **build_opts)
+    vx, vy = ds.eval_set(eval_size)
+    sched = schedule if schedule is not None else m.to_graph().topo_sort()
+    specs = [plat.quant for plat in system.platforms]
+    measure = cnn_measured_accuracy(m, sched, vx, vy, specs)
+    measure.model, measure.dataset = m, ds
+    return measure
+
+
+def _table_measure(graph=None, schedule=None, system=None, device=None, *,
                    table: Dict[str, float], default: float = 0.0):
     """Measured oracle backed by an explicit ``{"c0,c1": acc}`` table —
     pre-recorded measurements (e.g. a lab sweep) replayed declaratively."""
@@ -154,4 +210,5 @@ def _table_measure(graph=None, schedule=None, system=None, *,
     return measure
 
 
+register_accuracy_measure("cnn_fakequant", _cnn_fakequant_measure)
 register_accuracy_measure("table", _table_measure)

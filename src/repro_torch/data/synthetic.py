@@ -15,17 +15,18 @@ hw=224``.
 a learnable bigram process so training loss actually drops.  The serve
 runtime's ``poisson_traffic`` draws its prompts from it.
 
-The reference module's batch helpers (``make_batch_for``,
-``batch_iterator``) are not copied: only its training loop uses them
-(``ROADMAP.md`` B4).
+``batch_iterator`` and ``make_batch_for`` give host (numpy) batches; the
+train steps move them to the model's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.configs.base import ModelConfig
 
 
 @dataclasses.dataclass
@@ -85,3 +86,39 @@ class SyntheticTokens:
             out[:, t] = nxt
             cur = nxt
         return out
+
+
+def batch_iterator(ds, batch_size: int, seq_len: Optional[int] = None,
+                   start_seed: int = 0) -> Iterator:
+    seed = start_seed
+    while True:
+        if isinstance(ds, SyntheticTokens):
+            yield ds.batch(batch_size, seq_len, seed)
+        else:
+            yield ds.batch(batch_size, seed)
+        seed += 1
+
+
+def make_batch_for(cfg: ModelConfig, batch_size: int, seq_len: int,
+                   seed: int = 0, kind: str = "train") -> Dict[str, np.ndarray]:
+    """Concrete (host) batch for a model config — used by smoke tests and
+    the quickstart examples. Training batches include next-token labels."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "audio":
+        codes = rng.integers(0, cfg.vocab,
+                             size=(batch_size, cfg.n_codebooks, seq_len + 1))
+        return {"codes": codes[:, :, :-1].astype(np.int32),
+                "labels": codes[:, :, 1:].astype(np.int32)}
+    toks = SyntheticTokens(cfg.vocab).batch(batch_size, seq_len, seed)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = rng.normal(
+            size=(batch_size, cfg.n_patches, cfg.d_model)).astype(np.float32)
+        total = cfg.n_patches + seq_len
+        pos = np.broadcast_to(np.arange(total), (batch_size, total))
+        batch["positions3"] = np.broadcast_to(
+            pos, (3, batch_size, total)).astype(np.int32)
+        # labels only over the text positions; pad vision region with -100
+        pad = np.full((batch_size, cfg.n_patches), -100, np.int32)
+        batch["labels"] = np.concatenate([pad, batch["labels"]], axis=1)
+    return batch

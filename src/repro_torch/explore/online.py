@@ -186,7 +186,8 @@ class OnlineRepartitioner:
     def _evaluator(self, system: SystemConfig) -> PartitionEvaluator:
         spec = self.spec
         if spec.accuracy is not None:
-            acc = spec.accuracy.build(self.graph, self.schedule, system)
+            acc = spec.accuracy.build(self.graph, self.schedule, system,
+                                      self.device)
         else:
             acc = ProxyAccuracy(self.schedule, system)
         return PartitionEvaluator(

@@ -179,7 +179,7 @@ def explore_graph(graph: LayerGraph, system: SystemConfig, *,
         schedule = linearize(graph, schedule_policy)
     acc = accuracy_fn
     if acc is None and accuracy is not None:
-        acc = accuracy.build(graph, schedule, system)
+        acc = accuracy.build(graph, schedule, system, device)
     if acc is None:
         acc = ProxyAccuracy(schedule, system)
     evaluator = PartitionEvaluator(

@@ -172,8 +172,8 @@ class AccuracySpec:
     ``base_accuracy``/``noise_scale`` knobs.  ``kind='measured'`` wraps a
     factory registered via
     :func:`repro_torch.core.accuracy.register_accuracy_measure` — called as
-    ``factory(graph=..., schedule=..., system=..., **options)`` — in a
-    caching :class:`~repro_torch.core.accuracy.MeasuredAccuracy`.  Measured
+    ``factory(graph=..., schedule=..., system=..., device=..., **options)``,
+    ``device`` being the search's own — in a caching :class:`~repro_torch.core.accuracy.MeasuredAccuracy`.  Measured
     oracles run on the NumPy strategies; ``torch_nsga2`` keeps its documented
     fallback (it needs a tensor ``proxy_arrays`` oracle and downgrades to
     ``nsga2`` with a warning when accuracy is searched without one).
@@ -198,8 +198,10 @@ class AccuracySpec:
                 "accuracy kind 'proxy' takes no 'measure'/'options' — did "
                 "you mean kind='measured'?")
 
-    def build(self, graph, schedule, system):
-        """Resolve to a live ``accuracy_fn(cuts) -> float`` oracle."""
+    def build(self, graph, schedule, system, device="cuda"):
+        """Resolve to a live ``accuracy_fn(cuts) -> float`` oracle; a
+        measured oracle's factory works on ``device``, the device the
+        search runs on."""
         from repro_torch.core.accuracy import (MeasuredAccuracy, ProxyAccuracy,
                                          get_accuracy_measure)
         if self.kind == "proxy":
@@ -208,7 +210,8 @@ class AccuracySpec:
                                  noise_scale=self.noise_scale)
         factory = get_accuracy_measure(self.measure)
         return MeasuredAccuracy(factory(graph=graph, schedule=schedule,
-                                        system=system, **self.options))
+                                        system=system, device=device,
+                                        **self.options))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """CNN building blocks with two faces:
 
-* each block is an ``nn.Module`` whose forward runs the block (inference,
-  BatchNorm in eval mode), with its parameters named after the JAX
+* each block is an ``nn.Module`` whose forward runs the block (BatchNorm
+  on the running statistics in eval mode, on the batch's in training
+  mode), with its parameters named after the JAX
   package's pytree keys (``exp.conv.w``, ``dw.bn.scale``, ``se.fc1.b``), and
 * each block can ``emit`` its op-level nodes into a :class:`LayerGraph`
   for the partitioner, with ONNX-style names (``Conv_7``, ``Relu_3``, ...)

@@ -1,8 +1,10 @@
 """The paper's six CNN workloads (§V-A): VGG-16, ResNet-50, SqueezeNet V1.1,
 GoogLeNet, RegNetX-400MF, EfficientNet-B0.
 
-Each model is an ``nn.Module`` (inference: ``model(x)`` gives the logits
-of an NCHW batch) *and* exports the partitioner's LayerGraph via
+Each model is an ``nn.Module`` (``model(x)`` gives the logits of an NCHW
+batch; a model is built in eval mode, and in ``.train()`` mode its
+BatchNorm layers take the batch's statistics and update their running
+ones) *and* exports the partitioner's LayerGraph via
 ``to_graph()``; the full-size graphs drive the cost models exactly as the
 paper's ONNX graphs do.  ``reduced_cnn`` gives the narrow, low-resolution
 variants.
@@ -93,6 +95,7 @@ class CNNModel(nn.Module):
         for n, b in blocks:
             self.add_module(n, b)
         self.in_hw, self.in_ch = in_hw, in_ch
+        self.eval()     # BatchNorm on the running statistics until .train()
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None,

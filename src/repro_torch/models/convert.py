@@ -23,14 +23,24 @@ parameter or buffer of the same path (``s1b0.exp.conv.w``) takes each.
 Both packages keep convolutions NCHW with OIHW weights, copied as they
 are; a Dense weight is (in, out) there and (out, in) here, so it is
 transposed.
+
+The other way round, :func:`reference_leaves` lists a port model's
+parameters as the reference's leaves (key, the port parameters that make
+it up in stacking order, the leaf's shape: what the optimizers decide
+their per-leaf rules on), and :func:`reference_params` gives the
+reference's flat parameters, block leaves stacked again and Dense weights
+transposed back, so that a checkpoint of either package loads in the
+other.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import dataclasses
+from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import TokenLM
@@ -138,3 +148,75 @@ def load_reference_cnn(model: torch.nn.Module, params: Mapping[str, Any],
                              f"not fit {tuple(t.shape)}")
         t.copy_(torch.from_numpy(np.array(arr, order="C")).to(t.dtype))
     return model
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One leaf of the reference's parameter pytree: the port parameters
+    that make it up (one per stacked layer, in order, or a single one) and
+    its shape.  A CNN's Dense weight keeps the port's (out, in) shape here,
+    ``transposed`` marking that the reference's leaf is its transpose."""
+    params: Tuple[nn.Parameter, ...]
+    shape: Tuple[int, ...]
+    transposed: bool = False
+
+    def stack(self, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``tensors`` (one per parameter, of its shape) as one tensor of
+        the leaf's shape: a view for a leaf of one parameter."""
+        if len(tensors) == 1:
+            return tensors[0].reshape(self.shape)
+        return torch.stack(list(tensors)).reshape(self.shape)
+
+    def unstack(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """A tensor of the leaf's shape split into one view per parameter."""
+        return list(t.reshape(len(self.params),
+                              *self.params[0].shape).unbind(0))
+
+
+def reference_leaves(model: nn.Module) -> Dict[str, Leaf]:
+    """``model``'s parameters grouped as the reference's leaves, by the
+    reference's ``/``-joined key.  An LM's block parameters
+    ``blocks.<i>.<path>`` make one stacked leaf each
+    (``blocks_dense/<path>`` of shape (L, ...), or the hybrid's
+    ``blocks/<path>`` of shape (groups, attn_every, ...)); any other
+    module's parameters (a CNN's) are one leaf each, keyed by their path."""
+    if not isinstance(model, TokenLM):
+        dense_w = {f"{n}.w" if n else "w" for n, m in model.named_modules()
+                   if isinstance(m, Dense)}
+        return {name.replace(".", "/"): Leaf((p,), tuple(p.shape),
+                                             name in dense_w)
+                for name, p in model.named_parameters()}
+    cfg = model.cfg
+    stacked, lead = _STACKED[cfg.family], _leading(cfg)
+    groups: Dict[str, List[nn.Parameter]] = {}
+    for name, p in model.named_parameters():
+        head, _, rest = name.partition(".")
+        if head == "blocks":
+            _, _, path = rest.partition(".")
+            key = f"{stacked}/{path.replace('.', '/')}"
+        else:
+            key = name.replace(".", "/")
+        groups.setdefault(key, []).append(p)
+    out = {}
+    for key, ps in groups.items():
+        shape = tuple(ps[0].shape)
+        if key.startswith(stacked + "/"):
+            if len(ps) != cfg.n_layers:
+                raise ValueError(f"{key}: {len(ps)} layers, not "
+                                 f"{cfg.n_layers}")
+            shape = lead + shape
+        out[key] = Leaf(tuple(ps), shape)
+    return out
+
+
+@torch.no_grad()
+def reference_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``model``'s parameters as the reference's flat parameters (the
+    inverse of :func:`port_state`): ``/``-joined keys, block leaves
+    stacked, Dense weights transposed to (in, out); new tensors on the
+    model's device."""
+    out = {}
+    for key, leaf in reference_leaves(model).items():
+        t = leaf.stack([p.detach() for p in leaf.params]).clone()
+        out[key] = t.T.contiguous() if leaf.transposed else t
+    return out

@@ -36,6 +36,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as GL
@@ -101,15 +102,29 @@ class DecoderBlock(nn.Module):
         return x, new_cache
 
 
+def block_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """A block's output without its cache (what ``remat`` checkpoints)."""
+    return blk(x, **kw)[0]
+
+
+def remat_block(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    """``block_out`` under ``torch.utils.checkpoint``: the block's
+    activations are recomputed in the backward instead of kept (the
+    reference's ``jax.checkpoint`` of its scan body)."""
+    return checkpoint(block_out, blk, x, use_reentrant=False, **kw)
+
+
 def run_blocks(blocks: Sequence[DecoderBlock], x: torch.Tensor,
                positions: torch.Tensor, caches: Optional[Dict] = None,
-               impl: str = "ref"):
+               impl: str = "ref", remat: bool = False):
     """Run ``x`` through ``blocks`` in order (the reference's
     ``_scan_blocks``).  ``caches``: stacked ``{"k", "v", "pos"}`` with a
-    leading axis over these blocks, or None.  Returns ``(x, new_caches)``."""
+    leading axis over these blocks, or None.  ``remat`` (no caches):
+    checkpoint each block.  Returns ``(x, new_caches)``."""
     if caches is None:
+        run = remat_block if remat else block_out
         for blk in blocks:
-            x, _ = blk(x, positions=positions, impl=impl)
+            x = run(blk, x, positions=positions, impl=impl)
         return x, None
     pos = []
     for i, blk in enumerate(blocks):
@@ -209,12 +224,15 @@ class DecoderLM(TokenLM):
                                     cfg.d_model ** -0.5, **init)
 
     # -- forward ----------------------------------------------------------------
-    def forward(self, batch, *, impl: str = "ref") -> torch.Tensor:
+    def forward(self, batch, *, impl: str = "ref",
+                train: bool = False) -> torch.Tensor:
         """Logits (B, T, vocab) of ``batch["tokens"]`` (the reference's
         ``apply``).  ``impl="cuda"``/``"auto"`` takes the sliding-window
-        kernel in every block."""
+        kernel in every block; ``train`` checkpoints every block when the
+        config asks for ``remat``."""
         x, positions = self.embed_tokens(batch)
-        x, _ = run_blocks(self.blocks, x, positions, impl=impl)
+        x, _ = run_blocks(self.blocks, x, positions, impl=impl,
+                          remat=train and self.cfg.remat)
         return self.head_logits(x)
 
     # -- serving ------------------------------------------------------------------

@@ -33,8 +33,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as GL
 from repro_torch.core.graph import LayerGraph
-from repro_torch.models.decoder import (_DTYPES, TokenLM, gated_mlp,
-                                        gated_mlp_init)
+from repro_torch.models.decoder import (_DTYPES, TokenLM, block_out,
+                                        gated_mlp, gated_mlp_init,
+                                        remat_block)
 from repro_torch.nn.attention import GQAAttention, init_cache
 from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.module import constant, normal_init
@@ -134,13 +135,14 @@ class SSMLM(TokenLM):
             self.head = normal_init((cfg.d_model, cfg.vocab),
                                     cfg.d_model ** -0.5, **init)
 
-    def _run(self, x, positions, caches=None, impl="ref"):
+    def _run(self, x, positions, caches=None, impl="ref", remat=False):
         every = self.cfg.attn_every
         if caches is None:
+            run = remat_block if remat else block_out
             for i, blk in enumerate(self.blocks):
-                x, _ = blk(x, impl=impl)
+                x = run(blk, x, impl=impl)
                 if self.hybrid and (i + 1) % every == 0:
-                    x, _ = self.shared(x, positions=positions, impl=impl)
+                    x = run(self.shared, x, positions=positions, impl=impl)
             return x, None
         mamba = caches["mamba"]
         if not self.hybrid:
@@ -166,12 +168,16 @@ class SSMLM(TokenLM):
                 self.n_groups, every)),
             "attn": dict(attn, pos=torch.stack(apos))}
 
-    def forward(self, batch, *, impl: str = "ref") -> torch.Tensor:
+    def forward(self, batch, *, impl: str = "ref",
+                train: bool = False) -> torch.Tensor:
         """Logits (B, T, vocab) of ``batch["tokens"]`` (the reference's
         ``apply``).  ``impl="cuda"``/``"auto"`` takes the SSD scan kernel in
-        every Mamba block."""
+        every Mamba block; ``train`` checkpoints every block (and every
+        application of the shared block) when the config asks for
+        ``remat``."""
         x, positions = self.embed_tokens(batch)
-        x, _ = self._run(x, positions, impl=impl)
+        x, _ = self._run(x, positions, impl=impl,
+                         remat=train and self.cfg.remat)
         return self.head_logits(x)
 
     # -- serving ------------------------------------------------------------------

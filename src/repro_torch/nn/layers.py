@@ -95,8 +95,13 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm2d(nn.Module):
-    """NCHW batch norm in eval mode: ``(x - mean) / sqrt(var + eps) * scale
-    + bias`` with the running statistics."""
+    """NCHW batch norm: ``(x - mean) / sqrt(var + eps) * scale + bias``,
+    with the running statistics in eval mode and with the batch's in
+    training mode, where the running statistics move to ``MOMENTUM * old
+    + (1 - MOMENTUM) * batch`` (biased variance; ``F.batch_norm`` folds
+    the unbiased one in and weighs the new value by its ``momentum``)."""
+
+    MOMENTUM = 0.9      # the reference's default, the only value it uses
 
     def __init__(self, c: int, eps: float = 1e-5):
         super().__init__()
@@ -113,8 +118,18 @@ class BatchNorm2d(nn.Module):
         self.var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias,
-                            False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, self.scale,
+                                self.bias, False, 0.0, self.eps)
+        m = self.MOMENTUM
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        # without running statistics, F.batch_norm normalises with the
+        # batch's biased variance, forward and backward in one kernel each
+        return F.batch_norm(x, None, None, self.scale, self.bias, True, 0.0,
+                            self.eps)
 
 
 def max_pool(x: torch.Tensor, kernel: int, stride: Optional[int] = None,

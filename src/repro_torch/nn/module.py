@@ -1,9 +1,11 @@
 """Parameter initialisation shared by the port's modules.
 
 The JAX package keeps parameters in pytrees built by ``init(key)``; the
-port keeps them in ``torch.nn.Module``s.  The port serves inference only,
-so every parameter is created with ``requires_grad=False``: no autograd
-graph is recorded and a forward keeps no activations alive.  Random
+port keeps them in ``torch.nn.Module``s.  Every parameter is created with
+``requires_grad=False``, so that serving records no autograd graph and a
+forward keeps no activations alive; the train steps make a model
+trainable (:func:`trainable`), and the serving entry points run their
+forwards under ``torch.no_grad()`` whatever the model.  Random
 initialisers draw from an explicit ``torch.Generator`` (the JAX package's
 distributions; the numbers differ, the generator being torch's).
 """
@@ -20,6 +22,12 @@ from torch import nn
 def frozen(t: torch.Tensor) -> nn.Parameter:
     """``t`` as a parameter that takes no gradient."""
     return nn.Parameter(t, requires_grad=False)
+
+
+def trainable(model: nn.Module) -> nn.Module:
+    """Let every parameter of ``model`` take gradients (the train steps'
+    factories call it).  Returns ``model``."""
+    return model.requires_grad_(True)
 
 
 def normal_init(shape: Sequence[int], std: float = 0.02, *,

@@ -1,14 +1,16 @@
-"""Model-level quantization: measured accuracy (§IV-C).
+"""Model-level quantization: measured accuracy + QAT (§IV-C).
 
 ``cnn_measured_accuracy`` builds the explorer's ``accuracy_fn``: for a cut
 vector it executes the *partitioned, fake-quantized* CNN on a validation set
 (weights at each platform's bit width, link activations quantized to the
 producer's width) and returns top-1 accuracy.
 
+``qat_finetune`` runs quantization-aware training: every forward quantizes
+the parameters with straight-through gradients, so the float master weights
+adapt to the quantization grid — the paper's accuracy-restoration step.
+
 The JAX package's functions take the parameters and state explicitly; the
 port's models hold their weights, so ``model`` stands for all three.
-Quantization-aware training (``qat_finetune``) waits for the port of the
-reference's optimizers and train step (``ROADMAP.md`` B4).
 """
 
 from __future__ import annotations
@@ -20,7 +22,13 @@ import torch
 from torch.func import functional_call
 
 from repro_torch.core.quant import QuantSpec, quantize_pytree
+from repro_torch.models.convert import reference_leaves
+from repro_torch.nn.module import trainable
+from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+                                          clip_by_global_norm, stacked_grads,
+                                          stacked_params)
 from repro_torch.serving.pipeline import PartitionedCNNRunner
+from repro_torch.training.train_lib import cross_entropy
 
 
 def _top1(logits: torch.Tensor, y: torch.Tensor) -> float:
@@ -83,3 +91,37 @@ def cnn_measured_accuracy(model, schedule, val_x: np.ndarray,
         return acc
 
     return measure
+
+
+def qat_finetune(model, spec: QuantSpec, optimizer: Optimizer, data_iter,
+                 steps: int = 50):
+    """QAT loop: fake-quant in the forward, STE gradients to float masters.
+
+    Each step runs ``model`` in training mode on its parameters
+    fake-quantized (``quantize_pytree`` through ``functional_call``; the
+    BatchNorm running statistics update in place, as in training), then
+    cross-entropy, a clip of the global norm to 1.0 and the optimizer step
+    on the float parameters.  ``model`` is updated in place, left in eval
+    mode, and returned.  The reference's ``classifier`` argument, which
+    changes nothing there (the loss is cross-entropy either way), has no
+    twin here."""
+    trainable(model)
+    leaves = reference_leaves(model)
+    dev = model.device
+    opt_state = optimizer.init(stacked_params(leaves))
+    for _ in range(steps):
+        x, y = next(data_iter)
+        x, y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+        model.train()
+        try:
+            logits = functional_call(model, quantize_pytree(model, spec),
+                                     (x,))
+        finally:
+            model.eval()
+        cross_entropy(logits, y).backward()
+        grads, _ = clip_by_global_norm(stacked_grads(leaves), 1.0)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state,
+                                                  stacked_params(leaves))
+            apply_updates(leaves, updates)
+    return model

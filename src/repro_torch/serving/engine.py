@@ -2,6 +2,9 @@
 
 Two execution modes, as in the JAX package's ``repro.serving.engine``:
 
+Both run their forwards under ``torch.no_grad()``, so a model that was
+trained (its parameters taking gradients) records no autograd graph here.
+
 * :class:`GenerationEngine` — a wave of requests is prefilled together,
   then decoded in lockstep; finished sequences are masked.  Greedy or
   temperature sampling.  Prefill and decode both go through the model's
@@ -71,6 +74,7 @@ class GenerationEngine:
         self.cache_dtype = cache_dtype
         self.impl = impl
 
+    @torch.no_grad()
     def prefill(self, prompts: np.ndarray) -> Tuple[torch.Tensor, dict]:
         """Fresh caches with ``prompts`` (B, T) appended: returns the
         last-position logits (B, vocab) and the caches."""
@@ -82,6 +86,7 @@ class GenerationEngine:
                                                 impl=self.impl)
         return logits[:, -1], caches
 
+    @torch.no_grad()
     def generate(self, prompts: np.ndarray, max_new: int = 16,
                  eos: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0) -> GenResult:
@@ -167,6 +172,7 @@ class SlotDecoder:
         self.caches = _bump_pos(model.init_caches(n_slots, max_seq,
                                                   cache_dtype, lanes=True))
 
+    @torch.no_grad()
     def prefill(self, slot: int, prompt: np.ndarray) -> np.ndarray:
         """Admit a prompt (T,) into ``slot``: fresh batch-1 cache,
         full-prompt prefill, cache written into the lane.  Returns the
@@ -183,6 +189,7 @@ class SlotDecoder:
         via :meth:`prefill` overwrites the lane anyway)."""
         write_lane(self.caches["dense"], slot, self._idle["dense"])
 
+    @torch.no_grad()
     def decode(self, tokens: np.ndarray) -> np.ndarray:
         """One decode step for every lane. ``tokens``: (n_slots,) int —
         idle lanes get a dummy token whose logits the caller ignores.

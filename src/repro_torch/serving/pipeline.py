@@ -159,6 +159,7 @@ class PartitionedLMRunner:
     def n_stages(self) -> int:
         return len(self.ranges)
 
+    @torch.no_grad()
     def forward(self, batch) -> Tuple[torch.Tensor, StageReport]:
         """Logits of ``batch`` through the stages in turn, with each
         stage's wall time (embedding in stage 0, head in none: as the
@@ -214,7 +215,9 @@ class PartitionedLMRunner:
         Token positions continue from the caches' write position exactly
         as in ``DecoderLM.decode_step`` — each lane's own with lane caches,
         so lanes admitted at different times decode at their own positions,
-        and a step over every lane is one call.
+        and a step over every lane is one call.  The step runs under
+        ``torch.no_grad()`` (grad mode is per thread, and the serve
+        runtime calls it from its stage threads).
         """
         cfg = self.model.cfg
         if cfg.family != "dense":
@@ -226,6 +229,7 @@ class PartitionedLMRunner:
         first, last = si == 0, si == self.n_stages - 1
         tied = cfg.tied_embeddings
 
+        @torch.no_grad()
         def fn(weights, caches, x):
             if first:
                 x = F.embedding(x, weights["embed"])

@@ -3,8 +3,8 @@ nothing in ``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` or
 ``tools/cuda_host_shim/rehearse.py`` imports JAX or the JAX package
 ``repro``, and a CPU search, an LM generation, an SSM forward and
 generation, a CNN's measured accuracy, an online re-partition, a
-two-cell campaign and a served burst run in a process where JAX cannot be
-imported at all."""
+two-cell campaign, a served burst, a train step and a checkpoint run in a
+process where JAX cannot be imported at all."""
 
 import ast
 import os
@@ -132,6 +132,19 @@ def test_cpu_search_runs_with_jax_blocked():
                 2, rate_rps=1000.0, vocab=512, prompt_len=4, max_new=2),
             realtime=False)
         assert served.n_done == 2 and served.total_tokens == 4
+        from repro_torch.checkpoint import restore, save
+        from repro_torch.data.synthetic import make_batch_for
+        from repro_torch.models.convert import reference_params
+        from repro_torch.optim import adamw
+        from repro_torch.training import init_params, make_train_step
+        import tempfile
+        opt = adamw(1e-3)
+        state, m = make_train_step(model, model.cfg, opt)(
+            opt.init(init_params(model)), make_batch_for(model.cfg, 2, 8))
+        assert np.isfinite(float(m["loss"]))
+        with tempfile.TemporaryDirectory() as tmp:
+            save(tmp, {"params": reference_params(model), "opt": state}, 1)
+            assert restore(tmp, {"opt": state})["opt"]["step"] == 1
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked

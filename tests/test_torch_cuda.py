@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions (bit for
-bit where the result is integer), on a CUDA device (every test here is
-marked ``cuda`` and skips without one).  This file imports only torch, numpy and the port, so it runs
+bit where the result is integer), and a train step on the card against
+the same step on the CPU, on a CUDA device (every test here is marked
+``cuda`` and skips without one).  This file imports only torch, numpy and the port, so it runs
 on a machine that has no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -465,3 +466,34 @@ def test_served_tokens_async_equal_serial_on_card(cuda_device):
         assert rep.n_done == len(reqs)
         tokens[mode] = {r.rid: r.tokens for r in rep.records}
     assert tokens["async"] == tokens["serial"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_on_card_matches_cpu(cuda_device, remat):
+    """One SGD step (momentum 0, no clip) of reduced smollm-360m on the
+    card against the port's own step on the CPU from the same weights:
+    loss within 1e-5 relative, parameters within 1e-5 (float32 sums in
+    other orders; the embedding's backward adds by atomics on the card)."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.optim import sgd
+    from repro_torch.training import init_params, make_train_step
+
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              remat=remat)
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="meta")
+    card.to_empty(device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch_for(cfg, 4, 32, seed=0)
+    losses = []
+    for m in (cpu, card):
+        opt = sgd(0.1, momentum=0.0)
+        step = make_train_step(m, cfg, opt, clip_norm=None)
+        _, metrics = step(opt.init(init_params(m)), batch)
+        assert metrics["loss"].device == m.device
+        losses.append(float(metrics["loss"]))
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
+    for (n, a), (_, b) in zip(cpu.named_parameters(),
+                              card.named_parameters()):
+        assert float((a - b.cpu()).abs().max()) <= 1e-5, n

@@ -363,10 +363,12 @@ def test_accuracy_spec_validation():
 def test_measured_accuracy_declarative_path():
     """A registered measured oracle drives the NumPy strategies through the
     spec; per-cut caching comes from MeasuredAccuracy."""
-    calls = []
+    calls, devices = [], []
 
-    def factory(graph=None, schedule=None, system=None, *, bonus=0.0):
+    def factory(graph=None, schedule=None, system=None, device=None, *,
+                bonus=0.0):
         assert schedule is not None and system is not None
+        devices.append(device)
 
         def measure(cuts):
             calls.append(tuple(cuts))
@@ -382,6 +384,7 @@ def test_measured_accuracy_declarative_path():
                               options={"bonus": 0.25}))
     res = run_spec(spec, device="cpu")
     assert calls, "measured oracle was never invoked"
+    assert devices == ["cpu"], "the oracle works on the search's device"
     assert all(abs(e.accuracy - 0.75) < 1e-9 for e in res.pareto)
     # built oracle is the caching wrapper
     built = spec.accuracy.build(None, [], TWO_PLATFORM.build())
@@ -400,8 +403,8 @@ def test_torch_path_falls_back_on_measured_accuracy():
     """torch_nsga2 + measured oracle + accuracy objective: documented
     fallback to the NumPy strategy, not a crash or silent drop."""
     register_accuracy_measure(
-        "test_half", lambda graph=None, schedule=None, system=None:
-        (lambda cuts: 0.5), override=True)
+        "test_half", lambda graph=None, schedule=None, system=None,
+        device=None: (lambda cuts: 0.5), override=True)
     spec = dataclasses.replace(
         SPEC, objectives=("latency", "accuracy"),
         search=SearchSettings(strategy="torch_nsga2", seed=0, pop_size=16,
