@@ -24,7 +24,12 @@ generations) four times:
 ``--train`` only :func:`train_profile` (a train step of smollm-360m at
 full width, ``chip_smoke.py`` phase 13), and ``--optim`` only
 :func:`optim_compare` (the multi-tensor AdamW against the same rules a
-leaf at a time, in the LM's and the oracle's train steps).
+leaf at a time, in the LM's and the oracle's train steps), and ``--moe``
+only deepseek-moe-16b at full width and depth (``chip_smoke.py`` phase
+16): the forward of 2 x 2048 tokens and the generation of 16 tokens for
+8 prompts of 128 under the profiler, with the shares of the matrix
+products, the dispatch's indexing, the routing and the elementwise
+passes.
 ``--cold`` instead runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
 timers on the phase-3 search (the first search of the process), then the
 same search again warm.  The search part needs
@@ -211,6 +216,11 @@ def main(argv) -> int:
     if "--optim" in argv:
         optim_compare(dev)
         return 0
+    if "--moe" in argv:
+        lm_profile(dev, chip_smoke.MOE_ARCH, groups=MOE_GROUPS,
+                   b=chip_smoke.MOE_B, t=chip_smoke.MOE_T,
+                   new=chip_smoke.MOE_NEW)
+        return 0
     res = search_profile(dev)
     if "--serve" in argv:
         serve_profile(dev)
@@ -228,6 +238,17 @@ def main(argv) -> int:
     cnn_profile(dev, [p.cuts for p in res.pareto])
     qmm_profile(dev)
     return 0
+
+
+# kernel groups of the moe family's forward and decode (by CUDA kernel name)
+MOE_GROUPS = {
+    "matrix products (*gemm*)": lambda k: "gemm" in k.lower(),
+    "indexing: dispatch, combine (index*, gather, scatter)": lambda k: any(
+        w in k.lower() for w in ("index", "gather", "scatter")),
+    "routing: top-k, sort, softmax": lambda k: any(
+        w in k.lower() for w in ("topk", "sort", "softmax", "radix")),
+    "elementwise": lambda k: "elementwise" in k.lower(),
+}
 
 
 def profiled(label, fn, top_n=12, groups=None, each=None):
@@ -270,10 +291,13 @@ def profiled(label, fn, top_n=12, groups=None, each=None):
     return out
 
 
-def lm_profile(dev, arch, groups=None, each=None):
-    """The forward and generation of ``arch`` (an LM path of
-    ``chip_smoke.py``) under the profiler; ``groups`` and ``each`` as in
-    :func:`profiled`."""
+def lm_profile(dev, arch, groups=None, each=None,
+               b=chip_smoke.LM_B, t=chip_smoke.LM_T,
+               new=chip_smoke.GEN_NEW):
+    """The forward of ``b`` x ``t`` tokens and the generation of ``new``
+    tokens for ``chip_smoke.GEN_REQUESTS`` prompts of ``GEN_PROMPT`` by
+    ``arch`` (an LM path of ``chip_smoke.py``) under the profiler;
+    ``groups`` and ``each`` as in :func:`profiled`."""
     import numpy as np
 
     from repro_torch.models.registry import build_model, get_config
@@ -284,28 +308,27 @@ def lm_profile(dev, arch, groups=None, each=None):
         device=dev).manual_seed(chip_smoke.SEED))
     rng = np.random.default_rng(chip_smoke.SEED)
     batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab, (chip_smoke.LM_B, chip_smoke.LM_T))).to(dev)}
+        0, cfg.vocab, (b, t))).to(dev)}
     prompts = rng.integers(0, cfg.vocab, (chip_smoke.GEN_REQUESTS,
                                           chip_smoke.GEN_PROMPT))
-    engine = GenerationEngine(model, max_seq=chip_smoke.GEN_PROMPT
-                              + chip_smoke.GEN_NEW)
+    engine = GenerationEngine(model, max_seq=chip_smoke.GEN_PROMPT + new)
 
     def forward():
-        model(batch, impl="cuda")
+        with torch.no_grad():
+            model(batch, impl="cuda")
 
     def generate():
-        gen = engine.generate(prompts, max_new=chip_smoke.GEN_NEW)
+        gen = engine.generate(prompts, max_new=new)
         print(f"  prefill {gen.prefill_s:.3f} s, decode {gen.decode_s:.3f} s "
               f"({gen.tokens_per_s:.1f} tok/s)")
 
     forward()
     engine.generate(prompts, max_new=2)
     torch.cuda.synchronize()
-    profiled(f"{arch} forward {chip_smoke.LM_B} x {chip_smoke.LM_T} tokens",
-             forward, groups=groups, each=each)
+    profiled(f"{arch} forward {b} x {t} tokens", forward, groups=groups,
+             each=each)
     profiled(f"{arch} generation {chip_smoke.GEN_REQUESTS} x "
-             f"{chip_smoke.GEN_PROMPT} + {chip_smoke.GEN_NEW}", generate,
-             groups=groups)
+             f"{chip_smoke.GEN_PROMPT} + {new}", generate, groups=groups)
 
 
 

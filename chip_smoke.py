@@ -129,10 +129,42 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     the logits bit for bit), then ``launch.serve`` at the reference's
     defaults (reduced smollm-360m warm-trained 30 steps, 16 requests,
     prompt 8, 12 new tokens, 2 replicas, eth10): nothing dropped, async
-    tokens equal to serial tokens.
+    tokens equal to serial tokens;
+15. runs quantized LM stages once at full width, with every launch count
+    set to 0 just before and read just after (0 for all five kernels, as
+    in the reference): phase 5's smollm-360m (rebuilt from its seed) at
+    phase 5's block cuts, each stage fake-quantized to its platform's
+    width in the LM search's system (16 and 8 bits), the weights
+    calibrated over the stage's stacked layers and the links
+    fake-quantized; the logits move from the float runner's by more than
+    phase 9's floor and keep most of its top-1, each link carries the float
+    runner's bytes x bits/32, and a prefill through ``stage_step_fn`` over
+    the quantized ``stage_weights`` gives the quantized runner's
+    last-position logits;
+16. drives the moe family once at full width, each part with every launch
+    count set to 0 just before and read just after (0 for all five: MoE
+    and MLA reach no kernel, as in the reference), each model freed before
+    the next: deepseek-moe-16b at full width and depth (16.38 B
+    parameters on the card) runs a forward over 2 x 2048 tokens (finite,
+    its dropped fraction and balance losses printed) and
+    ``GenerationEngine`` answers 8 requests whose first-step logits agree
+    with the forward (the routing of both compared first: a row whose
+    first MoE call routes otherwise at near ties only is reported, not
+    gated); at full width and depth 2 the card agrees with the CPU on the
+    router's indices (near ties reported), the logits and one SGD step,
+    four microbatches agree with one within the reference's MoE bound and
+    with the mean of one SGD step on each microbatch within the card-vs-CPU
+    bounds, and three AdamW steps lower the loss; deepseek-v3-671b at full
+    width and depth 2 with its MTP block, at the 16b model's traffic,
+    gives finite ``mtp_logits`` and ``lm_loss`` in a ``train=True``
+    forward over 2 x 2048 tokens (the chunked attention of the
+    decompressed MLA), and ``GenerationEngine``'s first-step logits for 8
+    requests, through the absorbed MLA decode, agree with the
+    decompressed forward; its latent cache's bytes a token are printed
+    against a GQA cache's.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 14),
+card's name and power limit (also beside every time of phases 6 to 16),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -144,6 +176,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -295,6 +328,42 @@ FQ_STEPS, FQ_EVAL, FQ_BAR = 100, 256, 0.30
 # reference test's batch 64 from seed 500 (tests/test_training_serving.py:
 # 80-92, whose three gates phase 13 keeps)
 QAT_BITS, QAT_STEPS, QAT_LR = 4, 40, 5e-4
+
+# phase 15: quantized LM stages on phase 5's smollm-360m (rebuilt from the
+# same seed) at phase 5's block cuts and prompts, each stage at the width
+# of its platform in lm_spec (16 and 8 bits), links fake-quantized; the
+# gates are phase 9's (QUANT_MOVE, QUANT_AGREE).  The stage-step check
+# prefills QLM_STEP_B prompts of GEN_PROMPT tokens through stage_step_fn
+# over the quantized stage_weights, against the quantized runner
+QLM_STEP_B = 2
+
+# phase 16: the moe family at full width.  deepseek-moe-16b at its
+# published size (28 layers, d 2048, 64 experts top-6 + 2 shared, vocab
+# 102400; 16.38 B parameters, 61.0 GiB in float32): a forward over 2 x
+# 2048 tokens (t >= 2048 takes the chunked attention) and 8 requests
+# (prompt 128, 16 new tokens, greedy).  Then at full width and depth 2
+# (first_dense 1, one MoE layer): card against CPU, one SGD step (phase
+# 13's batch and gates), four microbatches against one at 8 x 128 (see
+# moe_train_path), three AdamW steps on one batch.  deepseek-v3-671b at
+# full width (d 7168, 128 heads, MLA ranks 1536/512, 256 experts top-8 +
+# 1 shared, vocab 129280) at depth 2 (first_dense 1) with its one MTP
+# block, at the 16b model's traffic: a train=True forward over 2 x 2048
+# tokens (the decompressed MLA takes the chunked attention) and 8
+# requests (prompt 128, 16 new tokens) through the absorbed MLA decode
+MOE_ARCH, V3_ARCH = "deepseek-moe-16b", "deepseek-v3-671b"
+MOE_B, MOE_T, MOE_NEW = 2, 2048, 16
+# tests/test_grad_accum.py:19's MoE bound for four microbatches against
+# one batch: 0.15 on the parameters, 10x that on the loss
+MOE_ACCUM_TOL, MOE_ACCUM_LOSS, MOE_ADAMW_LR = 0.15, 1.5, 3e-4
+# a token whose k-th and (k+1)-th router scores lie closer than TIE_TOL
+# (in both runs) is a near tie: float32 sums in another order (card
+# against CPU, the cache path against the forward) may route it to the
+# other expert, which changes its row's logits by far more than
+# LOGIT_TOL.  A row's first MoE call that routes otherwise must do so only
+# at near ties; it is reported, not failed, and the row's later calls and
+# its logits, which it feeds, are not gated.  At least half the rows must
+# be gated
+TIE_TOL = 1e-5
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -1917,6 +1986,431 @@ def launcher_phase(dev, card):
           f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def quant_lm_path(dev, card, cuts):
+    """Phase 15: quantized LM stages on phase 5's model and cuts, each
+    stage at its platform's width, with every kernel's launch count read
+    (0: the runner reaches no kernel, as in the reference)."""
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import PartitionedLMRunner
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    plats = lm_spec().system.build().platforms
+    specs = [plats[min(i, len(plats) - 1)].quant or QuantSpec(8)
+             for i in range(len(cuts) + 1)]
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_B, LM_T))).to(dev)}
+    kernels = all_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels.values():
+        k.launches = 0
+
+    flt = PartitionedLMRunner(model, cuts)
+    (want, frep), f_s = timed(lambda: flt.forward(batch))
+    q, build_s = timed(lambda: PartitionedLMRunner(model, cuts, specs,
+                                                   link_quant=True))
+    (got, qrep), q_s = timed(lambda: q.forward(batch))
+    assert bool(torch.isfinite(got).all()), "non-finite quantized logits"
+    scale = float(want.abs().max())
+    move = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    del got
+    print(f"quantized LM stages: {LM_ARCH} at full width, {q.n_stages} "
+          f"stages {q.ranges} at {[s.bits for s in specs]} bits, links "
+          f"fake-quantized, {LM_B} x {LM_T} tokens: weights quantized in "
+          f"{build_s:.3f} s, forward {q_s:.3f} s (float {f_s:.3f} s), stage "
+          f"latencies {[round(x, 4) for x in qrep.latency_s]} s; logits "
+          f"max|diff| from float {move:.3e} of max|logits| {scale:.3f} "
+          f"(floor {QUANT_MOVE} of it), top-1 agreement {agree:.4f} "
+          f"(floor {QUANT_AGREE}) [{card}]")
+    assert move >= QUANT_MOVE * scale, (move, scale)
+    assert agree >= QUANT_AGREE, agree
+    want_bytes = [math.ceil(b * s.bits / 32)
+                  for b, s in zip(frep.link_bytes, specs)]
+    print(f"quantized LM stages: link bytes {qrep.link_bytes} against the "
+          f"float runner's {frep.link_bytes} x bits/32 = {want_bytes}")
+    assert qrep.link_bytes == want_bytes, (qrep.link_bytes, want_bytes)
+    del want
+
+    # one prefill through the quantized stage_weights, by stage_step_fn
+    # (the serve runtime's path), against the quantized runner with float
+    # links (the serve runtime's links quantize on their own)
+    q.link_quant = False
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (QLM_STEP_B, GEN_PROMPT))).to(dev)
+    want, _ = q.forward({"tokens": prompts})
+    x = prompts
+    for si in range(q.n_stages):
+        caches = q.init_stage_caches(si, QLM_STEP_B, GEN_PROMPT)
+        x, _ = q.stage_step_fn(si)(q.stage_weights(si), caches, x)
+    step_err = float((x[:, -1] - want[:, -1]).abs().max())
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"quantized LM stages: stage_step_fn prefill ({QLM_STEP_B} x "
+          f"{GEN_PROMPT}) vs the quantized runner's last-position logits "
+          f"max_abs_err {step_err:.3e} (bound {LOGIT_TOL}); launches "
+          f"{launches}; peak device memory {peak:.2f} GiB [{card}]")
+    assert step_err <= LOGIT_TOL, step_err
+    assert all(v == 0 for v in launches.values()), launches
+
+
+class RouteLog:
+    """Every MoE FFN call's routing, recorded by forward hooks: the sorted
+    top-k expert indices (B, T, k) and the gap between the k-th and the
+    (k+1)-th score (B, T), per call in the order of the calls."""
+
+    def __init__(self, model):
+        self.calls = []
+        self.handles = [blk.moe.register_forward_hook(self._hook)
+                        for blk in model.blocks if blk.kind == "moe"]
+
+    def _hook(self, mod, args, out):
+        with torch.no_grad():
+            _, scores, _, idx = mod.route(args[0])
+            top = torch.topk(scores, mod.k + 1, dim=-1).values
+            self.calls.append((idx.sort(-1).values,
+                               top[..., -2] - top[..., -1]))
+
+    def take(self):
+        calls, self.calls = self.calls, []
+        return calls
+
+    def close(self):
+        for h in self.handles:
+            h.remove()
+
+
+def routing_flips(a, b):
+    """Rows (batch index) whose routing differs between two runs' calls
+    of the same MoE layers in the same order: for each, its first such
+    call and the largest score gap (the larger of the two runs') over the
+    tokens routed otherwise there.  Later calls of the row take inputs
+    that the flip changed, so they are not examined."""
+    rows = {}
+    for c, ((ia, ga), (ib, gb)) in enumerate(zip(a, b)):
+        diff = (ia != ib.to(ia.device)).any(-1)              # (B, T)
+        gap = torch.maximum(ga, gb.to(ga.device))
+        for r in diff.any(-1).nonzero().flatten().tolist():
+            if r not in rows:
+                rows[r] = (c, float(gap[r][diff[r]].max()))
+    return rows
+
+
+def gated_rows(flips, n, what):
+    """The rows whose logits are gated: those without a routing flip;
+    each row's first flip must be at near ties only, and at least half
+    the rows gated."""
+    for r, (call, gap) in sorted(flips.items()):
+        print(f"{what}: row {r} first routed otherwise in MoE call {call} "
+              f"at a score gap of {gap:.3e} (near-tie tolerance {TIE_TOL}):"
+              f" reported, its later calls and logits not gated")
+        assert gap <= TIE_TOL, (what, r, call, gap)
+    rows = [r for r in range(n) if r not in flips]
+    assert len(rows) >= n / 2, (what, flips)
+    return rows
+
+
+def engine_vs_forward(model, prompts, what):
+    """``GenerationEngine``'s first-step logits against the forward's last
+    position, the routing of both compared first; returns the engine and
+    the first-step logits."""
+    from repro_torch.serving import GenerationEngine
+    dev = model.device
+    engine = GenerationEngine(model, max_seq=prompts.shape[1] + MOE_NEW)
+    log = RouteLog(model)
+    try:
+        first, _ = engine.prefill(prompts)
+        pre = log.take()
+        with torch.no_grad():
+            want = model({"tokens": torch.from_numpy(prompts).to(dev)})[:, -1]
+        fwd = log.take()
+    finally:
+        log.close()
+    rows = gated_rows(routing_flips(pre, fwd), len(prompts), what)
+    err = float((first[rows] - want[rows]).abs().max())
+    print(f"{what}: first-step logits vs forward max_abs_err {err:.3e} "
+          f"over {len(rows)}/{len(prompts)} rows (bound {LOGIT_TOL})")
+    assert err <= LOGIT_TOL, err
+    return engine, first
+
+
+def moe_full_path(dev, card):
+    """Phase 16, part 1: deepseek-moe-16b at full width and depth."""
+    from repro_torch.models.registry import build_model, get_config
+
+    cfg = get_config(MOE_ARCH)
+    model, build_s = timed(lambda: build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated(dev) / 2 ** 30
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (MOE_B, MOE_T))).to(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        (logits, aux), fwd_s = timed(lambda: model.forward_aux(batch))
+    assert logits.shape == (MOE_B, MOE_T, cfg.vocab)
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    del logits
+    aux = {k: float(v) for k, v in aux.items()}
+    assert all(np.isfinite(v) for v in aux.values()), aux
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{MOE_ARCH}: full width and depth ({cfg.n_layers} layers, "
+          f"{cfg.first_dense} dense, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared} shared), {n_params / 1e9:.3f} B "
+          f"parameters, {weights:.2f} GiB on the card, built in "
+          f"{build_s:.2f} s; forward {MOE_B} x {MOE_T} tokens {fwd_s:.3f} s "
+          f"({MOE_B * MOE_T / fwd_s:.0f} tok/s); dropped {aux['dropped']:.4f}"
+          f", lb_loss {aux['lb_loss']:.4f}, z_loss {aux['z_loss']:.4f}; peak "
+          f"device memory {peak:.2f} GiB [{card}]")
+
+    prompts = rng.integers(0, cfg.vocab, (GEN_REQUESTS, GEN_PROMPT))
+    engine, first = engine_vs_forward(model, prompts, MOE_ARCH)
+    gen = engine.generate(prompts, max_new=MOE_NEW)
+    assert gen.tokens.shape == (GEN_REQUESTS, MOE_NEW), gen.tokens.shape
+    assert (gen.tokens[:, 0] == first.argmax(-1).cpu().numpy()).all()
+    assert ((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{MOE_ARCH}: {GEN_REQUESTS} requests, prompt {GEN_PROMPT}, "
+          f"{MOE_NEW} new tokens greedy: prefill {gen.prefill_s:.3f} s "
+          f"({GEN_REQUESTS * GEN_PROMPT / gen.prefill_s:.0f} tok/s), decode "
+          f"{gen.decode_s:.3f} s ({gen.tokens_per_s:.1f} tok/s); peak device "
+          f"memory {peak:.2f} GiB [{card}]")
+
+
+def moe_train_path(dev, card):
+    """Phase 16, part 2: deepseek-moe-16b at full width and depth 2, card
+    against CPU (routing, logits, one SGD step), four microbatches against
+    one, three AdamW steps."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim import adamw, sgd
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2,
+                              first_dense=1)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    snap = snapshot(model)
+    cpu = build_model(cfg, device="meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+
+    # routing first, then logits, on the same tokens
+    tok = make_batch_for(cfg, TRAIN_B, TRAIN_T, SEED)["tokens"]
+    calls, logits = [], []
+    for m in (model, cpu):
+        log = RouteLog(m)
+        with torch.no_grad():
+            logits.append(m({"tokens": tok}))
+        calls.append(log.take())
+        log.close()
+    (idx_card, _), (idx_cpu, gap) = calls[0][0], calls[1][0]
+    near = gap <= TIE_TOL
+    differ = (idx_card.cpu() != idx_cpu).any(-1)
+    rows = gated_rows(routing_flips(calls[1], calls[0]), TRAIN_B,
+                      f"{MOE_ARCH} depth 2, card vs CPU")
+    err = float((logits[0][rows].cpu() - logits[1][rows]).abs().max())
+    print(f"{MOE_ARCH} at depth 2 ({n_params / 1e9:.3f} B parameters), card "
+          f"vs CPU on {TRAIN_B} x {TRAIN_T} tokens: router top-{cfg.top_k} "
+          f"indices equal for {int((~differ).sum())}/{differ.numel()} "
+          f"tokens, {int(near.sum())} near ties (gap <= {TIE_TOL}), "
+          f"{int(differ.sum())} routed otherwise; logits max_abs_err "
+          f"{err:.3e} (bound {LOGIT_TOL}) [{card}]")
+    assert err <= LOGIT_TOL, err
+    del logits
+
+    batch = make_batch_for(cfg, SGD_B, SGD_T, SEED)
+    losses = {}
+    for name, m in (("cuda", model), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        losses[name] = float(one_step(m, cfg, sgd(SGD_LR, momentum=0.0),
+                                      batch, clip_norm=None)["loss"])
+        print(f"{MOE_ARCH} depth 2, SGD step on {name}: loss "
+              f"{losses[name]:.7f} in {time.perf_counter() - t0:.2f} s")
+    change = params_max_diff(snap, cpu)
+    sgd_diff = params_max_diff(model, cpu)
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    print(f"{MOE_ARCH} depth 2, SGD step card vs CPU: loss rel diff "
+          f"{rel:.3e} (bound {SGD_LOSS_REL}), parameters max |diff| "
+          f"{sgd_diff:.3e} against the step's largest change {change:.3e} "
+          f"(bound {SGD_PARAM_REL} of it) [{card}]")
+    assert rel <= SGD_LOSS_REL, rel
+    assert sgd_diff <= SGD_PARAM_REL * change, (sgd_diff, change)
+    del cpu
+
+    # four microbatches.  Each row routes as its own group in every run,
+    # so capacities and drops are the same, but the load-balance loss is
+    # a product of batch-wide means (each expert's mean score and share
+    # of choices): the whole batch's loss and gradient are not the
+    # microbatches' mean, which is why the reference holds four
+    # microbatches against one batch to its loose MoE bound.  The
+    # accumulation itself is held tight: an SGD step (momentum 0) on the
+    # mean of four gradients is the mean of four SGD steps, one on each
+    # microbatch, so grad_accum 4 agrees with those as the card agrees
+    # with the CPU (SGD_PARAM_REL of the step's largest change, the loss
+    # within SGD_LOSS_REL of their mean); skipping a microbatch or not
+    # dividing by 4 moves the parameters by about the step's change.  The
+    # four steps are averaged in float64; each stored step, and
+    # grad_accum's, is rounded to half a float32 ulp of its parameter
+    # (1.2e-7 at the norm scales' 1.0, about the bound itself here), so
+    # 2 ulps of each parameter are taken off its difference first
+    batch = make_batch_for(cfg, TRAIN_B, TRAIN_T, SEED)
+    n_mb = TRAIN_B // 4
+    after, loss = {}, {}
+    for accum in (1, 4):
+        restore_params(model, snap)
+        m, s = timed(lambda: one_step(model, cfg, sgd(SGD_LR, momentum=0.0),
+                                      batch, clip_norm=None,
+                                      grad_accum=accum))
+        after[accum], loss[accum] = snapshot(model), float(m["loss"])
+        print(f"{MOE_ARCH} depth 2, SGD step grad_accum {accum}: loss "
+              f"{loss[accum]:.6f}, lb_loss {float(m['lb_loss']):.4f}, "
+              f"dropped {float(m['dropped']):.4f}, {s:.3f} s")
+    accum_diff = params_max_diff(after[1], after[4])
+    mean, mb_loss = [torch.zeros_like(p, dtype=torch.float64)
+                     for p in snap], []
+    for i in range(4):
+        restore_params(model, snap)
+        mb = {k: v[i * n_mb:(i + 1) * n_mb] for k, v in batch.items()}
+        mb_loss.append(float(one_step(model, cfg, sgd(SGD_LR, momentum=0.0),
+                                      mb, clip_norm=None)["loss"]))
+        with torch.no_grad():
+            for acc, p in zip(mean, model.parameters()):
+                acc.add_(p.double(), alpha=0.25)
+    change = params_max_diff(snap, after[4])
+    mb_diff = mb_excess = 0.0
+    for acc, p in zip(mean, after[4]):
+        d = (acc - p.double()).abs()
+        mb_diff = max(mb_diff, float(d.max()))
+        mb_excess = max(mb_excess, float((d - 2 * torch.finfo(
+            torch.float32).eps * p.double().abs()).max()))
+    mb_rel = abs(loss[4] - sum(mb_loss) / 4) / abs(loss[4])
+    del after, mean
+    print(f"{MOE_ARCH} depth 2, grad_accum 4 vs 1: parameters max |diff| "
+          f"{accum_diff:.3e} (bound {MOE_ACCUM_TOL}), loss diff "
+          f"{abs(loss[1] - loss[4]):.3e} (bound {MOE_ACCUM_LOSS}); "
+          f"grad_accum 4 vs the mean of one SGD step on each microbatch: "
+          f"parameters max |diff| {mb_diff:.3e}, beyond 2 float32 ulps "
+          f"{mb_excess:.3e} against the step's largest change {change:.3e} "
+          f"(bound {SGD_PARAM_REL} of it), loss rel diff {mb_rel:.3e} "
+          f"(bound {SGD_LOSS_REL})")
+    assert accum_diff <= MOE_ACCUM_TOL, accum_diff
+    assert abs(loss[1] - loss[4]) <= MOE_ACCUM_LOSS, loss
+    assert mb_excess <= SGD_PARAM_REL * change, (mb_excess, change)
+    assert mb_rel <= SGD_LOSS_REL, (loss[4], mb_loss)
+
+    restore_params(model, snap)
+    del snap
+    from repro_torch.training import init_params, make_train_step
+    opt = adamw(MOE_ADAMW_LR)
+    step = make_train_step(model, cfg, opt)
+    state = opt.init(init_params(model))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    adam, step_s = [], []
+    for _ in range(3):
+        (state, m), s = timed(lambda: step(state, batch))
+        adam.append(float(m["loss"]))
+        step_s.append(s)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{MOE_ARCH} depth 2, AdamW ({MOE_ADAMW_LR}) 3 steps on one "
+          f"{TRAIN_B} x {TRAIN_T} batch: losses {[round(x, 4) for x in adam]}"
+          f", step s {[round(x, 3) for x in step_s]}, peak device memory "
+          f"{peak:.2f} GiB [{card}]")
+    assert all(np.isfinite(adam)) and adam[-1] < adam[0], adam
+
+
+def v3_path(dev, card):
+    """Phase 16, part 3: deepseek-v3-671b at full width and depth 2 with
+    its MTP block."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.training import lm_loss
+
+    full = get_config(V3_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, first_dense=1)
+    model, build_s = timed(lambda: build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = torch.cuda.memory_allocated(dev) / 2 ** 30
+    batch = make_batch_for(cfg, MOE_B, MOE_T, SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        (logits, aux), fwd_s = timed(lambda: model.forward_aux(
+            batch, train=True))
+        loss, metrics = lm_loss(cfg, logits, {"labels": torch.as_tensor(
+            batch["labels"], device=dev)}, aux)
+    assert aux["mtp_logits"].shape == (MOE_B, MOE_T, cfg.vocab)
+    assert bool(torch.isfinite(aux["mtp_logits"]).all()), "mtp_logits"
+    assert bool(torch.isfinite(logits).all()) and np.isfinite(float(loss))
+    del logits, aux
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{V3_ARCH}: full width (d {cfg.d_model}, {cfg.n_heads} heads, MLA "
+          f"q/kv ranks {cfg.q_lora_rank}/{cfg.kv_lora_rank}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared} shared, "
+          f"vocab {cfg.vocab}) at depth {cfg.n_layers} (first_dense "
+          f"{cfg.first_dense}; published {full.n_layers} and "
+          f"{full.first_dense}) with {cfg.mtp} MTP block: {n_params / 1e9:.3f}"
+          f" B parameters, {weights:.2f} GiB, built in {build_s:.2f} s; "
+          f"train=True forward {MOE_B} x {MOE_T} tokens {fwd_s:.3f} s "
+          f"({MOE_B * MOE_T / fwd_s:.0f} tok/s): lm_loss "
+          f"{float(loss):.4f} (ce {float(metrics['ce']):.4f}, mtp "
+          f"{float(metrics['mtp']):.4f}, lb_loss "
+          f"{float(metrics['lb_loss']):.4f}, dropped "
+          f"{float(metrics['dropped']):.4f}); peak device memory {peak:.2f} "
+          f"GiB [{card}]")
+
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (GEN_REQUESTS, GEN_PROMPT))
+    engine, first = engine_vs_forward(model, prompts,
+                                      f"{V3_ARCH} absorbed MLA decode")
+    gen = engine.generate(prompts, max_new=MOE_NEW)
+    assert gen.tokens.shape == (GEN_REQUESTS, MOE_NEW)
+    assert (gen.tokens[:, 0] == first.argmax(-1).cpu().numpy()).all()
+    caches = model.init_caches(1, 1, torch.float32)
+    latent = sum(c["ckv"][:, 0, 0].numel() + c["kr"][:, 0, 0].numel()
+                 for c in caches.values()) * 4
+    gqa = cfg.n_layers * 2 * cfg.n_kv * cfg.resolved_head_dim * 4
+    mha = cfg.n_layers * cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                                        + cfg.v_head_dim) * 4
+    print(f"{V3_ARCH}: {GEN_REQUESTS} requests, prompt {GEN_PROMPT}, "
+          f"{MOE_NEW} new tokens greedy: prefill {gen.prefill_s:.3f} s "
+          f"({GEN_REQUESTS * GEN_PROMPT / gen.prefill_s:.0f} tok/s), decode "
+          f"{gen.decode_s:.3f} s ({gen.tokens_per_s:.1f} tok/s); cache bytes a "
+          f"token over {cfg.n_layers} layers (float32): latent {latent}, a "
+          f"GQA cache of n_kv {cfg.n_kv} x head_dim "
+          f"{cfg.resolved_head_dim} {gqa} ({gqa / latent:.1f}x), the "
+          f"decompressed keys and values {mha} ({mha / latent:.1f}x) "
+          f"[{card}]")
+
+
+def moe_phase(dev, card):
+    """Phase 16: the moe family at full width, every kernel's launch count
+    set to 0 just before and read just after (0 for all five: MoE and MLA
+    reach no kernel, as in the reference); each model freed before the
+    next is built."""
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    for part in (moe_full_path, moe_train_path, v3_path):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        part(dev, card)
+        launches = {name: k.launches for name, k in kernels.items()}
+        print(f"phase 16 {part.__name__}: launches {launches}")
+        assert all(v == 0 for v in launches.values()), launches
+    torch.cuda.empty_cache()
+    print(f"phase 16 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1960,6 +2454,10 @@ def main() -> int:
     del lm_model
     train_phase(dev, card)
     launcher_phase(dev, card)
+    t0 = time.perf_counter()
+    quant_lm_path(dev, card, lm_cuts)
+    print(f"phase 15 in {time.perf_counter() - t0:.1f} s [{card}]")
+    moe_phase(dev, card)
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")

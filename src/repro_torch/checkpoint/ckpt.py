@@ -3,7 +3,9 @@
 
 A tree (nested dicts, lists and tuples of tensors or arrays) is flattened
 with ``/``-joined key paths — a dict key as it is, a sequence index as
-``#i`` — into ``ckpt_{step:08d}.npz``.  Shapes and values round-trip
+``#i`` — into ``ckpt_{step:08d}.npz``.  A ``None`` is an empty subtree,
+as in the reference's ``tree_flatten_with_path``: nothing is written for
+it, and restore gives ``None`` back.  Shapes and values round-trip
 exactly; a bfloat16 tensor is stored as float32 (which holds it exactly)
 and cast back on restore.  A port model's parameters go in as
 ``models.convert.reference_params(model)``, the reference's flat layout,
@@ -21,7 +23,10 @@ import torch
 
 
 def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """``(key, leaf)`` of every leaf of ``tree``, keys ``/``-joined."""
+    """``(key, leaf)`` of every leaf of ``tree``, keys ``/``-joined; a
+    ``None`` has no leaves."""
+    if tree is None:
+        return
     if isinstance(tree, dict):
         items = ((str(k), v) for k, v in tree.items())
     elif isinstance(tree, (list, tuple)):
@@ -61,6 +66,8 @@ def _like(arr: np.ndarray, leaf):
 
 
 def _rebuild(tree, data, prefix: str = ""):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _rebuild(v, data, f"{prefix}/{k}" if prefix else str(k))
                 for k, v in tree.items()}

@@ -2,6 +2,7 @@
 inference partitioning for distributed systems."""
 
 from repro_torch.core.accuracy import MeasuredAccuracy, ProxyAccuracy
+from repro_torch.core.explorer import ExplorationResult, Explorer
 from repro_torch.core.graph import LayerGraph, linearize
 from repro_torch.core.layers import LayerInfo
 from repro_torch.core.link import LinkModel, get_link

@@ -153,6 +153,21 @@ def reference_channel_axis(module: nn.Module, p: torch.Tensor) -> int:
     return getattr(module, "REFERENCE_LAST_AXIS", p.dim() - 1)
 
 
+def quantize_leaf(t: torch.Tensor, spec: QuantSpec,
+                  percentile: Optional[float] = None,
+                  channel_axis: Optional[int] = None) -> torch.Tensor:
+    """The reference's ``quantize_pytree`` rule on one leaf: a float leaf
+    of two or more dimensions is fake-quantized (per channel along
+    ``channel_axis``, its last axis when None), any other is kept."""
+    if t.dim() <= 1 or not t.is_floating_point():
+        return t
+    if spec.per_channel:
+        spec = dataclasses.replace(
+            spec, channel_axis=t.dim() - 1 if channel_axis is None
+            else channel_axis)
+    return quantize_tensor(t, spec, percentile)
+
+
 def quantize_pytree(module: nn.Module, spec: QuantSpec,
                     percentile: Optional[float] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -169,14 +184,8 @@ def quantize_pytree(module: nn.Module, spec: QuantSpec,
     for mname, mod in module.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            if p.dim() <= 1 or not p.is_floating_point():
-                out[name] = p
-                continue
-            s = spec
-            if spec.per_channel:
-                s = dataclasses.replace(
-                    spec, channel_axis=reference_channel_axis(mod, p))
-            out[name] = quantize_tensor(p, s, percentile)
+            out[name] = quantize_leaf(p, spec, percentile,
+                                      reference_channel_axis(mod, p))
     return out
 
 

@@ -7,6 +7,10 @@ stacked over layers: ``embed`` (vocab, D), ``final_norm`` (D), ``head``
 (D, vocab) unless the embeddings are tied, and
 
 * dense decoder: ``blocks_dense/<path>`` of shape (L, ...);
+* moe decoder: ``blocks_dense/<path>`` of shape (first_dense, ...) and
+  ``blocks_moe/<path>`` of shape (L - first_dense, ...) (either left out
+  when it has no layers), and with ``mtp`` the multi-token-prediction
+  stack ``mtp_block/<path>`` of shape (mtp, ...) and ``mtp_proj``;
 * ssm (Mamba2): ``blocks/<path>`` of shape (L, ...);
 * hybrid (Zamba2): ``blocks/<path>`` of shape (groups, attn_every, ...) and
   the shared block's ``shared/<path>``, given once.
@@ -14,7 +18,9 @@ stacked over layers: ``embed`` (vocab, D), ``final_norm`` (D), ``head``
 Given that pytree flattened to numpy arrays under ``/``-joined keys,
 :func:`load_reference_params` splits each stacked leaf per layer and copies
 it into the port's parameter of the same path (``blocks.<i>.<path>``, the
-hybrid's group g, block j at ``i = g * attn_every + j``; ``shared.<path>``).
+moe stack's layer j at ``i = first_dense + j``, the hybrid's group g,
+block j at ``i = g * attn_every + j``; ``mtp_block.<j>.<path>``;
+``shared.<path>``).
 Both packages keep (in, out) layouts, so every copy is one to one.
 
 A CNN's parameters and BatchNorm state are nested dicts keyed by block
@@ -46,44 +52,65 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import TokenLM
 from repro_torch.nn.layers import Dense
 
-_TOP = ("embed", "final_norm", "head")
-_STACKED = {"dense": "blocks_dense", "ssm": "blocks", "hybrid": "blocks"}
+_TOP = ("embed", "final_norm", "head", "mtp_proj")
 
 
-def _leading(cfg: ModelConfig) -> Tuple[int, ...]:
-    """The stacked leaves' leading axes."""
+@dataclasses.dataclass(frozen=True)
+class Stack:
+    """One stacked leaf group of the reference: its key (``blocks_dense``),
+    the port's module list (``blocks``), the first of its port blocks and
+    the leaves' leading axes (their product is the number of blocks)."""
+    key: str
+    port: str
+    start: int
+    lead: Tuple[int, ...]
+
+    @property
+    def n(self) -> int:
+        return int(np.prod(self.lead))
+
+
+def stacks(cfg: ModelConfig) -> List[Stack]:
+    """The reference's block stacks of ``cfg``'s family, in order."""
     if cfg.family == "hybrid":
-        return (cfg.n_layers // cfg.attn_every, cfg.attn_every)
-    return (cfg.n_layers,)
+        return [Stack("blocks", "blocks", 0,
+                      (cfg.n_layers // cfg.attn_every, cfg.attn_every))]
+    if cfg.family == "ssm":
+        return [Stack("blocks", "blocks", 0, (cfg.n_layers,))]
+    n_dense = cfg.first_dense if cfg.family == "moe" else cfg.n_layers
+    out = [Stack("blocks_dense", "blocks", 0, (n_dense,)),
+           Stack("blocks_moe", "blocks", n_dense, (cfg.n_layers - n_dense,)),
+           Stack("mtp_block", "mtp_block", 0, (cfg.mtp,))]
+    return [st for st in out if st.n]
 
 
 def port_state(flat: Mapping[str, np.ndarray], cfg: ModelConfig
                ) -> Dict[str, np.ndarray]:
     """The reference's flat parameters renamed to the port's state-dict
     keys, stacked block leaves split per layer."""
-    stacked = _STACKED.get(cfg.family)
-    lead = _leading(cfg)
+    by_key = {st.key: st for st in stacks(cfg)}
     out: Dict[str, np.ndarray] = {}
     for key, arr in flat.items():
         arr = np.asarray(arr)
         head, _, rest = key.partition("/")
         path = rest.replace("/", ".")
-        if head == stacked and rest:
-            if arr.shape[:len(lead)] != lead:
+        st = by_key.get(head)
+        if st is not None and rest:
+            if arr.shape[:len(st.lead)] != st.lead:
                 raise ValueError(f"{key}: leading axis "
-                                 f"{arr.shape[:len(lead)]} is not the "
-                                 f"{lead} layers")
-            layers = arr.reshape(cfg.n_layers, *arr.shape[len(lead):])
-            for i in range(cfg.n_layers):
-                out[f"blocks.{i}.{path}"] = layers[i]
+                                 f"{arr.shape[:len(st.lead)]} is not the "
+                                 f"{st.lead} layers")
+            layers = arr.reshape(st.n, *arr.shape[len(st.lead):])
+            for i in range(st.n):
+                out[f"{st.port}.{st.start + i}.{path}"] = layers[i]
         elif head == "shared" and rest and cfg.family == "hybrid":
             out[f"shared.{path}"] = arr
         elif key in _TOP:
             out[key] = arr
         else:
             raise NotImplementedError(
-                f"{key}: not a {cfg.family} parameter; the dense decoder's, "
-                f"the ssm and the hybrid models' parameters are carried")
+                f"{key}: not a parameter of a {cfg.family} model (its "
+                f"stacks: {sorted(by_key)})")
     return out
 
 
@@ -176,8 +203,9 @@ class Leaf:
 def reference_leaves(model: nn.Module) -> Dict[str, Leaf]:
     """``model``'s parameters grouped as the reference's leaves, by the
     reference's ``/``-joined key.  An LM's block parameters
-    ``blocks.<i>.<path>`` make one stacked leaf each
-    (``blocks_dense/<path>`` of shape (L, ...), or the hybrid's
+    ``blocks.<i>.<path>`` make one stacked leaf a stack
+    (``blocks_dense/<path>`` of shape (L, ...), a moe model's
+    ``blocks_dense`` and ``blocks_moe``, ``mtp_block``, or the hybrid's
     ``blocks/<path>`` of shape (groups, attn_every, ...)); any other
     module's parameters (a CNN's) are one leaf each, keyed by their path."""
     if not isinstance(model, TokenLM):
@@ -186,25 +214,29 @@ def reference_leaves(model: nn.Module) -> Dict[str, Leaf]:
         return {name.replace(".", "/"): Leaf((p,), tuple(p.shape),
                                              name in dense_w)
                 for name, p in model.named_parameters()}
-    cfg = model.cfg
-    stacked, lead = _STACKED[cfg.family], _leading(cfg)
+    by_port: Dict[Tuple[str, int], Stack] = {}
+    for st in stacks(model.cfg):
+        for i in range(st.n):
+            by_port[st.port, st.start + i] = st
     groups: Dict[str, List[nn.Parameter]] = {}
+    lead: Dict[str, Tuple[int, ...]] = {}
     for name, p in model.named_parameters():
         head, _, rest = name.partition(".")
-        if head == "blocks":
-            _, _, path = rest.partition(".")
-            key = f"{stacked}/{path.replace('.', '/')}"
+        idx, _, path = rest.partition(".")
+        st = by_port.get((head, int(idx))) if idx.isdigit() else None
+        if st is not None:
+            key = f"{st.key}/{path.replace('.', '/')}"
+            lead[key] = st.lead
         else:
             key = name.replace(".", "/")
         groups.setdefault(key, []).append(p)
     out = {}
     for key, ps in groups.items():
         shape = tuple(ps[0].shape)
-        if key.startswith(stacked + "/"):
-            if len(ps) != cfg.n_layers:
-                raise ValueError(f"{key}: {len(ps)} layers, not "
-                                 f"{cfg.n_layers}")
-            shape = lead + shape
+        if key in lead:
+            if len(ps) != int(np.prod(lead[key])):
+                raise ValueError(f"{key}: {len(ps)} layers, not {lead[key]}")
+            shape = lead[key] + shape
         out[key] = Leaf(tuple(ps), shape)
     return out
 

@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense family (the JAX package's ``repro.models.decoder``).
+"""Decoder-only LM: the dense and moe families (the JAX package's
+``repro.models.decoder``).
 
 The reference stacks its layers' parameters and runs them under
 ``lax.scan``; here the blocks are an ``nn.ModuleList`` walked by a loop
@@ -12,26 +13,38 @@ API, against the reference's:
 reference (``params`` explicit)        port (weights held by the module)
 =====================================  =====================================
 ``init(key)``                          ``DecoderLM(cfg, device=, generator=)``
-``apply(params, state, batch)``        ``model(batch, impl=)`` -> logits
+``apply(params, state, batch)``        ``model.forward_aux(batch, impl=,
+                                       train=)`` -> ``(logits, aux)``;
+                                       ``model(batch, ...)`` -> logits
 ``init_caches(b, capacity, dtype)``    ``init_caches(b, capacity, dtype)``
 ``decode_step(params, caches, batch)`` ``decode_step(caches, batch, impl=)``
 ``to_graph(seq)``                      ``to_graph(seq)`` (config only)
 =====================================  =====================================
 
-Caches keep the reference's stacked layout, ``{"dense": {"k": (L, B, S,
-Kv, hd), "v": ..., "pos": (L,)}}``, and are written in place.  Lane caches
-(``stacked_caches(..., lanes=True)``) give every batch row its own write
-position, ``pos`` (L, B): the reference's per-slot batch-1 caches under
-``jax.vmap``, as one batch.  Only the dense family is carried here
-(``cfg.family == "dense"``, no MLA; the ssm and hybrid families are
-``models.ssm_lm.SSMLM``); the graph
-(:func:`lm_graph`) covers every family the reference's ``DecoderLM`` does,
-since it needs the configuration only.
+A moe model keeps the reference's two stacks in one list: ``blocks[:
+first_dense]`` are dense blocks (the reference's ``blocks_dense``) and the
+rest MoE blocks (``blocks_moe``); ``aux`` holds the MoE stack's
+``lb_loss``, ``z_loss`` and ``dropped``, each the mean over its blocks.
+With ``cfg.mtp`` (DeepSeek-V3) the ``mtp_block`` stack and ``mtp_proj``
+give ``aux["mtp_logits"]`` when ``train`` is set.  ``cfg.use_mla`` puts
+multi-head latent attention in every block.
+
+Caches keep the reference's stacked layout, one entry a stack:
+``{"dense": {"k": (L, B, S, Kv, hd), "v": ..., "pos": (L,)}, "moe":
+...}``, MLA's ``{"ckv": (L, B, S, r), "kr": (L, B, S, rd), "pos": ...}``,
+written in place.  Lane caches (``init_caches(..., lanes=True)``) give
+every batch row its own write position, ``pos`` (L, B): the reference's
+per-slot batch-1 caches under ``jax.vmap``, as one batch (and a MoE block
+routes every lane as its own group, as there).  The ssm and hybrid
+families are ``models.ssm_lm.SSMLM``; the audio and vlm families are not
+carried yet (:func:`unsupported`).  The graph (:func:`lm_graph`) covers
+every family the reference's ``DecoderLM`` does, since it needs the
+configuration only.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,8 +54,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as GL
 from repro_torch.core.graph import LayerGraph
-from repro_torch.nn.attention import GQAAttention
+from repro_torch.nn.attention import GQAAttention, MLAAttention, MLAConfig
 from repro_torch.nn.layers import rms_norm
+from repro_torch.nn.moe import MoEFFN
 from repro_torch.nn.module import constant, normal_init
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -51,10 +65,6 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def unsupported(cfg: ModelConfig) -> Optional[str]:
     """Why this port cannot build ``cfg``'s weights yet (the ``ROADMAP.md``
     item that brings it), or None for a decoder it can build."""
-    if cfg.use_mla:
-        return "MLA attention comes with ROADMAP.md C7"
-    if cfg.family == "moe":
-        return "MoE feed-forward blocks come with ROADMAP.md C8"
     if cfg.family == "audio":
         return "the audio (multi-codebook) family comes with ROADMAP.md C9"
     if cfg.family == "vlm":
@@ -76,30 +86,57 @@ def gated_mlp_init(d: int, ff: int, **init) -> nn.ParameterDict:
         "w_down": normal_init((ff, d), ff ** -0.5, **init)})
 
 
-class DecoderBlock(nn.Module):
-    """Pre-norm attention + gated-MLP block (the reference's dense kind)."""
+def mla_config(cfg: ModelConfig) -> MLAConfig:
+    return MLAConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
+        qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
+        rope_theta=cfg.rope_theta)
 
-    def __init__(self, cfg: ModelConfig, *, device=None,
+
+class DecoderBlock(nn.Module):
+    """Pre-norm attention + FFN block.  ``kind``: ``"dense"`` (a gated MLP,
+    ``mlp``) or ``"moe"`` (``moe``, a ``MoEFFN``); the attention is MLA
+    when the config asks for it, else GQA."""
+
+    def __init__(self, cfg: ModelConfig, kind: str = "dense", *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.kind = kind
         dt = _DTYPES[cfg.dtype]
-        d, ff = cfg.d_model, cfg.d_ff
+        d = cfg.d_model
+        init = dict(dtype=dt, device=device, generator=generator)
         self.ln1 = constant((d,), 1.0, device=device, dtype=dt)
         self.ln2 = constant((d,), 1.0, device=device, dtype=dt)
-        self.attn = GQAAttention(
-            d, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
-            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, window=cfg.window,
-            rope_theta=cfg.rope_theta, dtype=dt, device=device,
-            generator=generator)
-        self.mlp = gated_mlp_init(d, ff, generator=generator, device=device,
-                                  dtype=dt)
+        if cfg.use_mla:
+            self.attn = MLAAttention(mla_config(cfg), **init)
+        else:
+            self.attn = GQAAttention(
+                d, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                window=cfg.window, rope_theta=cfg.rope_theta, **init)
+        if kind == "moe":
+            self.moe = MoEFFN(d, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
+                              cfg.n_shared, sigmoid_gate=cfg.sigmoid_gate,
+                              **init)
+        else:
+            self.mlp = gated_mlp_init(d, cfg.d_ff, generator=generator,
+                                      device=device, dtype=dt)
 
     def forward(self, x, *, positions, cache=None, impl="ref"):
+        """``(x, new_cache, aux)``: ``aux`` is the MoE FFN's (empty for a
+        dense block).  A lane cache (``pos`` of shape (B,)) routes every
+        row as its own group."""
         a, new_cache = self.attn(rms_norm(x, self.ln1), positions=positions,
                                  cache=cache, impl=impl)
         x = x + a
-        x = x + gated_mlp(self.mlp, rms_norm(x, self.ln2))
-        return x, new_cache
+        h = rms_norm(x, self.ln2)
+        if self.kind == "moe":
+            lanes = cache is not None and cache["pos"].dim() > 0
+            f, aux = self.moe(h, lanes=lanes)
+        else:
+            f, aux = gated_mlp(self.mlp, h), {}
+        return x + f, new_cache, aux
 
 
 def block_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -107,47 +144,76 @@ def block_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
     return blk(x, **kw)[0]
 
 
-def remat_block(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
-    """``block_out`` under ``torch.utils.checkpoint``: the block's
-    activations are recomputed in the backward instead of kept (the
-    reference's ``jax.checkpoint`` of its scan body)."""
-    return checkpoint(block_out, blk, x, use_reentrant=False, **kw)
+def block_aux(blk: nn.Module, x: torch.Tensor, **kw):
+    """A decoder block's output and aux, without its cache."""
+    out = blk(x, **kw)
+    return out[0], out[2]
+
+
+def remat_block(fn, blk: nn.Module, x: torch.Tensor, remat: bool, **kw):
+    """``fn(blk, x, **kw)``; with ``remat`` under
+    ``torch.utils.checkpoint``: the block's activations are recomputed in
+    the backward instead of kept (the reference's ``jax.checkpoint`` of its
+    scan body)."""
+    if remat:
+        return checkpoint(fn, blk, x, use_reentrant=False, **kw)
+    return fn(blk, x, **kw)
+
+
+def mean_aux(auxes: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+    """The blocks' aux terms, each the mean over the blocks that have it
+    (the reference's mean over its scanned stack)."""
+    auxes = [a for a in auxes if a]
+    if not auxes:
+        return {}
+    return {k: torch.stack([a[k] for a in auxes]).mean() for k in auxes[0]}
 
 
 def run_blocks(blocks: Sequence[DecoderBlock], x: torch.Tensor,
                positions: torch.Tensor, caches: Optional[Dict] = None,
                impl: str = "ref", remat: bool = False):
     """Run ``x`` through ``blocks`` in order (the reference's
-    ``_scan_blocks``).  ``caches``: stacked ``{"k", "v", "pos"}`` with a
-    leading axis over these blocks, or None.  ``remat`` (no caches):
-    checkpoint each block.  Returns ``(x, new_caches)``."""
+    ``_scan_blocks``).  ``caches``: one stack's caches (``{"k", "v",
+    "pos"}`` or MLA's ``{"ckv", "kr", "pos"}``) with a leading axis over
+    these blocks, or None.  ``remat`` (no caches): checkpoint each block.
+    Returns ``(x, new_caches, aux)``, ``aux`` the mean of the MoE blocks'
+    aux terms (empty without MoE blocks)."""
+    auxes = []
     if caches is None:
-        run = remat_block if remat else block_out
         for blk in blocks:
-            x = run(blk, x, positions=positions, impl=impl)
-        return x, None
+            x, aux = remat_block(block_aux, blk, x, remat,
+                                 positions=positions, impl=impl)
+            auxes.append(aux)
+        return x, None, mean_aux(auxes)
     pos = []
     for i, blk in enumerate(blocks):
-        layer = {"k": caches["k"][i], "v": caches["v"][i],
-                 "pos": caches["pos"][i]}
-        x, new = blk(x, positions=positions, cache=layer, impl=impl)
+        layer = {k: v[i] for k, v in caches.items()}
+        x, new, aux = blk(x, positions=positions, cache=layer, impl=impl)
         pos.append(new["pos"])
-    return x, {"k": caches["k"], "v": caches["v"], "pos": torch.stack(pos)}
+        auxes.append(aux)
+    return x, {**caches, "pos": torch.stack(pos)}, mean_aux(auxes)
 
 
 def stacked_caches(cfg: ModelConfig, n_layers: int, batch_size: int,
                    capacity: int, dtype=torch.bfloat16, device=None,
                    lanes: bool = False) -> Dict:
-    """Fresh stacked KV caches for ``n_layers`` blocks (``pos`` = 0); the
-    capacity is capped at the window, as the reference's ``init_caches``.
+    """Fresh stacked caches for ``n_layers`` blocks (``pos`` = 0): KV
+    caches, or MLA's latent caches when the config uses MLA; the capacity
+    is capped at the window, as the reference's ``init_caches``.
     ``lanes``: one write position per batch row, ``pos`` (L, B)."""
     if cfg.window is not None:
         capacity = min(capacity, cfg.window)
-    shape = (n_layers, batch_size, capacity, cfg.n_kv, cfg.resolved_head_dim)
     pos_shape = (n_layers, batch_size) if lanes else (n_layers,)
+    pos = torch.zeros(pos_shape, dtype=torch.int32, device=device)
+    lead = (n_layers, batch_size, capacity)
+    if cfg.use_mla:
+        return {"ckv": torch.zeros(lead + (cfg.kv_lora_rank,), dtype=dtype,
+                                   device=device),
+                "kr": torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype,
+                                  device=device), "pos": pos}
+    shape = lead + (cfg.n_kv, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros(pos_shape, dtype=torch.int32, device=device)}
+            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": pos}
 
 
 def step_positions(pos0: Optional[torch.Tensor], b: int, t: int,
@@ -185,17 +251,25 @@ class TokenLM(nn.Module):
             positions = step_positions(pos0, *tokens.shape, self.device)
         return x, positions
 
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The (tied or own) LM head."""
+        return x @ (self.embed.T if self.cfg.tied_embeddings else self.head)
+
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the (tied or own) LM head."""
-        x = rms_norm(x, self.final_norm)
-        return x @ (self.embed.T if self.cfg.tied_embeddings else self.head)
+        return self.project(rms_norm(x, self.final_norm))
+
+    def forward_aux(self, batch, *, impl: str = "ref", train: bool = False):
+        """``(logits, aux)``, the reference's ``apply``: a model without aux
+        terms gives ``{}``."""
+        return self(batch, impl=impl, train=train), {}
 
 
 class DecoderLM(TokenLM):
-    """Dense decoder-only LM.  Weights are drawn from ``generator`` (a
-    generator on ``device`` seeded 0 when None); on ``device="meta"``
-    nothing is allocated.  Runs on the CUDA device unless the caller passes
-    another ``device``."""
+    """Decoder-only LM of the dense or moe family.  Weights are drawn from
+    ``generator`` (a generator on ``device`` seeded 0 when None); on
+    ``device="meta"`` nothing is allocated.  Runs on the CUDA device unless
+    the caller passes another ``device``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -211,47 +285,86 @@ class DecoderLM(TokenLM):
         if generator is None and device.type != "meta":
             generator = torch.Generator(device=device).manual_seed(0)
         self.cfg = cfg
+        moe = cfg.family == "moe"
+        self.n_dense = cfg.first_dense if moe else cfg.n_layers
+        self.n_moe = cfg.n_layers - self.n_dense
         dt = _DTYPES[cfg.dtype]
         init = dict(generator=generator, device=device, dtype=dt)
+        blk = dict(device=device, generator=generator)
         self.embed = normal_init((cfg.vocab, cfg.d_model), 0.02, **init)
         self.final_norm = constant((cfg.d_model,), 1.0, device=device,
                                    dtype=dt)
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, device=device, generator=generator)
-            for _ in range(cfg.n_layers))
+            [DecoderBlock(cfg, "dense", **blk) for _ in range(self.n_dense)]
+            + [DecoderBlock(cfg, "moe", **blk) for _ in range(self.n_moe)])
         if not cfg.tied_embeddings:
             self.head = normal_init((cfg.d_model, cfg.vocab),
                                     cfg.d_model ** -0.5, **init)
+        if cfg.mtp:
+            self.mtp_block = nn.ModuleList(
+                DecoderBlock(cfg, "dense", **blk) for _ in range(cfg.mtp))
+            self.mtp_proj = normal_init((2 * cfg.d_model, cfg.d_model),
+                                        (2 * cfg.d_model) ** -0.5, **init)
+
+    def stacks(self) -> List[Tuple[str, Sequence[DecoderBlock]]]:
+        """The reference's block stacks in order, by cache key: ``dense``
+        (the first ``n_dense`` blocks) and ``moe`` (the rest), each where it
+        has blocks."""
+        out = [("dense", self.blocks[:self.n_dense]),
+               ("moe", self.blocks[self.n_dense:])]
+        return [(name, blocks) for name, blocks in out if len(blocks)]
 
     # -- forward ----------------------------------------------------------------
+    def forward_aux(self, batch, *, impl: str = "ref", train: bool = False):
+        """``(logits, aux)`` of ``batch["tokens"]`` (the reference's
+        ``apply``): logits (B, T, vocab); ``aux`` the MoE stack's mean
+        ``lb_loss``, ``z_loss`` and ``dropped``, and with ``train`` and
+        ``cfg.mtp`` the multi-token-prediction logits ``mtp_logits``.
+        ``impl="cuda"``/``"auto"`` takes the sliding-window kernel in every
+        windowed block; ``train`` checkpoints every block when the config
+        asks for ``remat``."""
+        cfg = self.cfg
+        emb, positions = self.embed_tokens(batch)
+        x, _, aux = run_blocks(self.blocks, emb, positions, impl=impl,
+                               remat=train and cfg.remat)
+        x = rms_norm(x, self.final_norm)
+        logits = self.project(x)
+        if cfg.mtp and train:
+            # multi-token prediction: one more dense stack over the final
+            # hidden state and the next token's embedding
+            h = torch.cat([x, torch.roll(emb, -1, dims=1)], dim=-1)
+            h, _, _ = run_blocks(self.mtp_block, h @ self.mtp_proj,
+                                 positions, impl=impl)
+            aux = {**aux, "mtp_logits": self.head_logits(h)}
+        return logits, aux
+
     def forward(self, batch, *, impl: str = "ref",
                 train: bool = False) -> torch.Tensor:
-        """Logits (B, T, vocab) of ``batch["tokens"]`` (the reference's
-        ``apply``).  ``impl="cuda"``/``"auto"`` takes the sliding-window
-        kernel in every block; ``train`` checkpoints every block when the
-        config asks for ``remat``."""
-        x, positions = self.embed_tokens(batch)
-        x, _ = run_blocks(self.blocks, x, positions, impl=impl,
-                          remat=train and self.cfg.remat)
-        return self.head_logits(x)
+        """Logits (B, T, vocab) of ``batch["tokens"]``
+        (:meth:`forward_aux` without the aux)."""
+        return self.forward_aux(batch, impl=impl, train=train)[0]
 
     # -- serving ------------------------------------------------------------------
     def init_caches(self, batch_size: int, capacity: int,
                     dtype=torch.bfloat16, lanes: bool = False) -> Dict:
-        """Fresh caches; ``lanes``: one write position per batch row."""
-        return {"dense": stacked_caches(self.cfg, self.cfg.n_layers,
-                                        batch_size, capacity, dtype,
-                                        self.device, lanes)}
+        """Fresh caches, one entry a stack (``dense``, ``moe``); ``lanes``:
+        one write position per batch row."""
+        return {name: stacked_caches(self.cfg, len(blocks), batch_size,
+                                     capacity, dtype, self.device, lanes)
+                for name, blocks in self.stacks()}
 
     def decode_step(self, caches, batch, *, impl: str = "ref"):
         """Append ``batch["tokens"]`` (B, T) to the caches and return
-        ``(logits, new_caches)``.  Positions continue from the caches' write
-        position (each lane's own with lane caches), which stays on the
-        device (no host sync)."""
-        x, positions = self.embed_tokens(batch, caches["dense"]["pos"][0])
-        x, new = run_blocks(self.blocks, x, positions, caches=caches["dense"],
-                            impl=impl)
-        return self.head_logits(x), {"dense": new}
+        ``(logits, new_caches)``.  Positions continue from the first
+        stack's write position (each lane's own with lane caches), which
+        stays on the device (no host sync)."""
+        first = caches["dense"] if "dense" in caches else caches["moe"]
+        x, positions = self.embed_tokens(batch, first["pos"][0])
+        new = {}
+        for name, blocks in self.stacks():
+            x, new[name], _ = run_blocks(blocks, x, positions,
+                                         caches=caches[name], impl=impl)
+        return self.head_logits(x), new
 
     # -- partitioner view ------------------------------------------------------------
     def to_graph(self, seq: int) -> LayerGraph:

@@ -36,9 +36,9 @@ def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None):
     """The model of ``cfg`` with weights drawn from ``generator``: an
     ``SSMLM`` for the ssm and hybrid families, else a ``DecoderLM``.  The
-    dense, ssm and hybrid families are carried so far; every other family
-    raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-    brings it."""
+    dense, moe (with MLA and MTP), ssm and hybrid families are carried so
+    far; the audio and vlm families raise ``NotImplementedError`` naming
+    the ``ROADMAP.md`` item that brings them."""
     if cfg.family in ("ssm", "hybrid"):
         from repro_torch.models.ssm_lm import SSMLM
         return SSMLM(cfg, device=device, generator=generator)

@@ -138,11 +138,11 @@ class SSMLM(TokenLM):
     def _run(self, x, positions, caches=None, impl="ref", remat=False):
         every = self.cfg.attn_every
         if caches is None:
-            run = remat_block if remat else block_out
             for i, blk in enumerate(self.blocks):
-                x = run(blk, x, impl=impl)
+                x = remat_block(block_out, blk, x, remat, impl=impl)
                 if self.hybrid and (i + 1) % every == 0:
-                    x = run(self.shared, x, positions=positions, impl=impl)
+                    x = remat_block(block_out, self.shared, x, remat,
+                                    positions=positions, impl=impl)
             return x, None
         mamba = caches["mamba"]
         if not self.hybrid:

@@ -1,5 +1,6 @@
-"""Attention machinery of the LM path: RoPE, GQA, qk-norm, sliding windows
-and KV caches (full and ring-buffer window).
+"""Attention machinery of the LM path: RoPE, GQA, qk-norm, sliding windows,
+KV caches (full and ring-buffer window) and DeepSeek-V3's multi-head latent
+attention (MLA) with its latent cache.
 
 Shapes as in the JAX package's ``repro.nn.attention``: activations
 (B, T, D); caches (B, S, n_kv, hd), S the cache capacity (full sequence or
@@ -18,16 +19,18 @@ Differences from the reference:
   *lane*.  The reference gives each lane a batch-1 cache and ``jax.vmap``s
   the step over them (``SlotDecoder``, the serve runtime); here the lanes
   are the batch rows of one cache, so a step over every lane is one
-  batched call.
+  batched call.  The MLA latent cache (:func:`init_mla_cache`) takes lanes
+  the same way, and is written in place too.
 * ``impl``: ``"ref"`` (the default) is the reference's ``"ref"``;
   ``"cuda"`` and ``"auto"`` take the reference's ``"pallas"`` branch, the
   sliding-window kernel of ``kernels.ops.window_attn``.
 
-M-RoPE and MLA (``apply_mrope``, ``MLAAttention``) are not ported yet.
+M-RoPE (``apply_mrope``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -267,3 +270,150 @@ class GQAAttention(nn.Module):
             y = sdpa(q, new_cache["k"].to(q.dtype),
                      new_cache["v"].to(q.dtype), mask)
         return y.reshape(b, t, self.h * self.hd) @ self.wo, new_cache
+
+
+# -- DeepSeek-V3 multi-head latent attention ----------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+
+
+def init_mla_cache(batch: int, capacity: int, cfg: MLAConfig,
+                   dtype=torch.bfloat16, device=None,
+                   lanes: bool = False) -> Cache:
+    """Zero latent cache: ``ckv`` (B, S, kv_lora_rank), ``kr`` (B, S,
+    qk_rope_dim) and ``pos``, a scalar or, with ``lanes``, one write
+    position per batch row (B,)."""
+    return {
+        "ckv": torch.zeros((batch, capacity, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "kr": torch.zeros((batch, capacity, cfg.qk_rope_dim), dtype=dtype,
+                          device=device),
+        "pos": torch.zeros((batch,) if lanes else (), dtype=torch.int32,
+                           device=device),
+    }
+
+
+def _write_at(buf: torch.Tensor, new: torch.Tensor, pos: torch.Tensor
+              ) -> None:
+    """Write ``new`` (B, T, ...) into ``buf`` (B, S, ...) in place from
+    ``min(pos, S - T)`` (the reference's clamped ``dynamic_update_slice``):
+    ``pos`` a scalar, or one position per row (B,)."""
+    cap, t_new = buf.shape[1], new.shape[1]
+    if t_new > cap:
+        raise ValueError(f"{t_new} new tokens exceed the cache's capacity "
+                         f"{cap}")
+    step = torch.arange(t_new, device=pos.device)
+    start = torch.clamp(pos, max=cap - t_new)
+    if pos.dim():
+        rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+        buf[rows, start[:, None] + step] = new.to(buf.dtype)
+    else:
+        buf.index_copy_(1, start + step, new.to(buf.dtype))
+
+
+class MLAAttention(nn.Module):
+    """Multi-head latent attention (DeepSeek-V2/V3).
+
+    The cache holds the compressed latent ``ckv`` (kv_lora_rank) and the
+    shared rope key ``kr`` (qk_rope_dim) per token.  Prefill and training
+    use the decompressed form; decode with a cache uses the absorbed form
+    (the query projected into the latent space, attention over
+    kv_lora_rank dimensions).  Weights in the reference's (in, out)
+    layout."""
+
+    def __init__(self, cfg: MLAConfig, *, dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = c = cfg
+        d, h = c.d_model, c.n_heads
+        qk = c.qk_nope_dim + c.qk_rope_dim
+        std = d ** -0.5
+        init = dict(generator=generator, device=device, dtype=dtype)
+        fixed = dict(device=device, dtype=dtype)
+        self.w_dq = normal_init((d, c.q_lora_rank), std, **init)
+        self.q_norm = constant((c.q_lora_rank,), 1.0, **fixed)
+        self.w_uq = normal_init((c.q_lora_rank, h * qk),
+                                c.q_lora_rank ** -0.5, **init)
+        self.w_dkv = normal_init((d, c.kv_lora_rank), std, **init)
+        self.kv_norm = constant((c.kv_lora_rank,), 1.0, **fixed)
+        self.w_kr = normal_init((d, c.qk_rope_dim), std, **init)
+        self.w_uk = normal_init((c.kv_lora_rank, h * c.qk_nope_dim),
+                                c.kv_lora_rank ** -0.5, **init)
+        self.w_uv = normal_init((c.kv_lora_rank, h * c.v_head_dim),
+                                c.kv_lora_rank ** -0.5, **init)
+        self.wo = normal_init((h * c.v_head_dim, d),
+                              (h * c.v_head_dim) ** -0.5, **init)
+
+    def _latents(self, x, positions):
+        c = self.cfg
+        b, t, _ = x.shape
+        cq = rms_norm(x @ self.w_dq, self.q_norm)
+        q = (cq @ self.w_uq).reshape(b, t, c.n_heads,
+                                     c.qk_nope_dim + c.qk_rope_dim)
+        q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
+        q_rope = apply_rope(q_rope, positions, c.rope_theta)
+        ckv = rms_norm(x @ self.w_dkv, self.kv_norm)             # (B,T,r)
+        k_rope = apply_rope((x @ self.w_kr)[:, :, None, :], positions,
+                            c.rope_theta)[:, :, 0]              # (B,T,rd)
+        return q_nope, q_rope, ckv, k_rope
+
+    def forward(self, x: torch.Tensor, *,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Cache] = None, impl: str = "ref"):
+        """Returns ``(y, new_cache)``, ``new_cache`` None without a cache.
+        No kernel is on this path (``impl`` is checked and otherwise
+        unused, as in the reference)."""
+        if impl not in kops.IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; valid choices: "
+                             f"{', '.join(kops.IMPLS)}")
+        c = self.cfg
+        b, t, _ = x.shape
+        if positions is None:
+            positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        q_nope, q_rope, ckv, k_rope = self._latents(x, positions)
+
+        new_cache = None
+        if cache is None:
+            # decompressed prefill/train path
+            k_nope = (ckv @ self.w_uk).reshape(b, t, c.n_heads, c.qk_nope_dim)
+            v = (ckv @ self.w_uv).reshape(b, t, c.n_heads, c.v_head_dim)
+            k = torch.cat([k_nope, k_rope[:, :, None].expand(
+                b, t, c.n_heads, c.qk_rope_dim)], dim=-1)
+            q = torch.cat([q_nope, q_rope], dim=-1)
+            if t >= 2048:
+                y = chunked_sdpa(q, k, v)
+            else:
+                y = sdpa(q, k, v, causal_mask(positions, positions))
+        else:
+            # absorbed decode path: attention in the latent space
+            pos = cache["pos"]
+            _write_at(cache["ckv"], ckv, pos)
+            _write_at(cache["kr"], k_rope, pos)
+            new_cache = {"ckv": cache["ckv"], "kr": cache["kr"],
+                         "pos": pos + t}
+            ckv_all = cache["ckv"].to(x.dtype)
+            kr_all = cache["kr"].to(x.dtype)
+            w_uk = self.w_uk.reshape(c.kv_lora_rank, c.n_heads, c.qk_nope_dim)
+            q_lat = torch.einsum("bthn,rhn->bthr", q_nope, w_uk)
+            scale = 1.0 / math.sqrt(c.qk_nope_dim + c.qk_rope_dim)
+            scores = (torch.einsum("bthr,bsr->bhts", q_lat, ckv_all)
+                      + torch.einsum("bthn,bsn->bhts", q_rope, kr_all))
+            kpos = torch.arange(ckv_all.shape[1], device=x.device)
+            end = new_cache["pos"]
+            end = end[:, None, None, None] if end.dim() else end
+            mask = (kpos < end) & (kpos <= positions[:, None, :, None])
+            scores = torch.where(mask, scores * scale, NEG_INF)
+            p_att = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+            o_lat = torch.einsum("bhts,bsr->bthr", p_att, ckv_all)
+            w_uv = self.w_uv.reshape(c.kv_lora_rank, c.n_heads, c.v_head_dim)
+            y = torch.einsum("bthr,rhv->bthv", o_lat, w_uv)
+        return y.reshape(b, t, -1) @ self.wo, new_cache

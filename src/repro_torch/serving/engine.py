@@ -141,12 +141,12 @@ def _bump_pos(cache):
 
 
 def write_lane(lanes: Dict, lane: int, one: Dict) -> None:
-    """Splice the stacked batch-1 cache ``one`` (``k`` (L, 1, S, ...),
+    """Splice the stacked batch-1 cache ``one`` (each tensor (L, 1, S, ...),
     ``pos`` (L,)) into lane ``lane`` of the stacked lane caches ``lanes``
-    (``k`` (L, B, S, ...), ``pos`` (L, B)), in place."""
-    lanes["k"][:, lane] = one["k"][:, 0]
-    lanes["v"][:, lane] = one["v"][:, 0]
-    lanes["pos"][:, lane] = one["pos"]
+    (each tensor (L, B, S, ...), ``pos`` (L, B)), in place: KV caches
+    (``k``, ``v``) and MLA's latent caches (``ckv``, ``kr``) alike."""
+    for key, t in one.items():
+        lanes[key][:, lane] = t if key == "pos" else t[:, 0]
 
 
 class SlotDecoder:
@@ -159,7 +159,9 @@ class SlotDecoder:
     batching), while :meth:`prefill` replaces a single lane's cache
     wholesale with a freshly prefilled one, so no token of an evicted
     request can leak into its successor.  ``model``: a ``DecoderLM`` (its
-    caches take lanes).
+    caches take lanes; every stack's cache is written, and a MoE block
+    routes each lane as its own group, as the reference's ``vmap`` over
+    batch-1 lanes does).
     """
 
     def __init__(self, model, n_slots: int, max_seq: int,
@@ -181,13 +183,15 @@ class SlotDecoder:
         toks = torch.as_tensor(np.asarray(prompt, np.int64),
                                device=self.model.device)[None]
         logits, new = self.model.decode_step(fresh, {"tokens": toks})
-        write_lane(self.caches["dense"], slot, new["dense"])
+        for name, one in new.items():
+            write_lane(self.caches[name], slot, one)
         return logits[0, -1].cpu().numpy()
 
     def free(self, slot: int) -> None:
         """Reset a lane to the idle sentinel (eviction hygiene — admission
         via :meth:`prefill` overwrites the lane anyway)."""
-        write_lane(self.caches["dense"], slot, self._idle["dense"])
+        for name, one in self._idle.items():
+            write_lane(self.caches[name], slot, one)
 
     @torch.no_grad()
     def decode(self, tokens: np.ndarray) -> np.ndarray:

@@ -6,15 +6,14 @@ the bytes of the activation crossing each link are counted.
 (the stage's weights fake-quantized to its bit width) and quantizes the
 activation crossing each link to the producer's width: the measured-
 accuracy oracle of the explorer (``quantize.evaluate``).
-:class:`PartitionedLMRunner` splits a decoder LM (float32 stages).
+:class:`PartitionedLMRunner` splits a decoder LM the same way, each
+stage's weights calibrated over the stage's stacked layers, as the
+reference calibrates them.
 
 On one device the stages run in turn; the throughput model (Def. 4) comes
 from per-stage timings.  With quantization off the partitioned output
 equals the monolithic model's.  The serve runtime (``repro_torch.serve``)
 drives each LM stage on its own through ``stage_step_fn``.
-
-Not ported yet: quantized LM stages (the reference calibrates each weight
-over the stage's stacked layers; ``ROADMAP.md`` B7).
 """
 
 from __future__ import annotations
@@ -27,9 +26,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.func import functional_call
 
-from repro_torch.core.quant import QuantSpec, quantize_pytree, quantize_tensor
 import torch.nn.functional as F
 
+from repro_torch.core.quant import (QuantSpec, quantize_leaf,
+                                    quantize_pytree, quantize_tensor)
+from repro_torch.models.convert import reference_leaves
 from repro_torch.models.decoder import (run_blocks, stacked_caches,
                                         step_positions)
 from repro_torch.nn.layers import rms_norm
@@ -135,25 +136,79 @@ class PartitionedCNNRunner:
         return x, StageReport(lat, link_bytes)
 
 
+class QuantizedBlock:
+    """A block run on other parameters (``torch.func.functional_call``):
+    called as the block is, so ``run_blocks`` takes it in the block's
+    place."""
+
+    def __init__(self, block: torch.nn.Module, params: Dict[str, torch.Tensor]):
+        self.block, self.params = block, params
+
+    def __call__(self, x, **kw):
+        return functional_call(self.block, self.params, (x,), kw)
+
+
+def quantized_blocks(model, a: int, b: int, spec: QuantSpec
+                     ) -> List[QuantizedBlock]:
+    """Blocks ``a:b`` of ``model`` on fake-quantized copies of their
+    parameters, calibrated as the reference calibrates a stage: every
+    stacked leaf (``models.convert.reference_leaves``) sliced to the
+    stage's layers and quantized whole, so a per-tensor range spans all of
+    them, and the stacked norm scales, now (L, d), are quantized too."""
+    params: List[Dict[str, torch.Tensor]] = [{} for _ in range(b - a)]
+    for key, leaf in reference_leaves(model).items():
+        if not key.startswith("blocks_dense/"):
+            continue
+        name = key.partition("/")[2].replace("/", ".")
+        q = quantize_leaf(torch.stack(leaf.params[a:b]), spec)
+        for i, t in enumerate(q.unbind(0)):
+            params[i][name] = t
+    return [QuantizedBlock(blk, p)
+            for blk, p in zip(model.blocks[a:b], params)]
+
+
 class PartitionedLMRunner:
     """Split a ``DecoderLM`` at block boundaries (pipeline stages).
 
     ``cuts=[b]`` puts a stage boundary after block ``b``.  Stage 0 owns the
-    embedding, the last stage owns the final norm and the head; the stages
-    share the model's weights (``blocks[a:b]``, no copies).
+    embedding, the last stage owns the final norm and the head.  A stage
+    without a ``QuantSpec`` shares the model's weights (``blocks[a:b]``, no
+    copies); a stage with one runs on fake-quantized copies of its blocks'
+    parameters (:func:`quantized_blocks`; the model's own weights stay
+    float, the embedding and the head are not quantized, as in the
+    reference).  Those copies are a snapshot of the weights when the runner
+    is built: a model trained or loaded afterwards changes its float
+    stages only, so build a new runner after it.  With ``link_quant`` the
+    activation leaving a quantized
+    stage is fake-quantized to its width (per tensor), as it would cross
+    the link.  The reference's runner takes the dense, vlm and audio
+    families; the port's carries the dense one, and a moe model raises as
+    there.
     """
 
     def __init__(self, model, cuts: Sequence[int],
-                 quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None):
-        if quant_specs is not None and any(s is not None for s in quant_specs):
-            raise NotImplementedError(
-                "quantized LM stages (weights calibrated over the stage's "
-                "stacked layers) come with ROADMAP.md B7")
-        self.model = model
+                 quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None,
+                 link_quant: bool = False):
         cfg = model.cfg
+        if cfg.family not in ("dense", "vlm", "audio"):
+            raise ValueError(f"{cfg.arch_id}: the LM pipeline runner "
+                             f"supports homogeneous block stacks, not the "
+                             f"{cfg.family} family")
+        self.model = model
         self.cuts = list(cuts)
         bounds = [0] + [c + 1 for c in self.cuts] + [cfg.n_layers]
         self.ranges = list(zip(bounds, bounds[1:]))
+        self.quant_specs = (list(quant_specs) if quant_specs
+                            else [None] * self.n_stages)
+        if len(self.quant_specs) != self.n_stages:
+            raise ValueError(f"{len(self.quant_specs)} quant specs for "
+                             f"{self.n_stages} stages")
+        self.link_quant = link_quant
+        with torch.no_grad():
+            self._blocks = [
+                model.blocks[a:b] if spec is None
+                else quantized_blocks(model, a, b, spec)
+                for (a, b), spec in zip(self.ranges, self.quant_specs)]
 
     @property
     def n_stages(self) -> int:
@@ -163,28 +218,32 @@ class PartitionedLMRunner:
     def forward(self, batch) -> Tuple[torch.Tensor, StageReport]:
         """Logits of ``batch`` through the stages in turn, with each
         stage's wall time (embedding in stage 0, head in none: as the
-        reference times it) and the bytes each link carries."""
+        reference times it) and the bytes each link carries at the
+        producing stage's width."""
         m = self.model
         dev = m.device
         lat, link_bytes = [], []
         t0 = time.perf_counter()
         x, positions = m.embed_tokens(batch)
-        for si, (a, b) in enumerate(self.ranges):
-            x, _ = run_blocks(m.blocks[a:b], x, positions)
+        for si, blocks in enumerate(self._blocks):
+            x, _, _ = run_blocks(blocks, x, positions)
             sync(dev)
             lat.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
             if si < self.n_stages - 1:
-                link_bytes.append(link_transfer_bytes(x.numel(), None))
+                spec = self.quant_specs[si]
+                link_bytes.append(link_transfer_bytes(x.numel(), spec))
+                if self.link_quant and spec is not None:
+                    x = quantize_tensor(x, spec)    # fake-quant over the link
         return m.head_logits(x), StageReport(lat, link_bytes)
 
     def stage_weights(self, si: int) -> Dict:
-        """What stage ``si`` owns: its block slice, plus the embedding on
-        stage 0 and the final norm + head on the last stage (the embedding
-        again when tied)."""
-        a, b = self.ranges[si]
+        """What stage ``si`` owns: its blocks (on their fake-quantized
+        parameters when the stage has a ``QuantSpec``), plus the embedding
+        on stage 0 and the final norm + head on the last stage (the
+        embedding again when tied)."""
         m, cfg = self.model, self.model.cfg
-        w = {"blocks": m.blocks[a:b]}
+        w = {"blocks": self._blocks[si]}
         last = si == self.n_stages - 1
         if si == 0 or (last and cfg.tied_embeddings):
             w["embed"] = m.embed
@@ -235,8 +294,8 @@ class PartitionedLMRunner:
                 x = F.embedding(x, weights["embed"])
             bsz, t, _ = x.shape
             positions = step_positions(caches["pos"][0], bsz, t, x.device)
-            x, new_caches = run_blocks(weights["blocks"], x, positions,
-                                       caches=caches)
+            x, new_caches, _ = run_blocks(weights["blocks"], x, positions,
+                                          caches=caches)
             if last:
                 x = rms_norm(x, weights["final_norm"])
                 x = x @ (weights["embed"].T if tied else weights["head"])

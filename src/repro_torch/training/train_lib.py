@@ -104,8 +104,8 @@ def make_train_step(model, cfg: ModelConfig, optimizer: Optimizer,
     dev = model.device
 
     def loss_fn(batch):
-        logits = model(batch, impl=impl, train=True)
-        return lm_loss(cfg, logits, batch, {})
+        logits, aux = model.forward_aux(batch, impl=impl, train=True)
+        return lm_loss(cfg, logits, batch, aux)
 
     def compute_grads(batch):
         if grad_accum <= 1:

@@ -3,8 +3,9 @@ nothing in ``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` or
 ``tools/cuda_host_shim/rehearse.py`` imports JAX or the JAX package
 ``repro``, and a CPU search, an LM generation, an SSM forward and
 generation, a CNN's measured accuracy, an online re-partition, a
-two-cell campaign, a served burst, a train step and a checkpoint run in a
-process where JAX cannot be imported at all."""
+two-cell campaign, a served burst, a train step, a checkpoint, a
+DeepSeek-V3 (MoE, MLA, MTP) train step and generation and the deprecated
+``Explorer`` run in a process where JAX cannot be imported at all."""
 
 import ast
 import os
@@ -145,6 +146,22 @@ def test_cpu_search_runs_with_jax_blocked():
         with tempfile.TemporaryDirectory() as tmp:
             save(tmp, {"params": reference_params(model), "opt": state}, 1)
             assert restore(tmp, {"opt": state})["opt"]["step"] == 1
+        v3 = build_model(get_config("deepseek-v3-671b").reduced(),
+                         device="cpu")
+        opt = adamw(1e-3)
+        _, m = make_train_step(v3, v3.cfg, opt)(
+            opt.init(init_params(v3)), make_batch_for(v3.cfg, 2, 8))
+        assert {"lb_loss", "mtp"} <= set(m) and np.isfinite(float(m["loss"]))
+        gen = GenerationEngine(v3, max_seq=16).generate(
+            np.zeros((2, 4), np.int64), max_new=2)
+        assert gen.tokens.shape == (2, 2)
+        import warnings
+        from repro_torch.core import Explorer
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            ex = Explorer(small.model.build()[0], small.system.build(),
+                          device="cpu")
+        assert ex.run(seed=0).pareto
         leaked = sorted(m for m in sys.modules
                         if m == "repro" or m.startswith("repro."))
         assert not leaked, leaked

@@ -5,7 +5,9 @@ block leaves stacked again, Dense weights transposed back) loads in
 ``repro.checkpoint.restore``, and one the reference writes loads in the
 port through ``load_reference_params``, with the forwards equal within the
 LM tests' 2e-5 on logits of magnitude ~1.5 (float32, summed in other
-orders by XLA and by torch)."""
+orders by XLA and by torch), for the dense, ssm, hybrid and moe families
+(a moe model's two stacks and DeepSeek-V3's MTP stack); a ``None`` leaf is
+an empty subtree in both packages."""
 
 import dataclasses
 
@@ -33,7 +35,8 @@ from repro_torch.training import train_lib as ttl  # noqa: E402
 torch.set_num_threads(2)
 
 ATOL = 2e-5
-ARCHS = ("smollm-360m", "mamba2-370m", "zamba2-2.7b")
+ARCHS = ("smollm-360m", "mamba2-370m", "zamba2-2.7b", "deepseek-moe-16b",
+         "deepseek-v3-671b")
 
 
 def flat_params(tree):
@@ -105,6 +108,25 @@ def test_round_trip_is_bit_exact(tmp_path):
                                   back["params"].items()})
     for (n, a), (_, b) in zip(tm.named_parameters(), fresh.named_parameters()):
         assert torch.equal(a, b), n
+
+
+def test_none_leaf_round_trips_and_crosses(tmp_path):
+    """A ``None`` is an empty subtree, as in the reference's
+    ``tree_flatten_with_path``: nothing is written for it, and restore gives
+    ``None`` back, in the port and in the reference alike."""
+    tree = {"s": torch.ones(3), "n": None}
+    f = tckpt.save(str(tmp_path), tree, step=1)
+    with np.load(f) as data:
+        assert data.files == ["s"]
+    back = tckpt.restore(str(tmp_path), tree, step=1)
+    assert back["n"] is None and torch.equal(back["s"], tree["s"])
+    jback = jckpt.restore(str(tmp_path), {"s": jnp.zeros(3), "n": None},
+                          step=1)
+    assert jback["n"] is None
+    np.testing.assert_array_equal(np.asarray(jback["s"]), np.ones(3))
+    jckpt.save(str(tmp_path), {"s": jnp.full((3,), 2.0), "n": None}, step=2)
+    back = tckpt.restore(str(tmp_path), tree, step=2)
+    assert back["n"] is None and torch.equal(back["s"], torch.full((3,), 2.0))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -497,3 +497,94 @@ def test_train_step_on_card_matches_cpu(cuda_device, remat):
     for (n, a), (_, b) in zip(cpu.named_parameters(),
                               card.named_parameters()):
         assert float((a - b.cpu()).abs().max()) <= 1e-5, n
+
+
+# -- MoE and MLA (deepseek-moe-16b, deepseek-v3-671b) ------------------------------
+
+def _moe_input(model, batch):
+    """The first MoE block's FFN input, captured by a forward hook."""
+    got = {}
+    moe = model.blocks[model.n_dense].moe
+
+    def keep(mod, args, out):
+        got["h"] = args[0].detach()
+    handle = moe.register_forward_hook(keep)
+    try:
+        with torch.no_grad():
+            model(batch)
+    finally:
+        handle.remove()
+    return moe, got["h"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_moe_model_on_card_matches_cpu(cuda_device, arch):
+    """The reduced model on the card against the same weights on the CPU:
+    the router's top-k indices equal wherever the k-th and (k+1)-th scores
+    are more than 1e-5 apart (a nearer tie may order the other way in
+    float32 sums of other orders), the logits, ``mtp_logits`` and aux
+    within 2e-5, and one SGD step's loss within 1e-5 relative and
+    parameters within 1e-5."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.optim import sgd
+    from repro_torch.training import init_params, make_train_step
+
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, device="cpu")
+    card = build_model(cfg, device="meta")
+    card.to_empty(device=cuda_device)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch_for(cfg, 4, 32, seed=0)
+    tok = {"tokens": batch["tokens"]}
+    (m_cpu, h_cpu), (m_card, h_card) = (_moe_input(m, tok)
+                                        for m in (cpu, card))
+    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=2e-5, atol=2e-5)
+    with torch.no_grad():
+        _, s_cpu, _, i_cpu = m_cpu.route(h_cpu)
+        _, _, _, i_card = m_card.route(h_cpu.to(cuda_device))
+    top = torch.topk(s_cpu, cfg.top_k + 1, dim=-1).values
+    clear = (top[..., -2] - top[..., -1]) > 1e-5
+    assert bool(clear.float().mean() > 0.9)
+    assert torch.equal(i_card.cpu()[clear], i_cpu[clear])
+    with torch.no_grad():
+        got = card.forward_aux(tok, train=True)
+        want = cpu.forward_aux(tok, train=True)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=2e-5, atol=2e-5)
+    assert set(got[1]) == set(want[1])
+    for key in want[1]:
+        torch.testing.assert_close(got[1][key].cpu(), want[1][key],
+                                   rtol=2e-5, atol=2e-5)
+    losses = []
+    for m in (cpu, card):
+        opt = sgd(0.1, momentum=0.0)
+        step = make_train_step(m, cfg, opt, clip_norm=None)
+        _, metrics = step(opt.init(init_params(m)), batch)
+        losses.append(float(metrics["loss"]))
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0]), losses
+    for (n, a), (_, b) in zip(cpu.named_parameters(),
+                              card.named_parameters()):
+        assert float((a - b.cpu()).abs().max()) <= 1e-5, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_moe_decode_on_card_matches_forward(cuda_device, arch):
+    """``GenerationEngine``'s first-step logits (the cache path: MLA's
+    absorbed decode for deepseek-v3-671b) against the forward on the card
+    within 2e-5, and ``SlotDecoder``'s lane prefill against the same."""
+    from repro_torch.serving import GenerationEngine
+    from repro_torch.serving.engine import SlotDecoder
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device=cuda_device)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (3, 12))
+    first, _ = GenerationEngine(model, max_seq=24).prefill(prompts)
+    with torch.no_grad():
+        want = model({"tokens": torch.from_numpy(prompts).to(cuda_device)})
+    torch.testing.assert_close(first, want[:, -1], rtol=2e-5, atol=2e-5)
+    sd = SlotDecoder(model, n_slots=3, max_seq=24)
+    for slot in (2, 0):
+        got = sd.prefill(slot, prompts[slot])
+        np.testing.assert_allclose(got, want[slot, -1].cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    assert sd.decode(np.zeros(3, np.int32)).shape == (3, cfg.vocab)

@@ -127,12 +127,25 @@ def test_registry_model_ref_builds_graph():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("deepseek-v3-671b", "C7"), ("deepseek-moe-16b", "C8"),
     ("musicgen-large", "C9"), ("qwen2-vl-7b", "C10")])
 def test_build_model_raises_for_families_not_carried(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         registry.build_model(registry.get_config(arch).reduced(),
                              device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
+def test_build_model_builds_moe_families(arch):
+    cfg = registry.get_config(arch).reduced()
+    model = registry.build_model(cfg, device="cpu")
+    assert isinstance(model, DecoderLM) and model.device.type == "cpu"
+    assert (model.n_dense, model.n_moe) == (1, 1)
+    assert [b.kind for b in model.blocks] == ["dense", "moe"]
+    jparams, _ = jreg.build_model(jreg.get_config(arch).reduced()).init(
+        jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        v.size for v in jax.tree_util.tree_leaves(jparams))
+    assert hasattr(model, "mtp_block") == bool(cfg.mtp)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
@@ -181,8 +194,18 @@ def test_convert_rejects_mismatched_parameters(lm):
     with pytest.raises(ValueError, match="leading axis"):
         load_reference_params(tm, dict(
             flat, **{"blocks_dense/ln1": flat["blocks_dense/ln1"][:1]}))
-    with pytest.raises(NotImplementedError, match="dense"):
+    with pytest.raises(NotImplementedError,
+                       match="not a parameter of a dense model"):
         load_reference_params(tm, dict(flat, **{"blocks_moe/x": flat["embed"]}))
+    # a moe model's second stack loads
+    jcfg = jreg.get_config("deepseek-moe-16b").reduced()
+    jflat = flat_params(jreg.build_model(jcfg).init(jax.random.PRNGKey(1))[0])
+    assert any(k.startswith("blocks_moe/") for k in jflat)
+    moe = registry.build_model(registry.get_config(
+        "deepseek-moe-16b").reduced(), device="cpu")
+    load_reference_params(moe, jflat)
+    assert torch.equal(moe.blocks[1].moe.router,
+                       torch.from_numpy(np.array(jflat["blocks_moe/moe/router"][0])))
 
 
 # -- layers ---------------------------------------------------------------------
@@ -279,6 +302,87 @@ def test_partitioned_runner_matches_reference(lm, cuts):
     assert all(t > 0 for t in rep.latency_s) and rep.throughput() > 0
 
 
+# the quantized runner: weights fake-quantized as the reference quantizes
+# them are equal bit for bit (the same min/max over the same stacked leaf,
+# the same rounding), so with float links the logits differ only by
+# summation order (2e-5 of the LM tests).  A link fake-quantized from
+# activations that differ by ~1e-6 can round an element one step (max|x| /
+# 127 at 8 bits) apart, which moves the next stage's logits by up to ~3e-3
+# of their max (measured 2.4e-3 at 8 bits): the bound there is 1e-2 of
+# max|logits|, with 99 % of the top-1 equal; a wrong stage or scale moves
+# them by O(1)
+@pytest.mark.parametrize("cuts,bits,link_quant,per_channel", [
+    ([0], (16, 8), False, False), ([0], (8, 8), True, False),
+    ([0], (4, 8), True, True), ([], (8,), False, True)])
+def test_quantized_runner_matches_reference(lm, cuts, bits, link_quant,
+                                            per_channel):
+    jm, params, tm = lm
+    from repro.core.quant import QuantSpec as JQuantSpec
+    specs = [QuantSpec(b, per_channel=per_channel) for b in bits]
+    jspecs = [JQuantSpec(b, per_channel=per_channel) for b in bits]
+    tok = tokens(512, 2, 64, seed=4)
+    jr = jpipeline.PartitionedLMRunner(jm, params, cuts, jspecs,
+                                       link_quant=link_quant)
+    want, jrep = jr.forward({"tokens": jnp.asarray(tok)})
+    runner = PartitionedLMRunner(tm, cuts, specs, link_quant=link_quant)
+    got, rep = runner.forward({"tokens": torch.from_numpy(tok)})
+    want, got = np.asarray(want), got.numpy()
+    if link_quant and cuts:
+        assert np.abs(got - want).max() <= 1e-2 * np.abs(want).max()
+        assert (got.argmax(-1) == want.argmax(-1)).mean() > 0.99
+    else:
+        close(got, want)
+    assert rep.link_bytes == jrep.link_bytes
+    with torch.no_grad():
+        mono = tm({"tokens": torch.from_numpy(tok)}).numpy()
+    assert np.abs(got - mono).max() > 1e-3 * np.abs(mono).max()
+    # stage weights: the reference's stacked quantized leaves, bit for bit
+    for si in range(runner.n_stages):
+        jw, tw = jr.stage_weights(si), runner.stage_weights(si)
+        assert sorted(jw) == sorted(tw)
+        jb = flat_params(jw["blocks"])
+        for key, want_leaf in jb.items():
+            name = key.replace("/", ".")
+            stacked = torch.stack([b.params[name] for b in tw["blocks"]])
+            np.testing.assert_array_equal(stacked.numpy(), want_leaf,
+                                          err_msg=key)
+    # the model's own weights stay float
+    assert torch.equal(tm.blocks[0].attn.wq, torch.from_numpy(np.array(
+        params["blocks_dense"]["attn"]["wq"][0])))
+
+
+def test_quantized_stage_step_matches_runner(lm):
+    """A prefill through ``stage_step_fn`` over the quantized
+    ``stage_weights`` gives the quantized runner's last-position logits
+    (the serve runtime's path)."""
+    _, _, tm = lm
+    runner = PartitionedLMRunner(tm, [0], [QuantSpec(8), QuantSpec(4)])
+    tok = tokens(512, 2, 20, seed=5)
+    want, _ = runner.forward({"tokens": torch.from_numpy(tok)})
+    x = torch.from_numpy(tok).long()
+    for si in range(runner.n_stages):
+        caches = runner.init_stage_caches(si, 2, 32)
+        x, caches = runner.stage_step_fn(si)(runner.stage_weights(si),
+                                             caches, x)
+        assert int(caches["pos"][0]) == 20
+    close(x[:, -1].numpy(), want[:, -1].numpy())
+
+
+def test_runner_rejects_moe_and_a_wrong_number_of_specs(lm):
+    """The reference's runner takes homogeneous stacks (dense, vlm, audio):
+    a moe model raises, as its assertion does."""
+    _, _, tm = lm
+    with pytest.raises(ValueError, match="3 quant specs for 2 stages"):
+        PartitionedLMRunner(tm, [0], [QuantSpec(8)] * 3)
+    moe = registry.build_model(registry.get_config(
+        "deepseek-moe-16b").reduced(), device="cpu")
+    with pytest.raises(ValueError, match="moe"):
+        PartitionedLMRunner(moe, [0], [QuantSpec(8), None])
+    jm = jreg.build_model(jreg.get_config("deepseek-moe-16b").reduced())
+    with pytest.raises(AssertionError):
+        jpipeline.PartitionedLMRunner(jm, {}, [0])
+
+
 def test_partitioned_runner_stage_pieces(lm):
     _, _, tm = lm
     runner = PartitionedLMRunner(tm, [0])
@@ -289,8 +393,11 @@ def test_partitioned_runner_stage_pieces(lm):
     c = runner.init_stage_caches(1, batch=3, capacity=512)
     assert c["k"].shape == (1, 3, 128, 2, 64)          # capped at the window
     assert c["k"].dtype == torch.float32 and int(c["pos"].sum()) == 0
-    with pytest.raises(NotImplementedError, match="B7"):
-        PartitionedLMRunner(tm, [0], quant_specs=[QuantSpec(8), None])
+    q = PartitionedLMRunner(tm, [0], quant_specs=[QuantSpec(8), None])
+    qb = q.stage_weights(0)["blocks"]
+    assert len(qb) == 1 and qb[0].block is tm.blocks[0]
+    assert not torch.equal(qb[0].params["attn.wq"], tm.blocks[0].attn.wq)
+    assert q.stage_weights(1)["blocks"][0] is tm.blocks[1]
 
 
 def test_generation_matches_reference(lm):

@@ -12,7 +12,8 @@ the reference's (exact), ``SlotDecoder`` and ``stage_step_fn`` against the
 reference's within ``ATOL`` (float32 logits of magnitude ~1.5, summed in
 other orders by XLA and by torch: ``tests/test_torch_lm.py``'s 2e-5), and
 the served greedy tokens against the reference's engine and both
-packages' ``GenerationEngine`` (exact)."""
+packages' ``GenerationEngine`` (exact), also with quantized stages and a
+quantizing link."""
 
 import dataclasses
 import threading
@@ -581,6 +582,41 @@ def test_served_tokens_equal_reference_and_both_engines(pair, runner):
         e.warmup(prompt_len=6)
         rep = e.run(stream_of(_burst(reqs)))
         assert {r.rid: r.tokens for r in rep.records} == want, mode
+
+
+def test_quantized_stages_served_equal_reference(pair):
+    """Stages on their fake-quantized weights (``stage_weights`` of a
+    quantized runner: 8 and 4 bits, calibrated over each stage's stacked
+    layers) and a link that quantizes to the producer's 8 bits, served
+    serially and async: the reference engine's greedy tokens on the same
+    burst."""
+    from repro.core.quant import QuantSpec as JQuantSpec
+    from repro.serve import ServeLink as JServeLink
+    from repro_torch.core.quant import QuantSpec
+    jm, params, tm = pair
+    reqs = poisson_traffic(4, rate_rps=1000.0, vocab=512, prompt_len=6,
+                           max_new=5, seed=4)
+    jr = jpipeline.PartitionedLMRunner(jm, params, cuts=[0], quant_specs=[
+        JQuantSpec(8), JQuantSpec(4)])
+    jeng = JPipelineServeEngine(jr, n_slots=4, eos=None, mode="serial",
+                                capacity=32,
+                                links=[JServeLink(quant=JQuantSpec(8))])
+    jeng.warmup(prompt_len=6)
+    want = {r.rid: r.tokens for r in jeng.run(jstream_of(_burst(reqs)))
+            .records}
+    tr = PartitionedLMRunner(tm, cuts=[0], quant_specs=[QuantSpec(8),
+                                                        QuantSpec(4)])
+    float_tokens = {r.rid: r.tokens for r in PipelineServeEngine(
+        PartitionedLMRunner(tm, cuts=[0]), n_slots=4, eos=None,
+        mode="serial", capacity=32).run(stream_of(_burst(reqs))).records}
+    for mode in ("serial", "async"):
+        e = PipelineServeEngine(tr, n_slots=4, eos=None, mode=mode,
+                                capacity=32,
+                                links=[ServeLink(quant=QuantSpec(8))])
+        e.warmup(prompt_len=6)
+        rep = e.run(stream_of(_burst(reqs)))
+        assert {r.rid: r.tokens for r in rep.records} == want, mode
+    assert want != float_tokens            # the quantization did something
 
 
 def test_temperature_sampling_matches_reference(pair, runner):

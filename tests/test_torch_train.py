@@ -2,7 +2,7 @@
 weights (the reference's pytree carried over by ``repro_torch.models.convert``)
 and the same numpy batches: ``cross_entropy`` and ``lm_loss``'s branches,
 one SGD step and a 3-step AdamW loss trajectory of reduced smollm-360m and
-mamba2-370m, gradient accumulation, remat, BatchNorm in training mode, the
+mamba2-370m, one SGD step of the hybrid zamba2-2.7b, gradient accumulation, remat, BatchNorm in training mode, the
 classifier train step of three reduced CNNs, QAT, the ``cnn_fakequant``
 oracle and both launchers in-process (the serve path recording no autograd
 graph after its warm training).  The classifier train steps of the reduced
@@ -102,8 +102,10 @@ def test_cross_entropy_masks_ignored_labels():
     ("dense", ()), ("moe", ("lb_loss",)), ("dense", ("mtp_logits",)),
     ("moe", ("lb_loss", "mtp_logits")), ("audio", ())])
 def test_lm_loss_branches(family, aux_keys):
-    """The balance/z-loss and MTP terms on a synthetic ``aux`` (no port
-    family produces them yet), and the audio family's (B, K, T) labels."""
+    """The balance/z-loss and MTP terms on a synthetic ``aux`` (the moe
+    models' own are held in ``tests/test_torch_moe.py`` and
+    ``tests/test_torch_mla.py``), and the audio family's (B, K, T)
+    labels."""
     rng = np.random.default_rng(1)
     b, t, v, k = 2, 6, 13, 3
     shape = (b, t, k, v) if family == "audio" else (b, t, v)
@@ -190,6 +192,27 @@ def test_one_sgd_step_matches_reference(arch, remat):
                   clip_norm=None)
     np.testing.assert_allclose(tl, jl, rtol=LOSS_REL)
     params_close(tm, jp, PARAM_TOL)
+
+
+def test_hybrid_sgd_step_matches_reference():
+    """The hybrid (reduced zamba2-2.7b: six Mamba2 blocks and the shared
+    attention block) on the reference's weights: one SGD step gives the
+    reference's loss and every leaf within 1.3e-7, as measured when the
+    port's hybrid training was first held to the reference."""
+    arch = "zamba2-2.7b"
+    cfg = lm(arch)[1]
+    batches = [make_batch_for(cfg, 4, 32, seed=0)]
+    jp, jl = run_ref(arch, jopt.sgd(0.1, momentum=0.0), batches,
+                     clip_norm=None)
+    tm, tcfg = port_lm(arch)
+    tl = run_port(tm, tcfg, topt.sgd(0.1, momentum=0.0), batches,
+                  clip_norm=None)
+    assert tl == jl
+    got, want = reference_params(tm), flat_params(jp)
+    assert set(got) == set(want) and len(want) == 21
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=0,
+                                   atol=1.3e-7, err_msg=k)
 
 
 def test_adamw_loss_trajectory_matches_reference():
