@@ -29,7 +29,13 @@ only deepseek-moe-16b at full width and depth (``chip_smoke.py`` phase
 16): the forward of 2 x 2048 tokens and the generation of 16 tokens for
 8 prompts of 128 under the profiler, with the shares of the matrix
 products, the dispatch's indexing, the routing and the elementwise
-passes.
+passes.  ``--families`` only the audio and vlm families at full size
+(``chip_smoke.py`` phase 17): qwen2-vl-7b's forward of 2 x (256 patches +
+7936 tokens) through the window kernel and its generation of 32 tokens
+for 8 text prompts of 128, then musicgen-large's forward of 4 clips of
+1500 frames and 20 greedy frames for 8 prompts of 250 through
+``decode_step``, each under the profiler with the window kernel's and the
+matrix products' shares.
 ``--cold`` instead runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
 timers on the phase-3 search (the first search of the process), then the
 same search again warm.  The search part needs
@@ -221,16 +227,16 @@ def main(argv) -> int:
                    b=chip_smoke.MOE_B, t=chip_smoke.MOE_T,
                    new=chip_smoke.MOE_NEW)
         return 0
+    if "--families" in argv:
+        family_profile(dev)
+        return 0
     res = search_profile(dev)
     if "--serve" in argv:
         serve_profile(dev)
         return 0
     if "--search" in argv:
         return 0
-    lm_profile(dev, chip_smoke.LM_ARCH, groups={
-        "sliding-window attention kernel (window_attn)":
-            lambda k: "window_attn" in k,
-        "matrix products (*gemm*)": lambda k: "gemm" in k.lower()})
+    lm_profile(dev, chip_smoke.LM_ARCH, groups=LM_GROUPS)
     lm_profile(dev, chip_smoke.SSM_ARCH, groups={
         "SSD scan kernel (ssd_*)": lambda k: "ssd_" in k,
         "matrix products (*gemm*)": lambda k: "gemm" in k.lower()},
@@ -293,11 +299,12 @@ def profiled(label, fn, top_n=12, groups=None, each=None):
 
 def lm_profile(dev, arch, groups=None, each=None,
                b=chip_smoke.LM_B, t=chip_smoke.LM_T,
-               new=chip_smoke.GEN_NEW):
-    """The forward of ``b`` x ``t`` tokens and the generation of ``new``
-    tokens for ``chip_smoke.GEN_REQUESTS`` prompts of ``GEN_PROMPT`` by
-    ``arch`` (an LM path of ``chip_smoke.py``) under the profiler;
-    ``groups`` and ``each`` as in :func:`profiled`."""
+               new=chip_smoke.GEN_NEW, batch_fn=None):
+    """The forward of ``b`` x ``t`` tokens (``batch_fn(cfg, rng)``'s batch
+    when given) and the generation of ``new`` tokens for
+    ``chip_smoke.GEN_REQUESTS`` prompts of ``GEN_PROMPT`` by ``arch`` (an
+    LM path of ``chip_smoke.py``) under the profiler; ``groups`` and
+    ``each`` as in :func:`profiled`."""
     import numpy as np
 
     from repro_torch.models.registry import build_model, get_config
@@ -307,8 +314,12 @@ def lm_profile(dev, arch, groups=None, each=None,
     model = build_model(cfg, device=dev, generator=torch.Generator(
         device=dev).manual_seed(chip_smoke.SEED))
     rng = np.random.default_rng(chip_smoke.SEED)
-    batch = {"tokens": torch.from_numpy(rng.integers(
-        0, cfg.vocab, (b, t))).to(dev)}
+    if batch_fn is None:
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (b, t))).to(dev)}
+    else:
+        batch = batch_fn(cfg, rng)
+        t = batch["positions3"].shape[-1]
     prompts = rng.integers(0, cfg.vocab, (chip_smoke.GEN_REQUESTS,
                                           chip_smoke.GEN_PROMPT))
     engine = GenerationEngine(model, max_seq=chip_smoke.GEN_PROMPT + new)
@@ -330,6 +341,60 @@ def lm_profile(dev, arch, groups=None, each=None,
     profiled(f"{arch} generation {chip_smoke.GEN_REQUESTS} x "
              f"{chip_smoke.GEN_PROMPT} + {new}", generate, groups=groups)
 
+
+
+LM_GROUPS = {
+    "sliding-window attention kernel (window_attn)":
+        lambda k: "window_attn" in k,
+    "matrix products (*gemm*)": lambda k: "gemm" in k.lower()}
+
+
+def family_profile(dev, audio_new=20):
+    """qwen2-vl-7b's forward (K5 in every block) and generation, then
+    musicgen-large's forward and ``audio_new`` greedy frames through
+    ``decode_step``, at ``chip_smoke.py`` phase 17's inputs, each model
+    freed before the next."""
+    import numpy as np
+
+    from repro_torch.models.registry import build_model, get_config
+
+    lm_profile(dev, chip_smoke.VLM_ARCH, groups=LM_GROUPS,
+               b=chip_smoke.VLM_B, batch_fn=lambda cfg, rng: chip_smoke
+               .vlm_batch(cfg, chip_smoke.VLM_B,
+                          chip_smoke.VLM_T - cfg.n_patches, rng, dev))
+    torch.cuda.empty_cache()
+    cfg = get_config(chip_smoke.AUDIO_ARCH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(chip_smoke.SEED))
+    rng = np.random.default_rng(chip_smoke.SEED)
+    codes = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        chip_smoke.AUDIO_B, cfg.n_codebooks, chip_smoke.AUDIO_T))).to(dev)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        chip_smoke.AUDIO_REQUESTS, cfg.n_codebooks,
+        chip_smoke.AUDIO_PROMPT))).to(dev)
+
+    @torch.no_grad()
+    def forward():
+        model({"codes": codes})
+
+    @torch.no_grad()
+    def decode(n=audio_new):
+        caches = model.init_caches(chip_smoke.AUDIO_REQUESTS,
+                                   chip_smoke.AUDIO_PROMPT + n,
+                                   torch.float32)
+        logits, caches = model.decode_step(caches, {"codes": prompts})
+        for _ in range(n):
+            nxt = logits[:, -1].argmax(-1)[:, :, None]
+            logits, caches = model.decode_step(caches, {"codes": nxt})
+
+    forward()
+    decode(2)
+    torch.cuda.synchronize()
+    profiled(f"{chip_smoke.AUDIO_ARCH} forward {chip_smoke.AUDIO_B} x "
+             f"{chip_smoke.AUDIO_T} frames", forward, groups=LM_GROUPS)
+    profiled(f"{chip_smoke.AUDIO_ARCH} prefill {chip_smoke.AUDIO_REQUESTS} "
+             f"x {chip_smoke.AUDIO_PROMPT} + {audio_new} frames decoded",
+             decode, groups=LM_GROUPS)
 
 
 def serve_profile(dev):

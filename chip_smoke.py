@@ -22,12 +22,15 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    kernel's launch count set to 0 just before and read just after; checks
    the front against the exact NumPy evaluator;
 4. holds the sliding-window attention kernel against its plain version on
-   the card at ragged sizes and at the LM path's shape (smollm-360m, 2
-   prompts of 8192 tokens, window 4096), and times kernel, plain version,
-   bound and ``scaled_dot_product_attention`` (the library yardstick,
-   called here only); the bound counts the 3xTF32 products at the TF32
-   tensor-core peak, with the float32 CUDA-core bound beside it, and the
-   kernel's tensor-core (HMMA) instructions are counted in its SASS;
+   the card at ragged sizes (head dims 32, 64, 128 and 160; groups 1, 3
+   and 7) and at the two LM shapes that take it (smollm-360m: 2 prompts of
+   8192 tokens, 15 heads over 5 of dim 64, window 4096; qwen2-vl-7b: 2 x
+   8192 positions, 28 heads over 4 of dim 128, window 4096), and times
+   kernel, plain version, bound and ``scaled_dot_product_attention`` (the
+   library yardstick, called here only) at each; the bound counts the
+   3xTF32 products at the TF32 tensor-core peak, with the float32
+   CUDA-core bound beside it, and the kernel's tensor-core (HMMA)
+   instructions are counted in its SASS;
 5. drives the LM inference path once at full width, with every launch
    count set to 0 just before and read just after: the explorer picks the
    cut of smollm-360m (8192 tokens) between two platforms (``torch_nsga2``,
@@ -161,10 +164,29 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     decompressed MLA), and ``GenerationEngine``'s first-step logits for 8
     requests, through the absorbed MLA decode, agree with the
     decompressed forward; its latent cache's bytes a token are printed
-    against a GQA cache's.
+    against a GQA cache's;
+17. drives the audio and vlm families once at full width, each part with
+    every launch count set to 0 just before and read just after (K5 28
+    times in qwen2-vl-7b's forward through the kernel, 0 elsewhere; K1 and
+    K2 in the two searches; K3 and K4 never), each model freed before the
+    next: qwen2-vl-7b at its published size (7.63 B parameters) has its
+    cut searched between two platforms, forwards 2 x (256 seeded patch
+    embeddings at Qwen2-VL's 16 x 16 grid positions + 7936 tokens) through
+    the window kernel in agreement with ``chunked_sdpa``, answers 8 text
+    requests whose first-step logits agree with the forward, and runs the
+    partitioned runner with vision equal to the monolithic forward and at
+    its platforms' 16 and 8 bits within phase 9's gates; at full width and
+    depth 2 one SGD step agrees between card and CPU and four microbatches
+    with one; musicgen-large at its published size (3.25 B parameters)
+    has its cut searched, forwards 4 clips of 1500 frames (logits (B, T,
+    4, 2048)), runs the runner equal to the monolithic forward, decodes 8
+    requests of 250 + 100 frames greedily through ``decode_step`` (its
+    first step agreeing with the forward), lowers its loss in 3 AdamW
+    steps at depth 24 (peak memory printed) and agrees between card and
+    CPU for one SGD step at depth 2.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 16),
+card's name and power limit (also beside every time of phases 6 to 17),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -215,6 +237,11 @@ LM_ARCH, LM_B, LM_T, LM_GEN = "smollm-360m", 2, 8192, 5
 LM_MEM = 2 ** 30
 GEN_REQUESTS, GEN_PROMPT, GEN_NEW = 8, 128, 32
 WA_RAGGED_T, WA_RAGGED_W = (1, 100, 128, 1000), (1, 64, 100, None)
+# (query heads, KV heads): groups 1 and 3 (smollm-360m's), and 7
+# (qwen2-vl-7b's 28 over 4) at one and two KV heads; every head dim the
+# kernel is built for, 128 being qwen2-vl-7b's
+WA_RAGGED_HEADS = ((2, 2), (6, 2), (7, 1), (14, 2))
+WA_RAGGED_HD = (32, 64, 128, 160)
 # window_attn against its plain version: float32 both, summed in another
 # order (an online softmax over 64-key tiles against one softmax per row).
 # 2e-5 is the reference's own tolerance (t <= 512); at t = 8192 a row sums
@@ -364,6 +391,44 @@ MOE_ACCUM_TOL, MOE_ACCUM_LOSS, MOE_ADAMW_LR = 0.15, 1.5, 3e-4
 # its logits, which it feeds, are not gated.  At least half the rows must
 # be gated
 TIE_TOL = 1e-5
+
+# phase 17: the audio and vlm families at full width.  qwen2-vl-7b at its
+# published size (28 layers, d 3584, 28 query heads over 4 KV heads of dim
+# 128, window 4096, vocab 152064; 7.63 B parameters, 28.4 GiB): two rows of
+# its 256 patches (n_patches, a 16 x 16 grid) and 7936 text tokens, T =
+# 8192, a multiple of chunked_sdpa's 512-row chunks (otherwise it takes one
+# (T, T) chunk), at Qwen2-VL's grid positions (patches t 0, h row, w col;
+# text from 16 on all three axes).  The forward through K5 (impl "cuda",
+# one launch a block) against chunked_sdpa (impl "ref"): both mask by the
+# row index, and the logits agree within LOGIT_TOL.  8 text requests of
+# GEN_PROMPT + GEN_NEW; the runner at cuts of a search over its graph
+# between lm_spec's two platforms given VLM_MEM each (at phase 5's 1 GiB no
+# cut of the 7.6 B-parameter model fits, Def. 3), over 2 x (256 + 1792)
+# positions with vision, float (PART_TOL) and at the platforms' 16 and 8
+# bits (QUANT_MOVE, QUANT_AGREE).  At full width and depth 2 (28 -> 2
+# layers): one SGD step card against CPU (phase 13's batch and gates), and
+# four microbatches against one at 8 x 16 tokens (+ 256 patches) within
+# the reference's bound for this model (tests/test_grad_accum.py:15,
+# ACCUM_TOL)
+VLM_ARCH, AUDIO_ARCH = "qwen2-vl-7b", "musicgen-large"
+WA_VLM_NAME = "window_attn[qwen2-vl-7b]"
+VLM_B, VLM_T, VLM_RUN_TEXT = 2, 8192, 1792
+VLM_MEM = 8 * 2 ** 30
+VLM_ACCUM_B, VLM_ACCUM_T = 8, 16
+# musicgen-large at its published size (48 layers, d 2048, 32 heads, 4
+# codebooks of 2048; 3.25 B parameters, 12.1 GiB): a forward over 4 clips
+# of 1500 frames (30 s at EnCodec's 50 Hz, the paper's segment length; t
+# < 2048 takes the sdpa branch), the runner at a searched cut (its graph at
+# 1500 frames, VLM_MEM each), and a greedy decode loop through
+# decode_step({"codes": ...}) for 8 requests of 250 + 100 frames (the
+# engine takes tokens only).  AdamW, 3 steps on one 4 x 256 batch, at depth
+# 24: the optimizer holds the parameters, their stacked copy, the stacked
+# gradients and both moments, and its out-of-place steps add two more
+# copies, about 7 x 12.1 GiB at depth 48 (> 80 GB), 7 x 6.1 at 24.  One
+# SGD step card against CPU at depth 2
+AUDIO_B, AUDIO_T = 4, 1500
+AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_NEW = 8, 250, 100
+AUDIO_TRAIN_B, AUDIO_TRAIN_T, AUDIO_ADAMW_DEPTH = 4, 256, 24
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -700,45 +765,30 @@ def valid_pairs(t: int, window: int) -> int:
     return w * (w + 1) // 2 + (t - w) * w
 
 
-def check_window_attn(dev):
-    """Phase 4: the window kernel against its plain version on the card;
-    returns its record (launches filled in by the LM path)."""
+def window_attn_shape(dev, arch, b, t, name, replaces):
+    """K5 at ``arch``'s attention shape over ``b`` rows of ``t`` tokens
+    against its plain version (within ``WA_TOL_MAIN``), timed beside the
+    plain version, SDPA and the bound; returns its record (launches filled
+    in by the path that runs the model)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, window_attn
-
-    def qkv(b, t, h, kv, hd, seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        return tuple(torch.randn(s, generator=g, device=dev)
-                     for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
-
-    n = 0
-    for t in WA_RAGGED_T:
-        for w in WA_RAGGED_W:
-            w = t + 37 if w is None else w
-            for group in (1, 3):
-                for hd in (32, 64):
-                    q, k, v = qkv(2, t, 2 * group, 2, hd, n)
-                    got = window_attn.window_attn(q, k, v, w)
-                    want = ops.window_attn(q, k, v, w, impl="ref")
-                    torch.testing.assert_close(got, want, rtol=WA_TOL,
-                                               atol=WA_TOL)
-                    n += 1
-    print(f"window_attn: {n} ragged cases (t {WA_RAGGED_T}, windows "
-          f"(1, 64, 100, t+37), groups 1 and 3, hd 32 and 64) within "
-          f"{WA_TOL}")
-
     from repro_torch.models.registry import get_config
-    cfg = get_config(LM_ARCH)
-    b, t, h, kv, hd, w = (LM_B, LM_T, cfg.n_heads, cfg.n_kv,
-                          cfg.resolved_head_dim, cfg.window)
-    q, k, v = qkv(b, t, h, kv, hd, 1)
+    cfg = get_config(arch)
+    h, kv, hd, w = cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim, cfg.window
+    g = torch.Generator(device=dev).manual_seed(1)
+    q, k, v = (torch.randn(s, generator=g, device=dev)
+               for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+    group = h // kv
 
     def plain():
-        # one batch row at a time: a row's (H, T, T) scores are 4 GB
-        return torch.cat([ops.window_attn(q[i:i + 1], k[i:i + 1],
-                                          v[i:i + 1], w, impl="ref")
-                          for i in range(b)])
+        # one batch row and one KV head's query group at a time: a row's
+        # (H, T, T) scores are 4 GB at smollm-360m's 15 heads, 7.5 GB at
+        # qwen2-vl-7b's 28
+        return torch.cat([torch.cat([ops.window_attn(
+            q[i:i + 1, :, j * group:(j + 1) * group],
+            k[i:i + 1, :, j:j + 1], v[i:i + 1, :, j:j + 1], w, impl="ref")
+            for j in range(kv)], dim=2) for i in range(b)])
 
     got = window_attn.window_attn(q, k, v, w)
     want = plain()
@@ -760,17 +810,17 @@ def check_window_attn(dev):
     n_bytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     ops_ = b * h * valid_pairs(t, w) * 4 * hd
     (b_ms, b_by), (f32_ms, f32_by) = bounds_3xtf32(n_bytes, ops_)
-    print(f"window_attn at the LM shape: max_abs_err {err:.3e} (bound "
+    print(f"window_attn at {arch}'s shape: max_abs_err {err:.3e} (bound "
           f"{WA_TOL_MAIN}); library call differs from the kernel by "
           f"{lib_err:.3e}")
     print(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; float32 on the "
-          f"CUDA cores {f32_ms:.4f} ms, {f32_by})")
-    print_hmma("window_attn.cu")
+          f"CUDA cores {f32_ms:.4f} ms, {f32_by}); {ops_:.4e} operations "
+          f"over {valid_pairs(t, w)} pairs a head")
     return dict(
-        name="window_attn", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/window_attn.cu",
-        replaces="src/repro/kernels/window_attn.py:77",
+        replaces=replaces,
         shape=f"q ({b}, {t}, {h}, {hd}), k/v ({b}, {t}, {kv}, {hd}) f32, "
               f"window {w}",
         launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -778,16 +828,54 @@ def check_window_attn(dev):
         library_ms=lib_ms)
 
 
-def lm_spec(arch=LM_ARCH):
-    """The LM paths' search: ``arch`` at 8192 tokens between the serve
-    launcher's two platforms over one eth10 link."""
+def check_window_attn(dev):
+    """Phase 4: the window kernel against its plain version on the card, at
+    ragged sizes and at the two LM shapes that take it (smollm-360m's and
+    qwen2-vl-7b's); returns their records (launches filled in by phases 5
+    and 17)."""
+    from repro_torch.kernels import ops, window_attn
+
+    def qkv(b, t, h, kv, hd, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return tuple(torch.randn(s, generator=g, device=dev)
+                     for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
+
+    n = 0
+    for t in WA_RAGGED_T:
+        for w in WA_RAGGED_W:
+            w = t + 37 if w is None else w
+            for h, kv in WA_RAGGED_HEADS:
+                for hd in WA_RAGGED_HD:
+                    q, k, v = qkv(2, t, h, kv, hd, n)
+                    got = window_attn.window_attn(q, k, v, w)
+                    want = ops.window_attn(q, k, v, w, impl="ref")
+                    torch.testing.assert_close(got, want, rtol=WA_TOL,
+                                               atol=WA_TOL)
+                    n += 1
+    print(f"window_attn: {n} ragged cases (t {WA_RAGGED_T}, windows "
+          f"(1, 64, 100, t+37), (heads, KV heads) {WA_RAGGED_HEADS} "
+          f"(groups 1, 3 and 7), hd {WA_RAGGED_HD}) within {WA_TOL}")
+    records = [window_attn_shape(dev, LM_ARCH, LM_B, LM_T, "window_attn",
+                                 "src/repro/kernels/window_attn.py:77")]
+    torch.cuda.empty_cache()
+    records.append(window_attn_shape(
+        dev, VLM_ARCH, VLM_B, VLM_T, WA_VLM_NAME,
+        "src/repro/kernels/window_attn.py:77"))
+    torch.cuda.empty_cache()
+    print_hmma("window_attn.cu")
+    return records
+
+
+def lm_spec(arch=LM_ARCH, mem=LM_MEM, seq=LM_T):
+    """The LM paths' search: ``arch`` at ``seq`` tokens between the serve
+    launcher's two platforms, ``mem`` bytes each, over one eth10 link."""
     from repro_torch.explore import (ExplorationSpec, ModelRef, PlatformSpec,
                                      SearchSettings, SystemSpec)
     return ExplorationSpec(
-        model=ModelRef("registry", arch, {"seq": LM_T}),
+        model=ModelRef("registry", arch, {"seq": seq}),
         system=SystemSpec(
-            platforms=(PlatformSpec("A", "eyr", bits=16, mem_capacity=LM_MEM),
-                       PlatformSpec("B", "smb", bits=8, mem_capacity=LM_MEM)),
+            platforms=(PlatformSpec("A", "eyr", bits=16, mem_capacity=mem),
+                       PlatformSpec("B", "smb", bits=8, mem_capacity=mem)),
             links=("eth10",)),
         objectives=("latency", "energy", "throughput"),
         search=SearchSettings(strategy="torch_nsga2", pop_size=POP,
@@ -1689,6 +1777,13 @@ def serve_path(dev, card, model, cuts):
           f"{timeline['decision']} [{card}]")
 
 
+def param_gib(model):
+    """GiB of ``model``'s parameters (what the card holds for its weights,
+    apart from what earlier phases left allocated)."""
+    return sum(p.numel() * p.element_size()
+               for p in model.parameters()) / 2 ** 30
+
+
 def snapshot(model):
     """A copy of every parameter, to start each comparison from."""
     return [p.detach().clone() for p in model.parameters()]
@@ -1725,7 +1820,7 @@ def lm_train_path(dev, card, kernels):
     grad_accum 4 against 1; Adafactor's loss falls."""
     from repro_torch.data.synthetic import make_batch_for
     from repro_torch.models.convert import reference_leaves
-    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.models.registry import get_config
     from repro_torch.optim import (adafactor, adamw, apply_updates,
                                    clip_by_global_norm, sgd, stacked_grads,
                                    stacked_params, warmup_cosine)
@@ -1733,32 +1828,9 @@ def lm_train_path(dev, card, kernels):
 
     cfg = get_config(LM_ARCH)
     assert cfg.remat, "full-size configs checkpoint their blocks"
-    model = build_model(cfg, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(SEED))
+    model, snap, cpu = card_and_cpu(dev, cfg)
     n_params = sum(p.numel() for p in model.parameters())
-    snap = snapshot(model)
-
-    # one SGD step on the card and on the CPU from the same weights
-    cpu = build_model(cfg, device="meta")
-    cpu.to_empty(device="cpu")
-    cpu.load_state_dict(model.state_dict())
-    batch = make_batch_for(cfg, SGD_B, SGD_T, SEED)
-    losses = {}
-    for name, m in (("cuda", model), ("cpu", cpu)):
-        t0 = time.perf_counter()
-        losses[name] = float(one_step(m, cfg, sgd(SGD_LR, momentum=0.0),
-                                      batch, clip_norm=None)["loss"])
-        print(f"SGD step on {name}: loss {losses[name]:.7f} in "
-              f"{time.perf_counter() - t0:.2f} s")
-    change = params_max_diff(snap, cpu)
-    sgd_diff = params_max_diff(model, cpu)
-    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    print(f"SGD step (lr {SGD_LR}, {SGD_B} x {SGD_T} tokens), card vs CPU: "
-          f"loss rel diff {rel:.3e} (bound {SGD_LOSS_REL}), parameters max "
-          f"|diff| {sgd_diff:.3e} against the step's largest change "
-          f"{change:.3e} (bound {SGD_PARAM_REL} of it) [{card}]")
-    assert rel <= SGD_LOSS_REL, rel
-    assert sgd_diff <= SGD_PARAM_REL * change, (sgd_diff, change)
+    sgd_card_vs_cpu(model, cpu, snap, cfg, card, LM_ARCH)
     del cpu
 
     # remat on against off, grad_accum 4 against 1 (SGD, no clip)
@@ -2147,7 +2219,7 @@ def moe_full_path(dev, card):
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
             SEED)))
     n_params = sum(p.numel() for p in model.parameters())
-    weights = torch.cuda.memory_allocated(dev) / 2 ** 30
+    weights = param_gib(model)
     rng = np.random.default_rng(SEED)
     batch = {"tokens": torch.from_numpy(rng.integers(
         0, cfg.vocab, (MOE_B, MOE_T))).to(dev)}
@@ -2163,7 +2235,7 @@ def moe_full_path(dev, card):
     print(f"{MOE_ARCH}: full width and depth ({cfg.n_layers} layers, "
           f"{cfg.first_dense} dense, {cfg.n_experts} experts top-"
           f"{cfg.top_k} + {cfg.n_shared} shared), {n_params / 1e9:.3f} B "
-          f"parameters, {weights:.2f} GiB on the card, built in "
+          f"parameters, {weights:.2f} GiB of weights, built in "
           f"{build_s:.2f} s; forward {MOE_B} x {MOE_T} tokens {fwd_s:.3f} s "
           f"({MOE_B * MOE_T / fwd_s:.0f} tok/s); dropped {aux['dropped']:.4f}"
           f", lb_loss {aux['lb_loss']:.4f}, z_loss {aux['z_loss']:.4f}; peak "
@@ -2188,18 +2260,13 @@ def moe_train_path(dev, card):
     against CPU (routing, logits, one SGD step), four microbatches against
     one, three AdamW steps."""
     from repro_torch.data.synthetic import make_batch_for
-    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.models.registry import get_config
     from repro_torch.optim import adamw, sgd
 
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=2,
                               first_dense=1)
-    model = build_model(cfg, device=dev, generator=torch.Generator(
-        device=dev).manual_seed(SEED))
+    model, snap, cpu = card_and_cpu(dev, cfg)
     n_params = sum(p.numel() for p in model.parameters())
-    snap = snapshot(model)
-    cpu = build_model(cfg, device="meta")
-    cpu.to_empty(device="cpu")
-    cpu.load_state_dict(model.state_dict())
 
     # routing first, then logits, on the same tokens
     tok = make_batch_for(cfg, TRAIN_B, TRAIN_T, SEED)["tokens"]
@@ -2224,24 +2291,7 @@ def moe_train_path(dev, card):
           f"{err:.3e} (bound {LOGIT_TOL}) [{card}]")
     assert err <= LOGIT_TOL, err
     del logits
-
-    batch = make_batch_for(cfg, SGD_B, SGD_T, SEED)
-    losses = {}
-    for name, m in (("cuda", model), ("cpu", cpu)):
-        t0 = time.perf_counter()
-        losses[name] = float(one_step(m, cfg, sgd(SGD_LR, momentum=0.0),
-                                      batch, clip_norm=None)["loss"])
-        print(f"{MOE_ARCH} depth 2, SGD step on {name}: loss "
-              f"{losses[name]:.7f} in {time.perf_counter() - t0:.2f} s")
-    change = params_max_diff(snap, cpu)
-    sgd_diff = params_max_diff(model, cpu)
-    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    print(f"{MOE_ARCH} depth 2, SGD step card vs CPU: loss rel diff "
-          f"{rel:.3e} (bound {SGD_LOSS_REL}), parameters max |diff| "
-          f"{sgd_diff:.3e} against the step's largest change {change:.3e} "
-          f"(bound {SGD_PARAM_REL} of it) [{card}]")
-    assert rel <= SGD_LOSS_REL, rel
-    assert sgd_diff <= SGD_PARAM_REL * change, (sgd_diff, change)
+    sgd_card_vs_cpu(model, cpu, snap, cfg, card, f"{MOE_ARCH} depth 2")
     del cpu
 
     # four microbatches.  Each row routes as its own group in every run,
@@ -2339,7 +2389,7 @@ def v3_path(dev, card):
         cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
             SEED)))
     n_params = sum(p.numel() for p in model.parameters())
-    weights = torch.cuda.memory_allocated(dev) / 2 ** 30
+    weights = param_gib(model)
     batch = make_batch_for(cfg, MOE_B, MOE_T, SEED)
     torch.cuda.reset_peak_memory_stats(dev)
     with torch.no_grad():
@@ -2411,6 +2461,376 @@ def moe_phase(dev, card):
     print(f"phase 16 in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def max_abs_diff(a, b, rows=1024):
+    """max |a - b| over two tensors of one shape, ``rows`` rows of their
+    last axis at a time (two 10 GB logits leave no room for a third)."""
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    return max(float((a[i:i + rows] - b[i:i + rows]).abs().max())
+               for i in range(0, a.shape[0], rows))
+
+
+def grid_positions(b, side, n_text, dev):
+    """Qwen2-VL's M-RoPE ids (3, b, side**2 + n_text) of a side x side
+    patch grid (t 0, h row, w col) followed by n_text tokens, which
+    continue from ``side`` on all three axes."""
+    rows, cols = np.divmod(np.arange(side * side), side)
+    text = side + np.arange(n_text)
+    pos = np.stack([np.concatenate([np.zeros(side * side, np.int64), text]),
+                    np.concatenate([rows, text]),
+                    np.concatenate([cols, text])])
+    return torch.from_numpy(np.broadcast_to(
+        pos[:, None], (3, b, pos.shape[1])).copy()).to(dev)
+
+
+def vlm_batch(cfg, b, n_text, rng, dev):
+    """``b`` rows of the config's n_patches seeded vision embeddings and
+    ``n_text`` seeded tokens at grid positions."""
+    side = math.isqrt(cfg.n_patches)
+    assert side * side == cfg.n_patches, cfg.n_patches
+    return {"vision_embeds": torch.from_numpy(rng.standard_normal(
+                (b, cfg.n_patches, cfg.d_model)).astype(np.float32)).to(dev),
+            "tokens": torch.from_numpy(rng.integers(
+                0, cfg.vocab, (b, n_text))).to(dev),
+            "positions3": grid_positions(b, side, n_text, dev)}
+
+
+def searched_cuts(arch, seq, dev):
+    """Block cuts of ``arch`` from a search over its graph at ``seq``
+    tokens between lm_spec's two platforms, VLM_MEM each."""
+    from repro_torch.explore import lm_block_cuts, run_spec
+    from repro_torch.models.registry import get_config
+    res, search_s = timed(lambda: run_spec(lm_spec(arch, VLM_MEM, seq),
+                                           device=str(dev)))
+    assert res.strategy_used == "torch_nsga2" and res.pareto, "no front"
+    sel = res.selected.cuts if res.selected is not None else (1,)
+    cuts = lm_block_cuts(sel, get_config(arch).n_layers)
+    print(f"{arch} search: seq {seq} ({len(res.schedule)} positions), 2 "
+          f"platforms of {VLM_MEM / 2 ** 30:.0f} GiB, torch_nsga2 pop {POP} "
+          f"x {LM_GEN} gen: {search_s:.3f} s, front {len(res.pareto)} "
+          f"points, selected {tuple(sel)} -> block cuts {cuts}")
+    return cuts
+
+
+def card_and_cpu(dev, cfg):
+    """``cfg``'s model with seeded weights on the card, a snapshot of
+    those weights, and a copy of the model on the CPU."""
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    snap = snapshot(model)
+    cpu = build_model(cfg, device="meta")
+    cpu.to_empty(device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    return model, snap, cpu
+
+
+def sgd_card_vs_cpu(model, cpu, snap, cfg, card, what):
+    """One SGD step (momentum 0, lr SGD_LR, no clip) at SGD_B x SGD_T from
+    the same weights on the card and on the CPU: the losses within
+    SGD_LOSS_REL, every parameter within SGD_PARAM_REL of the step's
+    largest change."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.optim import sgd
+
+    batch = make_batch_for(cfg, SGD_B, SGD_T, SEED)
+    losses = {}
+    for name, m in (("cuda", model), ("cpu", cpu)):
+        t0 = time.perf_counter()
+        losses[name] = float(one_step(m, cfg, sgd(SGD_LR, momentum=0.0),
+                                      batch, clip_norm=None)["loss"])
+        print(f"{what}, SGD step on {name}: loss {losses[name]:.7f} in "
+              f"{time.perf_counter() - t0:.2f} s")
+    change = params_max_diff(snap, cpu)
+    sgd_diff = params_max_diff(model, cpu)
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{what} ({n_params / 1e9:.3f} B parameters), SGD step (lr "
+          f"{SGD_LR}, {SGD_B} x {SGD_T} tokens) card vs CPU: loss rel diff "
+          f"{rel:.3e} (bound {SGD_LOSS_REL}), parameters max |diff| "
+          f"{sgd_diff:.3e} against the step's largest change {change:.3e} "
+          f"(bound {SGD_PARAM_REL} of it) [{card}]")
+    assert rel <= SGD_LOSS_REL, rel
+    assert sgd_diff <= SGD_PARAM_REL * change, (sgd_diff, change)
+
+
+def vlm_path(dev, card, records):
+    """Phase 17, part 1: qwen2-vl-7b at full width and depth: its cut
+    searched, the forward over 2 x (256 patches + 7936 tokens) through K5
+    against chunked_sdpa, 8 text requests, the runner float and
+    quantized."""
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import window_attn
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import GenerationEngine, PartitionedLMRunner
+
+    cfg = get_config(VLM_ARCH)
+    cuts = searched_cuts(VLM_ARCH, VLM_T, dev)
+    model, build_s = timed(lambda: build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = param_gib(model)
+    rng = np.random.default_rng(SEED)
+    batch = vlm_batch(cfg, VLM_B, VLM_T - cfg.n_patches, rng, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    k5 = window_attn.window_attn
+    before = k5.launches
+    logits, fwd_s = timed(lambda: model(batch, impl="cuda"))
+    k5_launches = k5.launches - before
+    assert k5_launches == cfg.n_layers, k5_launches
+    assert logits.shape == (VLM_B, VLM_T, cfg.vocab), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    ref_logits, ref_s = timed(lambda: model(batch, impl="ref"))
+    err = max_abs_diff(logits, ref_logits)
+    del logits, ref_logits
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{VLM_ARCH}: full width and depth ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv} KV heads of "
+          f"dim {cfg.resolved_head_dim}, window {cfg.window}, M-RoPE "
+          f"{cfg.mrope_sections}), {n_params / 1e9:.3f} B parameters, "
+          f"{weights:.2f} GiB of weights, built in {build_s:.2f} s; "
+          f"forward {VLM_B} x ({cfg.n_patches} patches + "
+          f"{VLM_T - cfg.n_patches} tokens) at grid positions through K5 "
+          f"{fwd_s:.3f} s ({VLM_B * VLM_T / fwd_s:.0f} tok/s, K5 launches "
+          f"{k5_launches}), through chunked_sdpa {ref_s:.3f} s; logits "
+          f"max_abs_err {err:.3e} (bound {LOGIT_TOL}); peak device memory "
+          f"{peak:.2f} GiB [{card}]")
+    assert err <= LOGIT_TOL, err
+    for rec in records:
+        if rec["name"] == WA_VLM_NAME:
+            rec["launches"] = k5_launches
+
+    engine = GenerationEngine(model, max_seq=GEN_PROMPT + GEN_NEW)
+    prompts = rng.integers(0, cfg.vocab, (GEN_REQUESTS, GEN_PROMPT))
+    first, _ = engine.prefill(prompts)
+    with torch.no_grad():
+        want = model({"tokens": torch.from_numpy(prompts).to(dev)})[:, -1]
+    first_err = float((first - want).abs().max())
+    assert first_err <= LOGIT_TOL, first_err
+    gen = engine.generate(prompts, max_new=GEN_NEW)
+    assert gen.tokens.shape == (GEN_REQUESTS, GEN_NEW), gen.tokens.shape
+    assert (gen.tokens[:, 0] == first.argmax(-1).cpu().numpy()).all()
+    assert ((gen.tokens >= 0) & (gen.tokens < cfg.vocab)).all()
+    print(f"{VLM_ARCH}: {GEN_REQUESTS} text requests, prompt {GEN_PROMPT}, "
+          f"{GEN_NEW} new tokens greedy: prefill {gen.prefill_s:.3f} s "
+          f"({GEN_REQUESTS * GEN_PROMPT / gen.prefill_s:.0f} tok/s), decode "
+          f"{gen.decode_s:.3f} s ({gen.tokens_per_s:.1f} tok/s); first-step "
+          f"logits vs forward max_abs_err {first_err:.3e} (bound "
+          f"{LOGIT_TOL}) [{card}]")
+
+    run_batch = vlm_batch(cfg, VLM_B, VLM_RUN_TEXT, rng, dev)
+    with torch.no_grad():
+        mono = model(run_batch)
+    runner = PartitionedLMRunner(model, cuts)
+    (part, rep), part_s = timed(lambda: runner.forward(run_batch))
+    part_err = float((part - mono).abs().max())
+    assert part_err <= PART_TOL, part_err
+    del part
+    print(f"{VLM_ARCH} runner: {runner.n_stages} stages {runner.ranges}, "
+          f"{VLM_B} x ({cfg.n_patches} + {VLM_RUN_TEXT}) positions with "
+          f"vision: {part_s:.3f} s, stage latencies "
+          f"{[round(x, 4) for x in rep.latency_s]} s, link bytes "
+          f"{rep.link_bytes}; vs monolithic max_abs_err {part_err:.3e} "
+          f"(bound {PART_TOL})")
+    plats = lm_spec(VLM_ARCH, VLM_MEM, VLM_T).system.build().platforms
+    specs = [plats[min(i, len(plats) - 1)].quant or QuantSpec(8)
+             for i in range(len(cuts) + 1)]
+    q, qbuild_s = timed(lambda: PartitionedLMRunner(model, cuts, specs,
+                                                    link_quant=True))
+    (got, qrep), q_s = timed(lambda: q.forward(run_batch))
+    assert bool(torch.isfinite(got).all()), "non-finite quantized logits"
+    scale = float(mono.abs().max())
+    move = float((got - mono).abs().max())
+    agree = float((got.argmax(-1) == mono.argmax(-1)).float().mean())
+    del got, mono, q
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{VLM_ARCH} quantized runner at {[s.bits for s in specs]} bits, "
+          f"links fake-quantized: weights quantized in {qbuild_s:.3f} s, "
+          f"forward {q_s:.3f} s; logits max|diff| from float {move:.3e} of "
+          f"max|logits| {scale:.3f} (floor {QUANT_MOVE} of it), top-1 "
+          f"agreement {agree:.4f} (floor {QUANT_AGREE}), link bytes "
+          f"{qrep.link_bytes}; peak device memory {peak:.2f} GiB [{card}]")
+    assert move >= QUANT_MOVE * scale, (move, scale)
+    assert agree >= QUANT_AGREE, agree
+
+
+def vlm_train_path(dev, card, records):
+    """Phase 17, part 2: qwen2-vl-7b at full width and depth 2: one SGD
+    step card against CPU, four microbatches against one."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim import sgd
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=2)
+    model, snap, cpu = card_and_cpu(dev, cfg)
+    sgd_card_vs_cpu(model, cpu, snap, cfg, card, f"{VLM_ARCH} depth 2")
+    del cpu
+    batch = make_batch_for(cfg, VLM_ACCUM_B, VLM_ACCUM_T, SEED)
+    after, loss = {}, {}
+    for accum in (1, 4):
+        restore_params(model, snap)
+        m, s = timed(lambda: one_step(model, cfg, sgd(SGD_LR, momentum=0.0),
+                                      batch, clip_norm=None,
+                                      grad_accum=accum))
+        after[accum], loss[accum] = snapshot(model), float(m["loss"])
+        print(f"{VLM_ARCH} depth 2, SGD step grad_accum {accum} at "
+              f"{VLM_ACCUM_B} x ({cfg.n_patches} + {VLM_ACCUM_T}): loss "
+              f"{loss[accum]:.6f}, {s:.3f} s")
+    accum_diff = params_max_diff(after[1], after[4])
+    print(f"{VLM_ARCH} depth 2, grad_accum 4 vs 1: parameters max |diff| "
+          f"{accum_diff:.3e} (bound {ACCUM_TOL}), losses {loss}")
+    assert accum_diff <= ACCUM_TOL, accum_diff
+
+
+def audio_path(dev, card, records):
+    """Phase 17, part 3: musicgen-large at full size: its cut searched,
+    the forward over 4 clips of 1500 frames, the runner, a greedy decode
+    loop over codes."""
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import PartitionedLMRunner
+
+    cfg = get_config(AUDIO_ARCH)
+    k = cfg.n_codebooks
+    cuts = searched_cuts(AUDIO_ARCH, AUDIO_T, dev)
+    model, build_s = timed(lambda: build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = param_gib(model)
+    rng = np.random.default_rng(SEED)
+    batch = {"codes": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (AUDIO_B, k, AUDIO_T))).to(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    logits, fwd_s = timed(lambda: model(batch))
+    assert logits.shape == (AUDIO_B, AUDIO_T, k, cfg.vocab), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{AUDIO_ARCH}: full size ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads, {k} codebooks of "
+          f"{cfg.vocab}), {n_params / 1e9:.3f} B parameters, {weights:.2f} "
+          f"GiB of weights, built in {build_s:.2f} s; forward {AUDIO_B} "
+          f"clips x {AUDIO_T} frames {fwd_s:.3f} s "
+          f"({AUDIO_B * AUDIO_T / fwd_s:.0f} frames/s); peak device memory "
+          f"{peak:.2f} GiB [{card}]")
+    runner = PartitionedLMRunner(model, cuts)
+    (part, rep), part_s = timed(lambda: runner.forward(batch))
+    part_err = float((part - logits).abs().max())
+    assert part_err <= PART_TOL, part_err
+    del part, logits
+    print(f"{AUDIO_ARCH} runner: {runner.n_stages} stages {runner.ranges}: "
+          f"{part_s:.3f} s, stage latencies "
+          f"{[round(x, 4) for x in rep.latency_s]} s, link bytes "
+          f"{rep.link_bytes}; vs monolithic max_abs_err {part_err:.3e} "
+          f"(bound {PART_TOL})")
+
+    # greedy decode over codes, every codebook's argmax each frame (the
+    # engine takes tokens only)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (AUDIO_REQUESTS, k, AUDIO_PROMPT))).to(dev)
+    with torch.no_grad():
+        want = model({"codes": prompts})[:, -1]
+        caches = model.init_caches(AUDIO_REQUESTS, AUDIO_PROMPT + AUDIO_NEW,
+                                   torch.float32)
+        (first, caches), prefill_s = timed(lambda: model.decode_step(
+            caches, {"codes": prompts}))
+        first = first[:, -1]
+        first_err = float((first - want).abs().max())
+        assert first_err <= LOGIT_TOL, first_err
+        cur, out = first, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AUDIO_NEW):
+            nxt = cur.argmax(-1)                               # (B, K)
+            out.append(nxt)
+            logits, caches = model.decode_step(caches, {"codes": nxt[:, :,
+                                                                     None]})
+            cur = logits[:, -1]
+        frames = torch.stack(out, dim=-1).cpu()
+        decode_s = time.perf_counter() - t0
+    assert frames.shape == (AUDIO_REQUESTS, k, AUDIO_NEW), frames.shape
+    assert int(caches["dense"]["pos"][0]) == AUDIO_PROMPT + AUDIO_NEW
+    assert bool(((frames >= 0) & (frames < cfg.vocab)).all())
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"{AUDIO_ARCH}: {AUDIO_REQUESTS} requests, prompt {AUDIO_PROMPT} "
+          f"frames, {AUDIO_NEW} new frames greedy through decode_step: "
+          f"prefill {prefill_s:.3f} s "
+          f"({AUDIO_REQUESTS * AUDIO_PROMPT / prefill_s:.0f} frames/s), "
+          f"decode {decode_s:.3f} s "
+          f"({AUDIO_REQUESTS * AUDIO_NEW / decode_s:.1f} frames/s); "
+          f"first-step logits vs forward max_abs_err {first_err:.3e} "
+          f"(bound {LOGIT_TOL}); peak device memory {peak:.2f} GiB [{card}]")
+
+
+def audio_train_path(dev, card, records):
+    """Phase 17, part 4: musicgen-large at full width, 3 AdamW steps at
+    depth AUDIO_ADAMW_DEPTH; one SGD step card against CPU at depth 2."""
+    from repro_torch.data.synthetic import make_batch_for
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.optim import adamw
+    from repro_torch.training import init_params, make_train_step
+
+    full = get_config(AUDIO_ARCH)
+    cfg = dataclasses.replace(full, n_layers=AUDIO_ADAMW_DEPTH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    weights = param_gib(model)
+    opt = adamw(MOE_ADAMW_LR)
+    step = make_train_step(model, cfg, opt)
+    state = opt.init(init_params(model))
+    batch = make_batch_for(cfg, AUDIO_TRAIN_B, AUDIO_TRAIN_T, SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for _ in range(3):
+        (state, m), s = timed(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        step_s.append(s)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    frames = AUDIO_TRAIN_B * AUDIO_TRAIN_T
+    print(f"{AUDIO_ARCH} at full width and depth {cfg.n_layers} (published "
+          f"{full.n_layers}), {n_params / 1e9:.3f} B parameters ({weights:.2f}"
+          f" GiB), AdamW ({MOE_ADAMW_LR}) 3 steps on one {AUDIO_TRAIN_B} x "
+          f"{AUDIO_TRAIN_T} batch, remat {cfg.remat}: losses "
+          f"{[round(x, 4) for x in losses]}, step s "
+          f"{[round(x, 3) for x in step_s]} ({frames / step_s[-1]:.0f} "
+          f"frames/s at the last), peak device memory {peak:.2f} GiB "
+          f"({peak / weights:.2f} x the weights) [{card}]")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    del state, step, model
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, n_layers=2)
+    model, snap, cpu = card_and_cpu(dev, cfg)
+    sgd_card_vs_cpu(model, cpu, snap, cfg, card, f"{AUDIO_ARCH} depth 2")
+
+
+def family_phase(dev, card, records):
+    """Phase 17: the audio and vlm families at full width, each part with
+    every kernel's launch count set to 0 just before and read just after:
+    K5 28 times in qwen2-vl-7b's forward through the kernel and nowhere
+    else, K1 and K2 in the two searches, K3 and K4 never; each model freed
+    before the next is built."""
+    from repro_torch.models.registry import get_config
+    kernels = all_kernels()
+    t0 = time.perf_counter()
+    for part, searches in ((vlm_path, True), (vlm_train_path, False),
+                           (audio_path, True), (audio_train_path, False)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        part(dev, card, records)
+        launches = {name: k.launches for name, k in kernels.items()}
+        print(f"phase 17 {part.__name__}: launches {launches}")
+        k5 = get_config(VLM_ARCH).n_layers if part is vlm_path else 0
+        assert launches["window_attn"] == k5, launches
+        assert launches["quant_matmul"] == launches["ssd_scan"] == 0, launches
+        for name in ("packed_domination", "domination_counts"):
+            assert (launches[name] > 0) == searches, launches
+    torch.cuda.empty_cache()
+    print(f"phase 17 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2438,7 +2858,7 @@ def main() -> int:
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
-    records.append(check_window_attn(dev))
+    records += check_window_attn(dev)
     lm_model, lm_cuts = lm_path(dev, records)
     records.append(check_ssd_scan(dev, card))
     ssm_path(dev, records, card)
@@ -2458,6 +2878,7 @@ def main() -> int:
     quant_lm_path(dev, card, lm_cuts)
     print(f"phase 15 in {time.perf_counter() - t0:.1f} s [{card}]")
     moe_phase(dev, card)
+    family_phase(dev, card, records)
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")

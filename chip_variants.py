@@ -32,7 +32,11 @@ The Pareto kernels (K1 ``packed_domination``, K2 ``domination_counts``,
 the plain versions, for the word rows a warp holds (R), K2's row splits
 and columns a block, and K2's splits summed by a second launch instead of
 ``atomicAdd``; then the shipped K1 at other row and column tiles.
-``python3 chip_variants.py --pareto`` stops there.
+``python3 chip_variants.py --pareto`` stops there.  ``--k5`` instead
+prints ``ptxas -v``'s registers and spills of the shipped K5 and then, in
+two rounds, each K5 build's time and error at the LM path's shape and at
+qwen2-vl-7b's (2 x 8192 positions, 28 heads over 4 of dim 128, window
+4096), and stops.
 
 ``python3 chip_variants.py --qmm`` measures the int8 product kernel (K3,
 ``quant_matmul.cu``) instead, and stops: the card's ``mma.sync`` m16n8k32
@@ -221,6 +225,12 @@ VARIANTS = (
              "          (void)pv;")]}),
     ("K5 one 16-row slice a warp at every head dim", "window_attn.cu", {
         "window_attn.cu": [("kMT = HD <= 64 ? 2 : 1;", "kMT = 1;")]}),
+    ("K5 32-key tiles at head dim 128 (two blocks an SM)", "window_attn.cu", {
+        "window_attn.cu": [("kBlockK = HD <= 128 ? 64 : 32;",
+                            "kBlockK = HD <= 64 ? 64 : 32;")]}),
+    ("K5 4 warps a block", "window_attn.cu", {
+        "window_attn.cu": [("constexpr int kWarps = 8;",
+                            "constexpr int kWarps = 4;")]}),
     ("K4 each 32-deep stage in a zeroed fragment", "ssd_scan.cu", {
         "ssd_scan.cu": [
             ("    const float* sb = sa + Tl::kA;\n",
@@ -532,10 +542,25 @@ def report(label, got, exact, ms):
           f"bias {num / den:+.3e}")
 
 
-def window_attn_builds(dev, builds):
+def print_ptxas(source):
+    """``ptxas -v``'s registers, spills and shared memory for each kernel
+    of the shipped ``source``."""
+    from repro_torch.kernels import _build
+    OUT.mkdir(parents=True, exist_ok=True)
+    done = subprocess.run(
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-Xptxas", "-v", f"-I{_build.CSRC}", "-cubin",
+         "-o", str(OUT / "ptxas.cubin"), str(_build.CSRC / source)],
+        capture_output=True, text=True, timeout=600)
+    for line in (done.stdout + done.stderr).splitlines():
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
+            print(f"  {line.strip()}")
+
+
+def window_attn_builds(dev, builds, arch=chip_smoke.LM_ARCH):
     from repro_torch.kernels import ref, window_attn
     from repro_torch.models.registry import get_config
-    cfg = get_config(chip_smoke.LM_ARCH)
+    cfg = get_config(arch)
     b, t, h, kv, hd, w = (chip_smoke.LM_B, chip_smoke.LM_T, cfg.n_heads,
                           cfg.n_kv, cfg.resolved_head_dim, cfg.window)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -658,9 +683,16 @@ def main(argv) -> int:
                                     if n.startswith(("K1", "K2"))])
     if "--pareto" in argv:
         return 0
+    k5 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K5")]
+    if "--k5" in argv:
+        print("window_attn.cu, ptxas:")
+        print_ptxas("window_attn.cu")
+        for rnd in range(2):
+            for arch in (chip_smoke.LM_ARCH, chip_smoke.VLM_ARCH):
+                window_attn_builds(dev, k5, arch)
+        return 0
     mma_rate(probe)
     print_rounding_sass(probe)
-    k5 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K5")]
     k4 = [shipped] + [(n, s) for n, s in libs.items() if n.startswith("K4")]
     window_attn_builds(dev, k5)
     ssd_scan_builds(dev, k4)

@@ -69,6 +69,7 @@ class EvalTables:
 
     @property
     def device(self) -> torch.device:
+        """The device the tables live on."""
         return self.cost_prefix.device
 
     def to(self, device) -> "EvalTables":

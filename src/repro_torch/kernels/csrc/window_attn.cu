@@ -16,10 +16,16 @@
 // (67 TFLOP/s), against 168 MB of q, k, v and o (~0.05 ms at 3.35 TB/s).
 //
 // Design: flash attention on the tensor cores at float32 accuracy, both
-// products by the 3xTF32 mma.sync of mma_tf32x3.cuh.  One block of 4 warps
+// products by the 3xTF32 mma.sync of mma_tf32x3.cuh.  One block of 8 warps
 // per (query tile, head, batch row); each warp owns MT 16-row slices of
 // the tile (MT = 2 for hd <= 64, 1 above, where the accumulators of two
-// would not fit in registers).
+// would not fit in registers).  A thread holds ~255 registers, so an SM
+// runs at most 8 warps.  At hd 128 a block of 4 warps (64 query rows and
+// two key stages, 168 KiB of shared memory) sat alone on its SM; a block
+// of 8 (128 rows, 202 KiB) is alone too, with twice the warps: 14.1
+// against 22.6 ms at qwen2-vl-7b's shape.  At hd 64 a block walks each
+// key tile for 256 query rows, not 128: 3.66 against 3.95 ms
+// (chip_variants.py --k5, PERF.md).
 // - Splitting a float32 into two TF32 values costs seven instructions,
 //   and each warp splits every K and V fragment it reads: with two slices
 //   a warp, each split fragment feeds two products.
@@ -64,7 +70,7 @@ namespace {
 using tf32x3::mma3;
 using tf32x3::split;
 
-constexpr int kWarps = 4;
+constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;
 

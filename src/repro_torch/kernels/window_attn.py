@@ -7,7 +7,7 @@ online softmax so that no (T, T) score matrix exists.  It is flash
 attention on Hopper's tensor cores at float32 accuracy: both products,
 Q·Kᵀ and P·V, are 3xTF32 ``mma.sync`` (each float32 operand split into
 two TF32 values, three TF32 products summed in float32,
-``csrc/mma_tf32x3.cuh``).  One block of 4 warps per (query tile, head,
+``csrc/mma_tf32x3.cuh``).  One block of 8 warps per (query tile, head,
 batch row) walks the key tiles its window touches, K and V double-buffered
 in shared memory by ``cp.async``; each warp keeps its scores and output
 rows in registers (two 16-row slices for head dims up to 64, one above).

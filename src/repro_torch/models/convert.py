@@ -4,7 +4,8 @@
 
 The reference keeps an LM's parameters as a pytree whose block leaves are
 stacked over layers: ``embed`` (vocab, D), ``final_norm`` (D), ``head``
-(D, vocab) unless the embeddings are tied, and
+(D, vocab) unless the embeddings are tied (an audio model's embed and head
+span ``vocab * n_codebooks``), a vlm model's ``vis_proj`` (D, D), and
 
 * dense decoder: ``blocks_dense/<path>`` of shape (L, ...);
 * moe decoder: ``blocks_dense/<path>`` of shape (first_dense, ...) and
@@ -52,7 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.decoder import TokenLM
 from repro_torch.nn.layers import Dense
 
-_TOP = ("embed", "final_norm", "head", "mtp_proj")
+_TOP = ("embed", "final_norm", "head", "vis_proj", "mtp_proj")
 
 
 @dataclasses.dataclass(frozen=True)

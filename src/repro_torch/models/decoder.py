@@ -1,5 +1,5 @@
-"""Decoder-only LM: the dense and moe families (the JAX package's
-``repro.models.decoder``).
+"""Decoder-only LM: the dense, moe, audio and vlm families (the JAX
+package's ``repro.models.decoder``).
 
 The reference stacks its layers' parameters and runs them under
 ``lax.scan``; here the blocks are an ``nn.ModuleList`` walked by a loop
@@ -36,10 +36,17 @@ written in place.  Lane caches (``init_caches(..., lanes=True)``) give
 every batch row its own write position, ``pos`` (L, B): the reference's
 per-slot batch-1 caches under ``jax.vmap``, as one batch (and a MoE block
 routes every lane as its own group, as there).  The ssm and hybrid
-families are ``models.ssm_lm.SSMLM``; the audio and vlm families are not
-carried yet (:func:`unsupported`).  The graph (:func:`lm_graph`) covers
-every family the reference's ``DecoderLM`` does, since it needs the
-configuration only.
+families are ``models.ssm_lm.SSMLM``.  The graph (:func:`lm_graph`)
+needs the configuration only.
+
+The audio family (MusicGen) embeds ``codes`` (B, K, T) of K codebooks:
+the embedding has ``vocab * K`` rows, codebook k's codes offset by ``k *
+vocab``, and the K embeddings summed; its head gives logits (B, T, K,
+vocab).  The vlm family (Qwen2-VL) puts ``vision_embeds`` (B, P, D),
+projected by ``vis_proj`` (D, D), before the text tokens' embeddings, with
+M-RoPE positions ``positions3`` (3, B, P + T); positions of shape (B, T)
+are stacked three times where the config has ``mrope_sections``
+(:meth:`DecoderLM.embed_batch`).
 """
 
 from __future__ import annotations
@@ -60,16 +67,6 @@ from repro_torch.nn.moe import MoEFFN
 from repro_torch.nn.module import constant, normal_init
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def unsupported(cfg: ModelConfig) -> Optional[str]:
-    """Why this port cannot build ``cfg``'s weights yet (the ``ROADMAP.md``
-    item that brings it), or None for a decoder it can build."""
-    if cfg.family == "audio":
-        return "the audio (multi-codebook) family comes with ROADMAP.md C9"
-    if cfg.family == "vlm":
-        return "the vlm family (M-RoPE, vision projector) comes with ROADMAP.md C10"
-    return None
 
 
 def gated_mlp(params: Mapping[str, torch.Tensor], x: torch.Tensor):
@@ -114,7 +111,8 @@ class DecoderBlock(nn.Module):
             self.attn = GQAAttention(
                 d, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
                 qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
-                window=cfg.window, rope_theta=cfg.rope_theta, **init)
+                window=cfg.window, rope_theta=cfg.rope_theta,
+                mrope_sections=cfg.mrope_sections, **init)
         if kind == "moe":
             self.moe = MoEFFN(d, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
                               cfg.n_shared, sigmoid_gate=cfg.sigmoid_gate,
@@ -266,10 +264,10 @@ class TokenLM(nn.Module):
 
 
 class DecoderLM(TokenLM):
-    """Decoder-only LM of the dense or moe family.  Weights are drawn from
-    ``generator`` (a generator on ``device`` seeded 0 when None); on
-    ``device="meta"`` nothing is allocated.  Runs on the CUDA device unless
-    the caller passes another ``device``."""
+    """Decoder-only LM of the dense, moe, audio or vlm family.  Weights are
+    drawn from ``generator`` (a generator on ``device`` seeded 0 when
+    None); on ``device="meta"`` nothing is allocated.  Runs on the CUDA
+    device unless the caller passes another ``device``."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: Optional[torch.Generator] = None):
@@ -277,9 +275,6 @@ class DecoderLM(TokenLM):
         if cfg.family in ("ssm", "hybrid"):
             raise ValueError(f"{cfg.arch_id}: {cfg.family} models are built "
                              f"by models.ssm_lm.SSMLM")
-        why = unsupported(cfg)
-        if why:
-            raise NotImplementedError(f"{cfg.arch_id}: {why}")
         from repro_torch.explore.runner import resolve_device
         device = resolve_device(device)
         if generator is None and device.type != "meta":
@@ -291,15 +286,20 @@ class DecoderLM(TokenLM):
         dt = _DTYPES[cfg.dtype]
         init = dict(generator=generator, device=device, dtype=dt)
         blk = dict(device=device, generator=generator)
-        self.embed = normal_init((cfg.vocab, cfg.d_model), 0.02, **init)
+        vocab_rows = cfg.vocab * max(cfg.n_codebooks, 1)
+        self.embed = normal_init((vocab_rows, cfg.d_model), 0.02, **init)
         self.final_norm = constant((cfg.d_model,), 1.0, device=device,
                                    dtype=dt)
         self.blocks = nn.ModuleList(
             [DecoderBlock(cfg, "dense", **blk) for _ in range(self.n_dense)]
             + [DecoderBlock(cfg, "moe", **blk) for _ in range(self.n_moe)])
         if not cfg.tied_embeddings:
-            self.head = normal_init((cfg.d_model, cfg.vocab),
+            self.head = normal_init((cfg.d_model, vocab_rows),
                                     cfg.d_model ** -0.5, **init)
+        if cfg.family == "vlm":
+            # the projector stub: frontend patch embeddings into d_model
+            self.vis_proj = normal_init((cfg.d_model, cfg.d_model),
+                                        cfg.d_model ** -0.5, **init)
         if cfg.mtp:
             self.mtp_block = nn.ModuleList(
                 DecoderBlock(cfg, "dense", **blk) for _ in range(cfg.mtp))
@@ -314,17 +314,66 @@ class DecoderLM(TokenLM):
                ("moe", self.blocks[self.n_dense:])]
         return [(name, blocks) for name, blocks in out if len(blocks)]
 
+    # -- embedding and head per family ----------------------------------------
+    def embed_batch(self, batch, pos0=None):
+        """The batch's input embeddings (B, T, D) and positions, by family
+        (the reference's ``_embed``, with its positions filled in as its
+        ``apply`` and ``decode_step`` fill them): audio sums the K
+        codebooks' embeddings of ``codes`` (B, K, T); vlm with
+        ``vision_embeds`` (B, P, D) puts them, projected by ``vis_proj``,
+        before the tokens' embeddings and takes ``positions3``; otherwise
+        ``positions3`` or ``positions``.  Missing positions are ``pos0 +
+        arange(T)`` (``pos0`` as in :meth:`embed_tokens`), and (B, T)
+        positions are stacked to (3, B, T) when the config has
+        ``mrope_sections``."""
+        cfg = self.cfg
+        dev = self.device
+        positions = None
+        if cfg.family == "audio":
+            codes = torch.as_tensor(batch["codes"], device=dev)  # (B, K, T)
+            offs = torch.arange(cfg.n_codebooks, device=dev) * cfg.vocab
+            x = F.embedding(codes + offs[None, :, None].to(codes.dtype),
+                            self.embed).sum(dim=1)
+        elif cfg.family == "vlm" and "vision_embeds" in batch:
+            vis = torch.as_tensor(batch["vision_embeds"], device=dev)
+            tokens = torch.as_tensor(batch["tokens"], device=dev)
+            x = torch.cat([vis.to(self.embed.dtype) @ self.vis_proj,
+                           F.embedding(tokens, self.embed)], dim=1)
+            positions = batch.get("positions3")
+        else:
+            tokens = torch.as_tensor(batch["tokens"], device=dev)
+            x = F.embedding(tokens, self.embed)
+            positions = batch.get("positions3", batch.get("positions"))
+        if positions is None:
+            positions = step_positions(pos0, x.shape[0], x.shape[1], dev)
+        else:
+            positions = torch.as_tensor(positions, device=dev)
+        if cfg.mrope_sections is not None and positions.dim() == 2:
+            positions = torch.stack([positions] * 3)
+        return x, positions
+
+    def project(self, x: torch.Tensor) -> torch.Tensor:
+        """The (tied or own) LM head; the audio family's logits are (B, T,
+        K, vocab)."""
+        logits = super().project(x)
+        if self.cfg.family == "audio":
+            b, t, _ = logits.shape
+            return logits.reshape(b, t, self.cfg.n_codebooks, self.cfg.vocab)
+        return logits
+
     # -- forward ----------------------------------------------------------------
     def forward_aux(self, batch, *, impl: str = "ref", train: bool = False):
-        """``(logits, aux)`` of ``batch["tokens"]`` (the reference's
-        ``apply``): logits (B, T, vocab); ``aux`` the MoE stack's mean
-        ``lb_loss``, ``z_loss`` and ``dropped``, and with ``train`` and
-        ``cfg.mtp`` the multi-token-prediction logits ``mtp_logits``.
+        """``(logits, aux)`` of the batch (the reference's ``apply``):
+        logits (B, T, vocab), the audio family's (B, T, K, vocab), the vlm
+        family's over its vision and text positions; ``aux`` the MoE
+        stack's mean ``lb_loss``, ``z_loss`` and ``dropped``, and with
+        ``train`` and ``cfg.mtp`` the multi-token-prediction logits
+        ``mtp_logits``.
         ``impl="cuda"``/``"auto"`` takes the sliding-window kernel in every
         windowed block; ``train`` checkpoints every block when the config
         asks for ``remat``."""
         cfg = self.cfg
-        emb, positions = self.embed_tokens(batch)
+        emb, positions = self.embed_batch(batch)
         x, _, aux = run_blocks(self.blocks, emb, positions, impl=impl,
                                remat=train and cfg.remat)
         x = rms_norm(x, self.final_norm)
@@ -340,8 +389,7 @@ class DecoderLM(TokenLM):
 
     def forward(self, batch, *, impl: str = "ref",
                 train: bool = False) -> torch.Tensor:
-        """Logits (B, T, vocab) of ``batch["tokens"]``
-        (:meth:`forward_aux` without the aux)."""
+        """The batch's logits (:meth:`forward_aux` without the aux)."""
         return self.forward_aux(batch, impl=impl, train=train)[0]
 
     # -- serving ------------------------------------------------------------------
@@ -354,12 +402,14 @@ class DecoderLM(TokenLM):
                 for name, blocks in self.stacks()}
 
     def decode_step(self, caches, batch, *, impl: str = "ref"):
-        """Append ``batch["tokens"]`` (B, T) to the caches and return
-        ``(logits, new_caches)``.  Positions continue from the first
-        stack's write position (each lane's own with lane caches), which
-        stays on the device (no host sync)."""
+        """Append the batch (``tokens`` (B, T); the audio family's
+        ``codes`` (B, K, T); the vlm family's may hold ``vision_embeds``)
+        to the caches and return ``(logits, new_caches)``.  Positions not
+        in the batch continue from the first stack's write position (each
+        lane's own with lane caches), which stays on the device (no host
+        sync)."""
         first = caches["dense"] if "dense" in caches else caches["moe"]
-        x, positions = self.embed_tokens(batch, first["pos"][0])
+        x, positions = self.embed_batch(batch, first["pos"][0])
         new = {}
         for name, blocks in self.stacks():
             x, new[name], _ = run_blocks(blocks, x, positions,
@@ -368,6 +418,7 @@ class DecoderLM(TokenLM):
 
     # -- partitioner view ------------------------------------------------------------
     def to_graph(self, seq: int) -> LayerGraph:
+        """The partitioner's layer graph at ``seq`` tokens."""
         return lm_graph(self.cfg, seq)
 
 

@@ -27,6 +27,7 @@ ARCH_IDS: List[str] = list(_CONFIG_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
+    """The published configuration of ``arch_id`` (one of ``ARCH_IDS``)."""
     if arch_id not in _CONFIG_MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
     return importlib.import_module(_CONFIG_MODULES[arch_id]).CONFIG
@@ -35,10 +36,8 @@ def get_config(arch_id: str) -> ModelConfig:
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None):
     """The model of ``cfg`` with weights drawn from ``generator``: an
-    ``SSMLM`` for the ssm and hybrid families, else a ``DecoderLM``.  The
-    dense, moe (with MLA and MTP), ssm and hybrid families are carried so
-    far; the audio and vlm families raise ``NotImplementedError`` naming
-    the ``ROADMAP.md`` item that brings them."""
+    ``SSMLM`` for the ssm and hybrid families, else a ``DecoderLM`` (the
+    dense, moe with MLA and MTP, audio and vlm families)."""
     if cfg.family in ("ssm", "hybrid"):
         from repro_torch.models.ssm_lm import SSMLM
         return SSMLM(cfg, device=device, generator=generator)

@@ -211,9 +211,11 @@ class SSMLM(TokenLM):
 
     # -- partitioner view ------------------------------------------------------------
     def to_graph(self, seq: int) -> LayerGraph:
+        """The partitioner's layer graph at ``seq`` tokens."""
         return ssm_graph(self.cfg, seq)
 
     def shared_groups(self) -> Dict[str, str]:
+        """The shared block's layers by weight group (:func:`shared_groups`)."""
         return shared_groups(self.cfg)
 
 

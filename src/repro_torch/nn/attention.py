@@ -1,6 +1,6 @@
-"""Attention machinery of the LM path: RoPE, GQA, qk-norm, sliding windows,
-KV caches (full and ring-buffer window) and DeepSeek-V3's multi-head latent
-attention (MLA) with its latent cache.
+"""Attention machinery of the LM path: RoPE and M-RoPE, GQA, qk-norm,
+sliding windows, KV caches (full and ring-buffer window) and DeepSeek-V3's
+multi-head latent attention (MLA) with its latent cache.
 
 Shapes as in the JAX package's ``repro.nn.attention``: activations
 (B, T, D); caches (B, S, n_kv, hd), S the cache capacity (full sequence or
@@ -25,14 +25,17 @@ Differences from the reference:
   ``"cuda"`` and ``"auto"`` take the reference's ``"pallas"`` branch, the
   sliding-window kernel of ``kernels.ops.window_attn``.
 
-M-RoPE (``apply_mrope``) is not ported yet.
+With M-RoPE (``mrope_sections``) positions are (3, B, T): temporal,
+height and width ids.  As in the reference, the ``sdpa`` branch and the
+cache branch mask by the temporal ids (``positions[0]``), while
+``chunked_sdpa`` and the window kernel mask by the row index.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -59,6 +62,27 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x: (B, T, H, hd); positions: (B, T) integer positions."""
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)     # (hd/2,)
     ang = positions[..., None].float() * freqs                  # (B, T, hd/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin,
+                      x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Tuple[int, ...],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, T, H, hd); positions3: (3, B, T),
+    the temporal, height and width ids; ``sections``: each axis's band of
+    the half-dims, summing to hd/2.  Band a of the angles is taken from
+    axis a, and the one concatenated angle rotates both halves."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, device=x.device)              # (hd/2,)
+    ang_all = positions3[..., None].float() * freqs             # (3,B,T,hd/2)
+    bands = torch.split(ang_all, list(sections), dim=-1)
+    ang = torch.cat([band[axis] for axis, band in enumerate(bands)], dim=-1)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin,
@@ -190,15 +214,18 @@ def cache_positions(cache: Cache, ring: bool) -> torch.Tensor:
 # -- GQA attention block -------------------------------------------------------
 
 class GQAAttention(nn.Module):
-    """Grouped-query attention with RoPE, qk-norm and an optional window.
+    """Grouped-query attention with RoPE or M-RoPE, qk-norm and an optional
+    window.  With ``mrope_sections`` the positions must be (3, B, T).
 
     Weights keep the reference's (in, out) layout (``x @ wq``)."""
 
     def __init__(self, d_model: int, n_heads: int, n_kv: int,
                  head_dim: Optional[int] = None, qkv_bias: bool = False,
                  qk_norm: bool = False, window: Optional[int] = None,
-                 rope_theta: float = 10000.0, *, dtype=torch.float32,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 rope_theta: float = 10000.0,
+                 mrope_sections: Optional[Tuple[int, ...]] = None, *,
+                 dtype=torch.float32, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.d = d_model
         self.h, self.kv = n_heads, n_kv
@@ -206,6 +233,7 @@ class GQAAttention(nn.Module):
         self.qkv_bias, self.qk_norm = qkv_bias, qk_norm
         self.window = window
         self.theta = rope_theta
+        self.mrope_sections = mrope_sections
         d, h, kv, hd = self.d, self.h, self.kv, self.hd
         init = dict(generator=generator, device=device, dtype=dtype)
         self.wq = normal_init((d, h * hd), d ** -0.5, **init)
@@ -232,8 +260,15 @@ class GQAAttention(nn.Module):
         if self.qk_norm:
             q = rms_norm(q, self.q_norm)
             k = rms_norm(k, self.k_norm)
-        q = apply_rope(q, positions, self.theta)
-        k = apply_rope(k, positions, self.theta)
+        if self.mrope_sections is not None:
+            if positions.dim() != 3:
+                raise ValueError("M-RoPE needs (3, B, T) positions, got "
+                                 f"{tuple(positions.shape)}")
+            q = apply_mrope(q, positions, self.mrope_sections, self.theta)
+            k = apply_mrope(k, positions, self.mrope_sections, self.theta)
+        else:
+            q = apply_rope(q, positions, self.theta)
+            k = apply_rope(k, positions, self.theta)
         return q, k, v
 
     def forward(self, x: torch.Tensor, *,
@@ -241,7 +276,9 @@ class GQAAttention(nn.Module):
                 cache: Optional[Cache] = None, impl: str = "ref"):
         """Prefill when ``cache`` is None; otherwise append to the cache and
         attend over it (decode, or a prefill that fills it).  Returns
-        ``(y, new_cache)``, ``new_cache`` None without a cache."""
+        ``(y, new_cache)``, ``new_cache`` None without a cache.  The
+        masks of the ``sdpa`` and cache branches read the temporal ids of
+        (3, B, T) positions, as the reference's do."""
         if impl not in kops.IMPLS:
             raise ValueError(f"unknown impl {impl!r}; valid choices: "
                              f"{', '.join(kops.IMPLS)}")
@@ -251,22 +288,22 @@ class GQAAttention(nn.Module):
         q, k, v = self._qkv(x, positions)
 
         new_cache = None
+        q_pos = positions if positions.dim() == 2 else positions[0]
         if cache is None:
             if self.window is not None and impl != "ref":
                 y = kops.window_attn(q, k, v, self.window, impl=impl)
             elif t >= 2048:
                 y = chunked_sdpa(q, k, v, self.window)
             else:
-                y = sdpa(q, k, v, causal_mask(positions, positions,
-                                              self.window))
+                y = sdpa(q, k, v, causal_mask(q_pos, q_pos, self.window))
         else:
             ring = self.window is not None and cache["k"].shape[1] <= self.window
             new_cache = cache_update(cache, k, v, ring=ring)
             kpos = cache_positions(new_cache, ring)        # (S,) or (B, S)
             kpos = (kpos if kpos.dim() == 2 else kpos[None])[:, None, :]
-            mask = (kpos >= 0) & (kpos <= positions[:, :, None])
+            mask = (kpos >= 0) & (kpos <= q_pos[:, :, None])
             if self.window is not None:
-                mask &= kpos > positions[:, :, None] - self.window
+                mask &= kpos > q_pos[:, :, None] - self.window
             y = sdpa(q, new_cache["k"].to(q.dtype),
                      new_cache["v"].to(q.dtype), mask)
         return y.reshape(b, t, self.h * self.hd) @ self.wo, new_cache

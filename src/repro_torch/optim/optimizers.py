@@ -101,6 +101,8 @@ def apply_updates(leaves: Mapping[str, Leaf], updates: Tree) -> None:
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+    """``grads`` scaled so that their global L2 norm is at most
+    ``max_norm``, and that norm before scaling (a device tensor)."""
     keys = list(grads)
     norms = torch._foreach_norm([grads[k].float() for k in keys])
     gn = torch.sqrt(torch.sum(torch.square(torch.stack(norms))))
@@ -110,6 +112,7 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tenso
 
 
 def sgd(lr, momentum: float = 0.9, nesterov: bool = False) -> Optimizer:
+    """SGD with (Nesterov) momentum; ``lr`` a number or a schedule."""
     sched = _to_schedule(lr)
 
     def init(params):
@@ -135,6 +138,8 @@ def sgd(lr, momentum: float = 0.9, nesterov: bool = False) -> Optimizer:
 
 def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           weight_decay: float = 0.01) -> Optimizer:
+    """AdamW, decoupled weight decay on the leaves of two or more
+    dimensions, as the reference decides; ``lr`` a number or a schedule."""
     sched = _to_schedule(lr)
 
     def init(params):
@@ -230,6 +235,7 @@ def adafactor(lr, min_dim_size_to_factor: int = 128,
 
 
 def get_optimizer(name: str, lr, **kw) -> Optimizer:
+    """The optimizer a config names (``adamw``, ``adafactor`` or ``sgd``)."""
     if name == "adamw":
         return adamw(lr, **kw)
     if name == "adafactor":

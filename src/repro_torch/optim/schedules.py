@@ -13,11 +13,14 @@ import torch
 
 
 def constant(lr: float):
+    """``lr`` at every step."""
     return lambda step: torch.full((), lr, dtype=torch.float32,
                                    device=step.device)
 
 
 def cosine_decay(lr: float, total_steps: int, final_frac: float = 0.1):
+    """Cosine decay from ``lr`` to ``final_frac * lr`` over
+    ``total_steps``."""
     def f(step):
         t = torch.clamp(step.float() / total_steps, 0.0, 1.0)
         cos = 0.5 * (1 + torch.cos(math.pi * t))
@@ -27,6 +30,8 @@ def cosine_decay(lr: float, total_steps: int, final_frac: float = 0.1):
 
 def warmup_cosine(lr: float, warmup_steps: int, total_steps: int,
                   final_frac: float = 0.1):
+    """Linear warmup to ``lr`` over ``warmup_steps``, then cosine decay to
+    ``final_frac * lr`` at ``total_steps``."""
     def f(step):
         s = step.float()
         warm = lr * s / max(warmup_steps, 1)

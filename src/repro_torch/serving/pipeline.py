@@ -107,6 +107,7 @@ class PartitionedCNNRunner:
 
     @property
     def n_stages(self) -> int:
+        """The number of stages (cuts + 1)."""
         return len(self.stage_blocks)
 
     def _run_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
@@ -181,9 +182,10 @@ class PartitionedLMRunner:
     stages only, so build a new runner after it.  With ``link_quant`` the
     activation leaving a quantized
     stage is fake-quantized to its width (per tensor), as it would cross
-    the link.  The reference's runner takes the dense, vlm and audio
-    families; the port's carries the dense one, and a moe model raises as
-    there.
+    the link.  It takes the dense, vlm and audio families, as the
+    reference's runner does, and a moe model raises as there; stage 0
+    embeds the batch by family (``DecoderLM.embed_batch``: codebooks,
+    vision embeddings, M-RoPE positions).
     """
 
     def __init__(self, model, cuts: Sequence[int],
@@ -212,6 +214,7 @@ class PartitionedLMRunner:
 
     @property
     def n_stages(self) -> int:
+        """The number of stages (cuts + 1)."""
         return len(self.ranges)
 
     @torch.no_grad()
@@ -224,7 +227,7 @@ class PartitionedLMRunner:
         dev = m.device
         lat, link_bytes = [], []
         t0 = time.perf_counter()
-        x, positions = m.embed_tokens(batch)
+        x, positions = m.embed_batch(batch)
         for si, blocks in enumerate(self._blocks):
             x, _, _ = run_blocks(blocks, x, positions)
             sync(dev)

@@ -151,6 +151,22 @@ def test_window_attn_kernel_head_dims_and_smollm_heads(cuda_device, h, kv,
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+# qwen2-vl-7b's head dim 128 and group 7 (28 query heads over 4 KV heads),
+# and head dim 160 at group 7, at the same tolerance
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,hd,t,window", [(7, 1, 128, 300, 100),
+                                              (14, 2, 128, 1000, 300),
+                                              (28, 4, 128, 640, 256),
+                                              (7, 1, 160, 300, 100),
+                                              (14, 2, 160, 129, 1000)])
+def test_window_attn_kernel_head_dim_128_160_group_7(cuda_device, h, kv, hd,
+                                                     t, window):
+    q, k, v = qkv(2, t, h, kv, hd, t + hd + h, cuda_device)
+    got = window_attn.window_attn(q, k, v, window)
+    want = ops.window_attn(q, k, v, window, impl="ref")
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
 # a NaN in q or k reaches the rows that see it, as in the plain version:
 # the 3xTF32 split rounds hi by an integer add, which turns a NaN whose
 # payload fills the mantissa (the card's canonical 0x7fffffff) into -0, so
@@ -202,6 +218,41 @@ def test_lm_forward_through_the_kernel_matches_ref(cuda_device):
     assert window_attn.window_attn.launches == before + cfg.n_layers
     torch.testing.assert_close(got, model({"tokens": tok}, impl="ref"),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim,sections", [(None, (8, 12, 12)),
+                                               (128, (16, 24, 24))])
+def test_vlm_forward_through_the_kernel_matches_ref(cuda_device, head_dim,
+                                                    sections):
+    """Reduced qwen2-vl-7b (window 128) with 16 vision patches at Qwen2-VL's
+    grid positions and 2032 tokens, at head dim 64 and at the model's 128:
+    the kernel in every block against ``impl="ref"``, which at 2048
+    positions takes ``chunked_sdpa``.  Both mask by the row index (below
+    2048 the ``sdpa`` branch masks by the temporal ids, as the
+    reference's)."""
+    cfg = dataclasses.replace(get_config("qwen2-vl-7b").reduced(),
+                              window=128, head_dim=head_dim,
+                              mrope_sections=sections)
+    model = DecoderLM(cfg, device=cuda_device)
+    rng = np.random.default_rng(0)
+    rows, cols = np.divmod(np.arange(16), 4)
+    text = 4 + np.arange(2032)
+    pos = np.stack([np.concatenate([np.zeros(16, int), text]),
+                    np.concatenate([rows, text]),
+                    np.concatenate([cols, text])])
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 2032)))
+             .to(cuda_device),
+             "vision_embeds": torch.from_numpy(rng.standard_normal(
+                 (2, 16, cfg.d_model)).astype(np.float32)).to(cuda_device),
+             "positions3": torch.from_numpy(np.broadcast_to(
+                 pos[:, None], (3, 2, 2048)).copy()).to(cuda_device)}
+    before = window_attn.window_attn.launches
+    got = model(batch, impl="cuda")
+    assert window_attn.window_attn.launches == before + cfg.n_layers
+    assert got.shape == (2, 2048, cfg.vocab)
+    torch.testing.assert_close(got, model(batch, impl="ref"), rtol=1e-4,
+                               atol=1e-4)
 
 
 # -- ssd_scan ---------------------------------------------------------------------

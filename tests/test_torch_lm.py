@@ -126,12 +126,21 @@ def test_registry_model_ref_builds_graph():
     assert shared is None and list(tg.nodes) == list(jg.nodes)
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("musicgen-large", "C9"), ("qwen2-vl-7b", "C10")])
-def test_build_model_raises_for_families_not_carried(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        registry.build_model(registry.get_config(arch).reduced(),
-                             device="cpu")
+@pytest.mark.parametrize("arch", ["musicgen-large", "qwen2-vl-7b"])
+def test_build_model_builds_audio_and_vlm(arch):
+    cfg = registry.get_config(arch).reduced()
+    model = registry.build_model(cfg, device="cpu")
+    assert isinstance(model, DecoderLM) and model.device.type == "cpu"
+    jparams, _ = jreg.build_model(jreg.get_config(arch).reduced()).init(
+        jax.random.PRNGKey(0))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        v.size for v in jax.tree_util.tree_leaves(jparams))
+    assert hasattr(model, "vis_proj") == (cfg.family == "vlm")
+    full = registry.build_model(registry.get_config(arch), device="meta")
+    assert sum(p.numel() for p in full.parameters()) == sum(
+        v.size for v in jax.tree_util.tree_leaves(jax.eval_shape(
+            lambda: jreg.build_model(jreg.get_config(arch)).init(
+                jax.random.PRNGKey(0))[0])))
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v3-671b"])
