@@ -36,6 +36,13 @@ for 8 text prompts of 128, then musicgen-large's forward of 4 clips of
 1500 frames and 20 greedy frames for 8 prompts of 250 through
 ``decode_step``, each under the profiler with the window kernel's and the
 matrix products' shares.
+``--pipeline`` only the pipeline of ``chip_smoke.py`` phase 18
+(smollm-360m at full width, 4 prompts of 8192 tokens): the monolithic
+forward, then ``pipelined_apply`` at 2 and at 4 stages over 4
+microbatches, each under the profiler with the device's busy share (the
+union of the kernels' intervals over the wall), the kernels' summed time
+beside it (their difference is the time kernels of two streams ran at
+once) and each stream's device time and launches.
 ``--cold`` instead runs ``chip_smoke.py``'s phases 1-3 as that script does, with the stage
 timers on the phase-3 search (the first search of the process), then the
 same search again warm.  The search part needs
@@ -96,6 +103,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import chip_smoke  # noqa: E402
 
+# the ignored build directory: the pipeline's trace
+BUILD = Path(__file__).resolve().parent / "build"
 STAGES = collections.OrderedDict()
 FRONTS = []
 
@@ -230,6 +239,9 @@ def main(argv) -> int:
     if "--families" in argv:
         family_profile(dev)
         return 0
+    if "--pipeline" in argv:
+        pipeline_profile(dev)
+        return 0
     res = search_profile(dev)
     if "--serve" in argv:
         serve_profile(dev)
@@ -295,6 +307,83 @@ def profiled(label, fn, top_n=12, groups=None, each=None):
                   f" ms, x{e.count}, "
                   f"{e.self_device_time_total / e.count / 1e3:.4f} ms each")
     return out
+
+
+
+def stream_profiled(label, fn):
+    """Run ``fn`` once under ``torch.profiler``; print its wall, the
+    device's busy share (the union of the kernels' intervals, read from
+    the Chrome trace), the kernels' summed time and each CUDA stream's
+    device time and launches, streams in the order of their first kernel.
+    Returns what ``fn`` returns."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    BUILD.mkdir(exist_ok=True)
+    path = BUILD / "pipeline_trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:                       # the union of the intervals
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    total = sum(e["dur"] for e in events)
+    streams = {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        sid = e.get("args", {}).get("stream", e.get("tid"))
+        acc = streams.setdefault(sid, [0.0, 0])
+        acc[0] += e["dur"]
+        acc[1] += 1
+    print(f"{label} (profiled): wall {wall:.3f} s, device busy "
+          f"{busy / 1e6:.3f} s = {100 * busy / 1e6 / wall:.1f} % of wall; "
+          f"kernels' summed time {total / 1e6:.3f} s (overlap of streams "
+          f"{(total - busy) / 1e6:.3f} s), {len(events)} launches")
+    for sid, (us, n) in streams.items():
+        print(f"  stream {sid}: {us / 1e3:.2f} ms of device time, {n} "
+              f"launches")
+    return out
+
+
+def pipeline_profile(dev):
+    """``chip_smoke.py`` phase 18's forwards under the profiler: the
+    monolithic forward, then the pipeline at each stage count."""
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.launch.pipeline import pipelined_apply, stack_stages
+    from repro_torch.models.registry import build_model, get_config
+    import numpy as np
+    cfg = get_config(chip_smoke.LM_ARCH)
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(chip_smoke.SEED))
+    rng = np.random.default_rng(chip_smoke.SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (chip_smoke.PIPE_B, chip_smoke.LM_T))).to(dev)}
+    runs = [("monolithic forward", lambda: model(batch, impl="cuda"))]
+    for n_stages in chip_smoke.PIPE_STAGES:
+        stages = stack_stages(model, n_stages)
+        mesh = make_stage_mesh(n_stages, dev)
+        runs.append((f"pipelined, {n_stages} stages x "
+                     f"{chip_smoke.PIPE_M} microbatches",
+                     lambda stages=stages, mesh=mesh: pipelined_apply(
+                         model, stages, batch, mesh, chip_smoke.PIPE_M,
+                         impl="cuda")))
+    with torch.no_grad():
+        for label, fn in runs:
+            fn()                                   # warm-up
+            torch.cuda.synchronize()
+            stream_profiled(f"{chip_smoke.LM_ARCH} {chip_smoke.PIPE_B} x "
+                            f"{chip_smoke.LM_T} tokens, {label}", fn)
+            torch.cuda.empty_cache()
 
 
 def lm_profile(dev, arch, groups=None, each=None,

@@ -4,6 +4,9 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+``--phases 18,19`` builds the kernels and runs only the listed phases of
+those that stand alone (4, 17, 18, 19), and prints no kernels line.
+
 It imports the port (``src/repro_torch``) and nothing of the JAX package,
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
 
@@ -183,10 +186,34 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     requests of 250 + 100 frames greedily through ``decode_step`` (its
     first step agreeing with the forward), lowers its loss in 3 AdamW
     steps at depth 24 (peak memory printed) and agrees between card and
-    CPU for one SGD step at depth 2.
+    CPU for one SGD step at depth 2;
+18. drives the pipeline once at full width, with every launch count set
+    to 0 just before and read just after each run: smollm-360m at its
+    published size forwards 4 prompts of 8192 tokens through
+    ``launch.pipeline.pipelined_apply`` at 2 and at 4 stages (each stage
+    on its own CUDA stream of the one card) over 4 microbatches of 1 x
+    8192 tokens, through the window kernel in every block of every
+    microbatch (exactly 32 x 4 launches), in agreement with the monolithic
+    forward through the kernel; the inputs of each run's last window
+    launch (1 x 8192 tokens, the microbatch's shape) are kept and the
+    kernel on them is held against its plain version (within ``WA_TOL``);
+    it prints the link tensor's bytes a handoff and the handoffs, both
+    walls, peak memory, and the explorer's stage boundary beside the
+    balanced split (not gated);
+19. checks the pod tooling: ``launch.dryrun`` of the reference's two
+    smoke pairs (single- and multi-pod, on the ``meta`` device) with 0
+    errors and ``diagnose`` of one pair (``--all``'s 40 pairs take over
+    two minutes of CPU, so they run in the CPU tests); then the dry-run's
+    estimate of phase 13's smollm-360m AdamW step (8 x 128,
+    remat, built by ``launch.steps.build_train_setup``) is held against
+    that step on the card: argument bytes within 1 % of the allocator's
+    after set-up,
+    FLOPs equal to the dispatch counter's on the real step (``impl
+    "ref"``), the estimated peak within 0.5-2x of the allocator's, and the
+    step's wall beside the roofline's ``bound_s``.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 17),
+card's name and power limit (also beside every time of phases 6 to 19),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -195,7 +222,9 @@ device.
 
 from __future__ import annotations
 
+import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -203,6 +232,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -411,6 +441,14 @@ TIE_TOL = 1e-5
 # the reference's bound for this model (tests/test_grad_accum.py:15,
 # ACCUM_TOL)
 VLM_ARCH, AUDIO_ARCH = "qwen2-vl-7b", "musicgen-large"
+# phase 18: smollm-360m's 4 prompts of 8192 tokens in 4 microbatches of 1,
+# at 2 and 4 stages; pipelined against monolithic at the reference test's
+# bound (tests/test_pipeline_multidev.py)
+PIPE_B, PIPE_M, PIPE_STAGES, PIPE_TOL = 4, 4, (2, 4), 2e-4
+# phase 19: the card check's step is phase 13's (TRAIN_B x TRAIN_T, AdamW,
+# remat)
+ARG_BYTES_REL = 0.01
+PEAK_RATIO = (0.5, 2.0)
 WA_VLM_NAME = "window_attn[qwen2-vl-7b]"
 VLM_B, VLM_T, VLM_RUN_TEXT = 2, 8192, 1792
 VLM_MEM = 8 * 2 ** 30
@@ -765,6 +803,19 @@ def valid_pairs(t: int, window: int) -> int:
     return w * (w + 1) // 2 + (t - w) * w
 
 
+def window_attn_plain(q, k, v, w):
+    """K5's plain version, one batch row and one KV head's query group at
+    a time: a row's (H, T, T) scores are 4 GB at smollm-360m's 15 heads,
+    7.5 GB at qwen2-vl-7b's 28."""
+    from repro_torch.kernels import ops
+    b, kv = q.shape[0], k.shape[2]
+    group = q.shape[2] // kv
+    return torch.cat([torch.cat([ops.window_attn(
+        q[i:i + 1, :, j * group:(j + 1) * group],
+        k[i:i + 1, :, j:j + 1], v[i:i + 1, :, j:j + 1], w, impl="ref")
+        for j in range(kv)], dim=2) for i in range(b)])
+
+
 def window_attn_shape(dev, arch, b, t, name, replaces):
     """K5 at ``arch``'s attention shape over ``b`` rows of ``t`` tokens
     against its plain version (within ``WA_TOL_MAIN``), timed beside the
@@ -772,23 +823,16 @@ def window_attn_shape(dev, arch, b, t, name, replaces):
     in by the path that runs the model)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops, window_attn
+    from repro_torch.kernels import window_attn
     from repro_torch.models.registry import get_config
     cfg = get_config(arch)
     h, kv, hd, w = cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim, cfg.window
     g = torch.Generator(device=dev).manual_seed(1)
     q, k, v = (torch.randn(s, generator=g, device=dev)
                for s in ((b, t, h, hd), (b, t, kv, hd), (b, t, kv, hd)))
-    group = h // kv
 
     def plain():
-        # one batch row and one KV head's query group at a time: a row's
-        # (H, T, T) scores are 4 GB at smollm-360m's 15 heads, 7.5 GB at
-        # qwen2-vl-7b's 28
-        return torch.cat([torch.cat([ops.window_attn(
-            q[i:i + 1, :, j * group:(j + 1) * group],
-            k[i:i + 1, :, j:j + 1], v[i:i + 1, :, j:j + 1], w, impl="ref")
-            for j in range(kv)], dim=2) for i in range(b)])
+        return window_attn_plain(q, k, v, w)
 
     got = window_attn.window_attn(q, k, v, w)
     want = plain()
@@ -2831,6 +2875,217 @@ def family_phase(dev, card, records):
     print(f"phase 17 in {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def pipeline_phase(dev, card, records):
+    """Phase 18: smollm-360m at full width pipelined at 2 and 4 stages
+    (stage streams on the one card, 4 microbatches) against the
+    monolithic forward, K5 counted in each pipelined run."""
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.launch.pipeline import (explorer_stage_boundary,
+                                             pipelined_apply, stack_stages)
+    from repro_torch.models.registry import build_model, get_config
+
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    kernels = all_kernels()
+    model = build_model(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PIPE_B, LM_T))).to(dev)}
+    with torch.no_grad():
+        model(batch, impl="cuda")                      # warm-up
+        mono, mono_s = timed(lambda: model(batch, impl="cuda"))
+    mb = PIPE_B // PIPE_M
+    link = mb * LM_T * cfg.d_model * 4                 # float32 (mb, T, d)
+    k5 = {}
+    for n_stages in PIPE_STAGES:
+        stages = stack_stages(model, n_stages)
+        mesh = make_stage_mesh(n_stages, dev)
+
+        def run():
+            return pipelined_apply(model, stages, batch, mesh, PIPE_M,
+                                   impl="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels.values():
+            k.launches = 0
+        with keep_window_attn_inputs(cfg.n_layers * PIPE_M - 1) as kept:
+            piped, first_s = timed(run)
+        launches = {name: k.launches for name, k in kernels.items()}
+        assert launches["window_attn"] == cfg.n_layers * PIPE_M, launches
+        assert sum(launches.values()) == launches["window_attn"], launches
+        k5[n_stages] = launches["window_attn"]
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        err = max_abs_diff(piped, mono)
+        del piped
+        piped_s = timed(run)[1]
+        bubble = (n_stages - 1) / (PIPE_M + n_stages - 1)
+        print(f"pipeline: {LM_ARCH} ({cfg.n_layers} layers, d "
+              f"{cfg.d_model}, window {cfg.window}) {PIPE_B} x {LM_T} tokens "
+              f"at {n_stages} stages of {cfg.n_layers // n_stages} blocks, "
+              f"{PIPE_M} microbatches of {mb} x {LM_T}: K5 launches "
+              f"{k5[n_stages]} ({cfg.n_layers} x {PIPE_M}); link tensor "
+              f"{link} B ({link / 2 ** 20:.2f} MiB) a handoff, "
+              f"{(n_stages - 1) * PIPE_M} handoffs; pipelined "
+              f"{first_s:.3f} s first, {piped_s:.3f} s second, monolithic "
+              f"{mono_s:.3f} s (ratio {piped_s / mono_s:.3f}; GPipe bubble "
+              f"(S-1)/(M+S-1) = {bubble:.3f}); peak device memory "
+              f"{peak:.2f} GiB; vs monolithic max_abs_err {err:.3e} (bound "
+              f"{PIPE_TOL}) [{card}]")
+        assert err <= PIPE_TOL, err
+        check_window_attn_kept(kept, f"{n_stages} stages' last launch", card)
+        del kept
+    del mono, model
+    torch.cuda.empty_cache()
+    for rec in records:
+        if rec["name"] == "window_attn":
+            rec["launches_in"] = (
+                f"phase 5's forward ({rec['launches']}); phase 18's pipelined "
+                f"forwards " + ", ".join(f"{n} at {s} stages" for s, n in
+                                         k5.items())
+                + f" ({cfg.n_layers} blocks x {PIPE_M} microbatches)")
+    for n_stages in PIPE_STAGES:
+        (cuts, res), search_s = timed(lambda: explorer_stage_boundary(
+            cfg, LM_T, n_stages, device=dev))
+        step = cfg.n_layers // n_stages
+        balanced = [(k + 1) * step - 1 for k in range(n_stages - 1)]
+        print(f"explorer_stage_boundary({LM_ARCH}, {LM_T}, {n_stages}): cut "
+              f"after blocks {cuts} ({res.strategy_used}, {search_s:.2f} s); "
+              f"balanced split {balanced}; agree: {cuts == balanced}")
+    print(f"phase 18 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+@contextlib.contextmanager
+def keep_window_attn_inputs(call: int):
+    """Inside, clones of the inputs of K5's ``call``-th launch (from 0) go
+    into the yielded dict, made on the stream that launched it.  The
+    dispatch's module handle is swapped, not the wrapper, whose count is
+    its own attribute."""
+    from repro_torch.kernels import ops
+    module, kept, n = ops._wa, {}, [0]
+
+    def keeping(q, k, v, window):
+        if n[0] == call:
+            kept.update(q=q.clone(), k=k.clone(), v=v.clone(), w=window)
+        n[0] += 1
+        return module.window_attn(q, k, v, window)
+    ops._wa = types.SimpleNamespace(window_attn=keeping)
+    try:
+        yield kept
+    finally:
+        ops._wa = module
+    assert kept, f"K5 was launched {n[0]} times, not {call + 1}"
+
+
+def check_window_attn_kept(kept, what, card):
+    """K5 on inputs the main path gave it against its plain version (within
+    ``WA_TOL``), both timed."""
+    from repro_torch.kernels import window_attn
+    q, k, v, w = kept["q"], kept["k"], kept["v"], kept["w"]
+    got = window_attn.window_attn(q, k, v, w)
+    want = window_attn_plain(q, k, v, w)
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, rtol=WA_TOL, atol=WA_TOL)
+    del got, want
+    ms = cuda_ms(lambda: window_attn.window_attn(q, k, v, w), 10)
+    plain_ms = cuda_ms(lambda: window_attn_plain(q, k, v, w), 2)
+    print(f"window_attn on {what}'s inputs: q {tuple(q.shape)}, k/v "
+          f"{tuple(k.shape)}, window {w}, max|q| {float(q.abs().max()):.3e}, "
+          f"max|v| {float(v.abs().max()):.3e}: max_abs_err {err:.3e} against "
+          f"the plain version (bound {WA_TOL}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms [{card}]")
+
+
+def pod_phase(dev, card):
+    """Phase 19: the reference's smoke pairs and ``diagnose`` on ``meta``,
+    then the dry-run's estimate of phase 13's step held against that step
+    on the card."""
+    t0 = time.perf_counter()
+    smoke_pairs(card)
+    card_check(dev, card)
+    print(f"phase 19 in {time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def smoke_pairs(card):
+    """The reference's two smoke pairs (tests/test_pipeline_multidev.py)
+    and ``diagnose`` of one pair, on ``meta``."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.diagnose import diagnose
+    t0 = time.perf_counter()
+    for arch, shape_name, multi_pod in (("smollm-360m", "decode_32k", False),
+                                        ("mamba2-370m", "train_4k", True)):
+        row = dryrun.dryrun_one(arch, shape_name, multi_pod=multi_pod)
+        assert "error" not in row, row
+        assert row["n_devices"] == (512 if multi_pod else 256), row
+        assert row["flops_per_device"] > 0 and row["bound_s"] > 0, row
+    diagnose(LM_ARCH, "train_4k", k=5)
+    print(f"dry-run smoke pairs and diagnose in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def card_check(dev, card):
+    """The dry-run's estimate of phase 13's step (built and counted on
+    meta) against that step on the card."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import CostCounter
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_train_setup
+    from repro_torch.models.registry import get_config
+    from repro_torch.nn import sharding as shd
+
+    cfg = get_config(LM_ARCH)
+    shape = ShapeConfig("phase13", TRAIN_T, TRAIN_B, "train")
+    mesh = make_host_mesh(device=dev)
+    rules = dryrun.run_rules(mesh, shape, False)
+    with shd.mesh_context(mesh, rules):
+        counter = CostCounter()
+        est, est_s = timed(lambda: build_train_setup(cfg, shape, mesh,
+                                                     counter=counter))
+        memory, roof = dryrun.account(est, counter, shape, mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        setup = build_train_setup(cfg, shape, mesh, device=dev, seed=SEED)
+        rng = np.random.default_rng(SEED)
+        tokens = torch.from_numpy(rng.integers(
+            0, cfg.vocab, (TRAIN_B, TRAIN_T + 1)).astype(np.int32)).to(dev)
+        batch = {"tokens": tokens[:, :-1].contiguous(),
+                 "labels": tokens[:, 1:].contiguous()}
+        args = (*setup.args[:3], batch)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) - base
+        arg_err = abs(held - memory["argument_bytes"]) / held
+        torch.cuda.reset_peak_memory_stats(dev)
+        real = CostCounter()
+        with real:
+            out, first_s = timed(lambda: setup.step_fn(*args))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        args = (args[0], out[1], args[2], batch)
+        out, step_s = timed(lambda: setup.step_fn(*args))
+        loss = float(out[3]["loss"])
+    del setup, out, args
+    torch.cuda.empty_cache()
+    ratio = memory["step_peak_bytes"] / peak
+    print(f"dry-run vs card: {LM_ARCH} AdamW step {TRAIN_B} x {TRAIN_T} "
+          f"(remat, {est.cfg.dtype}; built and counted on meta in "
+          f"{est_s:.2f} s): argument bytes estimated "
+          f"{memory['argument_bytes']} against {held} allocated after set-up "
+          f"(off by {arg_err:.2e}, bound {ARG_BYTES_REL}); FLOPs on meta "
+          f"{counter.flops:.6e}, counted on the card's step {real.flops:.6e}; "
+          f"peak estimated {memory['step_peak_bytes'] / 2 ** 30:.3f} GiB "
+          f"against {peak / 2 ** 30:.3f} GiB allocated (ratio {ratio:.3f}, "
+          f"gate {PEAK_RATIO}); step wall {step_s:.4f} s (first, counted: "
+          f"{first_s:.4f} s), roofline bound {roof.bound_s:.4e} s "
+          f"({roof.dominant}: compute {roof.compute_s:.4e} s, memory "
+          f"{roof.memory_s:.4e} s) = {roof.bound_s / step_s:.4f} of the "
+          f"wall; loss {loss:.4f} [{card}]")
+    assert math.isfinite(loss), loss
+    assert arg_err <= ARG_BYTES_REL, (held, memory["argument_bytes"])
+    assert real.flops == counter.flops, (real.flops, counter.flops)
+    assert PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1], ratio
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2839,7 +3094,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+# the phases that stand alone (``--phases``): what each needs of no other
+ALONE = {
+    "4": lambda dev, card, records: records.extend(check_window_attn(dev)),
+    "17": family_phase,
+    "18": pipeline_phase,
+    "19": lambda dev, card, records: pod_phase(dev, card),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", type=lambda v: v.split(","),
+                    help=f"run only these phases, of {', '.join(ALONE)}")
+    args = ap.parse_args(argv)
+    if args.phases and not set(args.phases) <= set(ALONE):
+        ap.error(f"--phases: only {', '.join(ALONE)} run alone")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2854,7 +3124,22 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     card = card_line()
+    if args.phases:
+        records = []
+        for phase in args.phases:
+            ALONE[phase](dev, card, records)
+        print(f"phases {', '.join(args.phases)} passed")
+    else:
+        report(all_phases(dev, card))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
+
+def all_phases(dev, card):
+    """Phases 1-19; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
@@ -2879,6 +3164,13 @@ def main() -> int:
     print(f"phase 15 in {time.perf_counter() - t0:.1f} s [{card}]")
     moe_phase(dev, card)
     family_phase(dev, card, records)
+    pipeline_phase(dev, card, records)
+    pod_phase(dev, card)
+    return records
+
+
+def report(records):
+    """The kernels' lines and their JSON line."""
     for r in records:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -2897,11 +3189,6 @@ def main() -> int:
             "library_ms", "launches_in", "design")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -51,12 +51,14 @@ are stacked three times where the config has ``mrope_sections``
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as GL
@@ -65,6 +67,7 @@ from repro_torch.nn.attention import GQAAttention, MLAAttention, MLAConfig
 from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.moe import MoEFFN
 from repro_torch.nn.module import constant, normal_init
+from repro_torch.nn.sharding import current_rules
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -148,14 +151,31 @@ def block_aux(blk: nn.Module, x: torch.Tensor, **kw):
     return out[0], out[2]
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy == "dots"``: keep the
+    matrix products' outputs, recompute the rest (the reference's
+    ``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_block(fn, blk: nn.Module, x: torch.Tensor, remat: bool, **kw):
     """``fn(blk, x, **kw)``; with ``remat`` under
     ``torch.utils.checkpoint``: the block's activations are recomputed in
     the backward instead of kept (the reference's ``jax.checkpoint`` of its
-    scan body)."""
-    if remat:
-        return checkpoint(fn, blk, x, use_reentrant=False, **kw)
-    return fn(blk, x, **kw)
+    scan body), all but the matrix products' outputs when the installed
+    rules say ``remat_policy == "dots"`` (``--opt remat_dots``)."""
+    if not remat:
+        return fn(blk, x, **kw)
+    policy = {}
+    if current_rules().get("remat_policy") == "dots":
+        policy["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return checkpoint(fn, blk, x, use_reentrant=False, **policy, **kw)
 
 
 def mean_aux(auxes: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:

@@ -10,7 +10,8 @@ Differences from the reference:
 
 * The sharding hooks of ``chunked_sdpa`` and ``GQAAttention`` (logical-axis
   hints, KV-head duplication for an ``attn_kv`` mesh axis) are no-ops on
-  one device and are left out.
+  one device and are left out; the rule-driven ``softmax_dtype`` of
+  ``nn.sharding.current_rules`` is kept.
 * ``cache_update`` writes into the cache's ``k`` and ``v`` in place (one
   copy of the cache on the device) and returns the cache with its new
   position.
@@ -43,6 +44,7 @@ from torch import nn
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.module import constant, normal_init
+from repro_torch.nn.sharding import current_rules
 
 Cache = Dict[str, torch.Tensor]
 NEG_INF = -1e30
@@ -121,7 +123,9 @@ def chunked_sdpa(q, k, v, window: Optional[int] = None,
 
     Never materializes the (T, T) score matrix: per step it is
     (chunk_q, S), so long prefills need O(T * chunk) intermediates.
-    q: (B,T,H,hd); k/v: (B,S,Kv,hd-like).
+    q: (B,T,H,hd); k/v: (B,S,Kv,hd-like).  The softmax runs in float32,
+    or in q's dtype when the installed rules say ``softmax_dtype ==
+    "compute"`` (``--opt softmax_low``), as the reference's.
     """
     b, t, h, hd = q.shape
     s, kv = k.shape[1], k.shape[2]
@@ -131,6 +135,7 @@ def chunked_sdpa(q, k, v, window: Optional[int] = None,
         chunk_q = t  # fallback: single chunk
     k_pos = torch.arange(s, device=q.device)
     scale = 1.0 / math.sqrt(hd)
+    low = current_rules().get("softmax_dtype") == "compute"
     out = q.new_empty((b, t, h, vd))
     for q0 in range(0, t, chunk_q):
         q_blk = q[:, q0:q0 + chunk_q].reshape(b, chunk_q, kv, group, hd)
@@ -138,7 +143,11 @@ def chunked_sdpa(q, k, v, window: Optional[int] = None,
         mask = causal_mask(q_pos, k_pos, window)
         sc = torch.einsum("bckgh,bskh->bkgcs", q_blk, k) * scale
         sc = torch.where(mask[None, None, None], sc, NEG_INF)
-        p = torch.softmax(sc.float(), dim=-1).to(q.dtype)
+        # §Perf "softmax_low": keep the softmax in the compute dtype
+        if low:
+            p = torch.softmax(sc, dim=-1)
+        else:
+            p = torch.softmax(sc.float(), dim=-1).to(q.dtype)
         o = torch.einsum("bkgcs,bskh->bckgh", p, v)
         out[:, q0:q0 + chunk_q] = o.reshape(b, chunk_q, h, vd)
     return out

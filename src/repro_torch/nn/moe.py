@@ -159,7 +159,11 @@ class MoEFFN(nn.Module):
             y = y + gated_ffn(x, self.sh_gate, self.sh_up, self.sh_down)
 
         me = scores.reshape(-1, self.e).mean(0)                 # (E,)
-        counts = torch.bincount(idx.reshape(-1), minlength=self.e).float()
+        # tokens per expert: exact integers in float32 (a count below 2**24),
+        # summed by index_add_, which the meta device runs, unlike bincount
+        flat = idx.reshape(-1)
+        counts = torch.zeros(self.e, device=flat.device).index_add_(
+            0, flat, torch.ones(flat.shape, device=flat.device))
         ce = counts / (b * t)                                   # tokens/expert
         aux = {"lb_loss": self.e * torch.sum(me * ce / self.k),
                "z_loss": torch.mean(torch.logsumexp(logits, -1) ** 2),

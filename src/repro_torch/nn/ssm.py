@@ -111,7 +111,10 @@ def ssd_step(state, x_t, dt_t, A, B_t, C_t, D: Optional[torch.Tensor] = None):
     dBx = (B_t[:, None, None, :] * x_t[..., None]
            * dt_t[..., None, None])                        # (b,h,p,n)
     new_state = state * dA[..., None, None] + dBx
-    y = torch.einsum("bhpn,bn->bhp", new_state, C_t)
+    # the float32 state and a bfloat16 C_t meet in float32, as jnp.einsum
+    # promotes them
+    y = torch.einsum("bhpn,bn->bhp", new_state,
+                     C_t.to(torch.result_type(new_state, C_t)))
     if D is not None:
         y = y + x_t * D[None, :, None]
     return y, new_state

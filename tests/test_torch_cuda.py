@@ -639,3 +639,75 @@ def test_moe_decode_on_card_matches_forward(cuda_device, arch):
         np.testing.assert_allclose(got, want[slot, -1].cpu().numpy(),
                                    rtol=2e-5, atol=2e-5)
     assert sd.decode(np.zeros(3, np.int32)).shape == (3, cfg.vocab)
+
+
+# -- the pipeline and the dry-run's estimate (launch/) --------------------------
+
+def pipeline_model(device):
+    """Reduced smollm-360m at 4 layers, window 128, and 4 x 512 tokens (T
+    above the window, so K5 is taken)."""
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              window=128, n_layers=4)
+    model = build_model(cfg, device=device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 512))).to(device)
+    return cfg, model, {"tokens": toks}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_stages", [2, 4])
+def test_pipelined_forward_through_the_kernel_matches_ref(cuda_device,
+                                                         n_stages):
+    """Stage streams on one card, K5 in every block: the logits of the
+    monolithic forward at ``impl="ref"`` within the reference test's
+    bound (tests/test_pipeline_multidev.py)."""
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.launch.pipeline import pipelined_apply, stack_stages
+    cfg, model, batch = pipeline_model(cuda_device)
+    with torch.no_grad():
+        want = model(batch, impl="ref")
+    got = pipelined_apply(model, stack_stages(model, n_stages), batch,
+                          make_stage_mesh(n_stages, cuda_device), 4,
+                          impl="cuda")
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_pipeline_launches_the_kernel_per_block_and_microbatch(cuda_device):
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.launch.pipeline import pipelined_apply, stack_stages
+    cfg, model, batch = pipeline_model(cuda_device)
+    for n_micro in (1, 2, 4):
+        before = window_attn.window_attn.launches
+        pipelined_apply(model, stack_stages(model, 4), batch,
+                        make_stage_mesh(4, cuda_device), n_micro)
+        assert window_attn.window_attn.launches - before == \
+            cfg.n_layers * n_micro
+
+
+@pytest.mark.cuda
+def test_train_setup_argument_bytes_match_the_allocator(cuda_device):
+    """The dry-run's argument bytes of a reduced smollm-360m AdamW step
+    (built on meta) within 1 % of what the allocator holds after the same
+    setup is built on the card with its batch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.rules import per_device_bytes
+    from repro_torch.launch.steps import build_train_setup
+    cfg = get_config("smollm-360m").reduced()
+    shape = ShapeConfig("small", 64, 4, "train")
+    mesh = make_host_mesh(device=cuda_device)
+    est = build_train_setup(cfg, shape, mesh)
+    want = per_device_bytes(est.arg_shapes, est.in_shardings)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    setup = build_train_setup(cfg, shape, mesh, device=cuda_device)
+    batch = {k: torch.zeros((4, 64), dtype=torch.int32, device=cuda_device)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert abs(held - want) <= 0.01 * held, (held, want)
+    params, opt_state, metrics = setup.args[0], setup.args[1], None
+    out = setup.step_fn(params, opt_state, {}, batch)
+    metrics = out[3]
+    assert torch.isfinite(metrics["loss"])
