@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (4, 17, 18, 19), and prints no kernels line.
+those that stand alone (4, 17, 18, 19, 20), and prints no kernels line.
 
 It imports the port (``src/repro_torch``) and nothing of the JAX package,
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
@@ -210,10 +210,17 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     after set-up,
     FLOPs equal to the dispatch counter's on the real step (``impl
     "ref"``), the estimated peak within 0.5-2x of the allocator's, and the
-    step's wall beside the roofline's ``bound_s``.
+    step's wall beside the roofline's ``bound_s``;
+20. runs the port's static analyzer, ``python -m repro_torch.analysis``
+    over ``src/repro_torch``, this script and ``chip_profile.py`` under
+    ``.analysis-baseline-torch.json``, in a process where ``torch`` and
+    ``jax`` cannot be imported (exit 0: no finding the baseline does not
+    justify), and checks that the wrappers the analyzer finds launching a
+    kernel in ``repro_torch/kernels/`` are exactly the five whose
+    ``launches`` counters this script reads (K1-K5).
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 19),
+card's name and power limit (also beside every time of phases 6 to 20),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -228,6 +235,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -238,7 +246,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-SRC = Path(__file__).resolve().parent / "src"
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
 sys.path.insert(0, str(SRC))
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bytes/s and
@@ -3094,12 +3103,53 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# phase 20: the analyzer's gate, the port's CI command
+ANALYZER_ARGS = ("src/repro_torch", "chip_smoke.py", "chip_profile.py",
+                 "--baseline", ".analysis-baseline-torch.json",
+                 "--format", "json")
+# torch and jax blocked before the analyzer runs: it must need neither
+ANALYZER_MAIN = ("import runpy, sys; sys.modules['torch'] = None; "
+                 "sys.modules['jax'] = None; "
+                 "sys.argv = ['repro_torch.analysis'] + sys.argv[1:]; "
+                 "runpy.run_module('repro_torch.analysis', "
+                 "run_name='__main__')")
+
+
+def analyzer_phase(card):
+    """Phase 20: the port's static analyzer over the port and the two chip
+    scripts, in a process without torch and jax, exit 0; the wrappers it
+    finds launching in ``kernels/`` are the ones whose counters this
+    script reads."""
+    from repro_torch.analysis.rules_kernel import kernel_wrappers
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", ANALYZER_MAIN, *ANALYZER_ARGS], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+        text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    assert out.returncode == 0, (out.returncode, out.stdout[-4000:],
+                                 out.stderr[-4000:])
+    report = json.loads(out.stdout)
+    found = kernel_wrappers(str(SRC / "repro_torch" / "kernels"))
+    counted = sorted(f"{fn.__module__}.{fn.__name__}"
+                     for fn in all_kernels().values())
+    print(f"analyzer: {report['files']} files, {len(report['findings'])} "
+          f"findings, {len(report['suppressed'])} suppressed, "
+          f"{len(report['stale_baseline_keys'])} stale baseline entries, "
+          f"{seconds:.2f} s (torch and jax blocked, exit "
+          f"{out.returncode}); launching wrappers in kernels/: "
+          f"{', '.join(f.rsplit('.', 1)[1] for f in found)} [{card}]")
+    assert not report["findings"] and not report["stale_baseline_keys"]
+    assert found == counted, (found, counted)
+
+
 # the phases that stand alone (``--phases``): what each needs of no other
 ALONE = {
     "4": lambda dev, card, records: records.extend(check_window_attn(dev)),
     "17": family_phase,
     "18": pipeline_phase,
     "19": lambda dev, card, records: pod_phase(dev, card),
+    "20": lambda dev, card, records: analyzer_phase(card),
 }
 
 
@@ -3139,7 +3189,7 @@ def main(argv=None) -> int:
 
 
 def all_phases(dev, card):
-    """Phases 1-19; the kernels' records."""
+    """Phases 1-20; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
@@ -3166,6 +3216,7 @@ def all_phases(dev, card):
     family_phase(dev, card, records)
     pipeline_phase(dev, card, records)
     pod_phase(dev, card)
+    analyzer_phase(card)
     return records
 
 
