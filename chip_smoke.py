@@ -5,7 +5,8 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (4, 17, 18, 19, 20), and prints no kernels line.
+those that stand alone (4, 17, 18, 19, 20, 21), and prints no kernels
+line.
 
 It imports the port (``src/repro_torch``) and nothing of the JAX package,
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
@@ -217,10 +218,30 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     ``jax`` cannot be imported (exit 0: no finding the baseline does not
     justify), and checks that the wrappers the analyzer finds launching a
     kernel in ``repro_torch/kernels/`` are exactly the five whose
-    ``launches`` counters this script reads (K1-K5).
+    ``launches`` counters this script reads (K1-K5);
+21. runs the five example twins (``examples/*_torch.py``: the quickstart
+    tour, the automotive chain, the pod campaign, the serve launcher, QAT)
+    each as its own process on the card at the reference examples' sizes,
+    from an empty working directory with ``PYTHONPATH=src``: each exits 0,
+    its own checks holding (the fleet's merge equal to the serial
+    campaign by fingerprint, every request served, the analyzer gate
+    exiting 0, QAT keeping the 4-bit accuracy), and its output shows
+    them; the quickstart's two tensor searches (step 4: ``torch_nsga2`` at
+    population 4096 x 40; step 5: 2048 x 12, two restarts, 512-row tiles)
+    set the Pareto kernels' counts to 0 just before and print them just
+    after, and each launched the domination kernel (K1); the
+    dominator-count kernel (K2) takes a front only past 8192 individuals
+    (``TorchNSGA2Search._DENSE_PARETO_MAX``, the reference's threshold),
+    so at these populations the host does, and its count is printed.
+    Then, in this process, the same two searches on the card with the
+    inputs and tiles of K1's last launch in each kept (8192 x 3 objectives
+    in 2048-row tiles; 4096 x 2 in 512-row tiles): K1 on them bit-exact
+    against its plain version, both timed, each front exact against the
+    NumPy evaluator, and step 4's front against the same spec's search on
+    the CPU at the Pareto-front level.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 20),
+card's name and power limit (also beside every time of phases 6 to 21),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -3143,6 +3164,170 @@ def analyzer_phase(card):
     assert found == counted, (found, counted)
 
 
+# phase 21: the example twins, each run as its own process on the card
+EXAMPLES = ("quickstart", "automotive_chain", "partition_llm_pods",
+            "serve_partitioned", "train_qat")
+EXAMPLE_TIMEOUT = 600
+# what each example prints when its own checks held, and the lines of its
+# output this script shows
+EXAMPLE_SHOWS = {
+    "quickstart": ("fleet merged report == serial campaign report",
+                   "0 finding(s)", "serve: 8 request(s)"),
+    "automotive_chain": ("squeezenet11: pareto front",
+                         "efficientnet_b0: pareto front"),
+    "partition_llm_pods": ("2pods over dci:", "4pods over dci:"),
+    "serve_partitioned": ("async pipeline:", "8 request(s)"),
+    "train_qat": ("fp32 accuracy:", "4-bit PTQ accuracy:",
+                  "4-bit QAT accuracy:"),
+}
+EXAMPLE_LINES = ("kernel launches", "fleet merged", "finding(s)", "serve: ",
+                 "partitions, lat=", "selected cuts: ", "[serve] serial",
+                 "accuracy:")
+RE_LAUNCHES = re.compile(r"^step (\d) kernel launches: (\{.*\})$", re.M)
+
+
+def examples_phase(dev, card):
+    """Phase 21: the five example twins on the card, each a process of its
+    own from an empty working directory; exit 0, their checks shown, K1
+    launched in each of the quickstart's tensor searches; then K1 held at
+    those searches' shapes (``quickstart_kernel_check``)."""
+    import tempfile
+
+    torch.cuda.empty_cache()            # the earlier phases' cached blocks
+    t_phase = time.perf_counter()
+    walls = {}
+    for name in EXAMPLES:
+        with tempfile.TemporaryDirectory() as cwd:
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, str(ROOT / "examples" / f"{name}_torch.py")],
+                cwd=cwd, env=dict(os.environ, PYTHONPATH=str(SRC)),
+                capture_output=True, text=True, timeout=EXAMPLE_TIMEOUT)
+            walls[name] = time.perf_counter() - t0
+        assert out.returncode == 0, (name, out.returncode,
+                                     out.stdout[-4000:], out.stderr[-4000:])
+        for shown in EXAMPLE_SHOWS[name]:
+            assert shown in out.stdout, (name, shown, out.stdout[-4000:])
+        for line in out.stdout.splitlines():
+            if any(marker in line for marker in EXAMPLE_LINES):
+                print(f"  {name}: {line.strip()}")
+        if name == "quickstart":
+            launches = {int(step): json.loads(counts) for step, counts
+                        in RE_LAUNCHES.findall(out.stdout)}
+            assert sorted(launches) == [4, 5], launches
+            for step, counts in launches.items():
+                assert counts["packed_domination"] > 0, (step, counts)
+            print(f"example quickstart: kernel launches in step 4 "
+                  f"(torch_nsga2 pop 4096 x 40) {launches[4]}, step 5 "
+                  f"(pop 2048 x 12, 2 restarts) {launches[5]}")
+        print(f"example {name}_torch.py: exit 0 in {walls[name]:.1f} s "
+              f"[{card}]")
+    print(f"phase 21: {len(EXAMPLES)} examples in {sum(walls.values()):.1f} "
+          f"s [{card}]")
+    quickstart_kernel_check(dev, card)
+    print(f"phase 21 in {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
+@contextlib.contextmanager
+def keep_pareto_inputs():
+    """Inside, clones of the inputs and tiles of K1's last launch go into
+    the yielded dict.  The dispatch's module handle is swapped, not the
+    wrapper, whose count is its own attribute."""
+    from repro_torch.kernels import ops
+    module, kept = ops._kern, {}
+
+    def keeping(f_rows, cv_rows, f_cols, cv_cols, *, bp, bq):
+        kept.update(args=tuple(a.clone() for a in
+                               (f_rows, cv_rows, f_cols, cv_cols)),
+                    bp=bp, bq=bq)
+        return module.packed_domination(f_rows, cv_rows, f_cols, cv_cols,
+                                        bp=bp, bq=bq)
+    ops._kern = types.SimpleNamespace(
+        packed_domination=keeping,
+        domination_counts=module.domination_counts)
+    try:
+        yield kept
+    finally:
+        ops._kern = module
+    assert kept, "K1 was not launched"
+
+
+def check_pareto_kept(kept, what, card):
+    """K1 on inputs a search gave it, with that search's tiles, bit-exact
+    against its plain version; both timed, beside the bound."""
+    from repro_torch.kernels import pareto_rank, ref
+    F, CV, Fc, CVc = kept["args"]
+    bp, bq = kept["bp"], kept["bq"]
+    assert torch.equal(F, Fc) and torch.equal(CV, CVc), \
+        "a search ranks its population against itself"
+    got = pareto_rank.packed_domination(F, CV, Fc, CVc, bp=bp, bq=bq)
+    want = ref.packed_domination(F, CV, Fc, CVc, bp)
+    err = max_abs_err(got, want)
+    assert err == 0 and torch.equal(got, want), ("packed_domination", what)
+    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, Fc, CVc,
+                                                       bp=bp, bq=bq), 20)
+    plain = cuda_ms(lambda: ref.packed_domination(F, CV, Fc, CVc, bp), 3)
+    n, m = F.shape
+    n_bytes = 2 * n * (m + 1) * 4 + got.numel() * 4
+    b_ms, b_by = bound(n_bytes, pair_ops(F.cpu().numpy(), CV.cpu().numpy()))
+    print(f"packed_domination on {what}'s last ranking: F ({n}, {m}), "
+          f"infeasible {int((CV > 0).sum())}, bp {bp}, bq {bq}: "
+          f"max_abs_err {err} against the plain version (bit-exact); kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}) [{card}]")
+
+
+def quickstart_kernel_check(dev, card):
+    """The quickstart's step 4 (``torch_nsga2`` 4096 x 40) and step 5 (2048
+    x 12, two restarts, 512-row tiles) in this process on the card, with
+    K1's last launch in each kept and held against its plain version; each
+    front exact against the NumPy evaluator; step 4's front against the
+    same spec's search on the CPU at the Pareto-front level (they differ
+    by RNG): no point of one dominates a point of the other by more than 2
+    % of an objective's range, and their minima agree within 8 %."""
+    import importlib.util
+    import io
+    from repro_torch.core.graph import linearize
+
+    loader = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    ex = importlib.util.module_from_spec(loader)
+    loader.loader.exec_module(ex)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        spec = ex.make_spec()
+        with keep_pareto_inputs() as kept4:
+            card4 = ex.tensor_search(spec, str(dev))
+        with keep_pareto_inputs() as kept5:
+            card5 = ex.scaled_search(str(dev))
+    card_s = time.perf_counter() - t0
+    for what, kept in (("step 4", kept4), ("step 5", kept5)):
+        check_pareto_kept(kept, what, card)
+    for res, s in ((card4, spec), (card5, ex.scale_spec())):
+        graph, _ = s.model.build()
+        assert_exact_front(res, graph, linearize(graph, s.schedule_policy),
+                           s.system)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu4 = ex.tensor_search(spec, "cpu")
+    cpu_s = time.perf_counter() - t0
+    Fd = np.array([e.as_objectives(spec.objectives) for e in card4.pareto])
+    Fh = np.array([e.as_objectives(spec.objectives) for e in cpu4.pareto])
+    assert np.isfinite(Fd).all() and Fd.shape[1] == len(spec.objectives)
+    scale = np.ptp(np.concatenate([Fd, Fh]), axis=0) + 1e-12
+    for Fa, Fb in ((Fd, Fh), (Fh, Fd)):
+        clear = [(f, Fb[np.all(f <= Fb - 0.02 * scale, axis=1)])
+                 for f in Fa]
+        assert not any(len(b) for _, b in clear), "a front clearly dominates"
+    assert (np.abs(Fd.min(axis=0) - Fh.min(axis=0)) <= 0.08 * scale).all()
+    same = sorted(e.cuts for e in card4.pareto) == sorted(
+        e.cuts for e in cpu4.pareto)
+    print(f"quickstart step 4 front on the card ({len(Fd)} points) against "
+          f"the CPU's ({len(Fh)} points): equivalent, the same cuts: {same}; "
+          f"steps 4-5 on the card {card_s:.1f} s, step 4 on the CPU "
+          f"{cpu_s:.1f} s [{card}]")
+
+
 # the phases that stand alone (``--phases``): what each needs of no other
 ALONE = {
     "4": lambda dev, card, records: records.extend(check_window_attn(dev)),
@@ -3150,6 +3335,7 @@ ALONE = {
     "18": pipeline_phase,
     "19": lambda dev, card, records: pod_phase(dev, card),
     "20": lambda dev, card, records: analyzer_phase(card),
+    "21": lambda dev, card, records: examples_phase(dev, card),
 }
 
 
@@ -3189,7 +3375,7 @@ def main(argv=None) -> int:
 
 
 def all_phases(dev, card):
-    """Phases 1-20; the kernels' records."""
+    """Phases 1-21; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
@@ -3217,6 +3403,7 @@ def all_phases(dev, card):
     pipeline_phase(dev, card, records)
     pod_phase(dev, card)
     analyzer_phase(card)
+    examples_phase(dev, card)
     return records
 
 

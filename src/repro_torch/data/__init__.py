@@ -1,1 +1,2 @@
-from repro_torch.data.synthetic import SyntheticImages, SyntheticTokens
+from repro_torch.data.synthetic import (SyntheticImages, SyntheticTokens,
+                                        batch_iterator, make_batch_for)

@@ -2,9 +2,10 @@
 own counter of a PyTorch callable (the JAX package's
 ``repro.launch.hlo_analysis``).
 
-**HLO text** (:func:`parse_computations`, :func:`analyze_text`; a copy
-of the reference's parser, stdlib only, the same results on the same
-text: it reads HLO that XLA dumped, since the port itself produces none).  ``compiled.cost_analysis()`` counts
+**HLO text** (:func:`parse_computations`, :func:`analyze_text`,
+:func:`top_collectives`; a copy of the reference's parser, stdlib only,
+the same results on the same text: it reads HLO that XLA dumped, since
+the port itself produces none).  ``compiled.cost_analysis()`` counts
 while-loop bodies ONCE, ignoring trip count; this parser builds the
 computation call graph, reads each while op's ``backend_config
 known_trip_count``, and multiplies every computation's costs by its
@@ -36,6 +37,7 @@ Elementwise FLOPs are ignored (they are bandwidth-, not compute-bound).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import re
 import weakref
@@ -264,15 +266,11 @@ class HloCosts:
     write_bytes: float
 
 
-def analyze_text(text: str) -> HloCosts:
-    comps = parse_computations(text)
-    entry = comps.pop("__entry_name__", None)  # type: ignore
-    comps.pop("__entry__", None)
-    if entry is None:
-        return HloCosts(0, 0, {k: 0 for k in _COLLECTIVES}, 0)
-    # execution multipliers: topological propagation over the call DAG
-    # (callers processed before callees; edge weights sum over call sites)
-    import collections
+def _multipliers(comps: Dict[str, CompCost], entry: Optional[str]
+                 ) -> Dict[str, float]:
+    """Each computation's execution count: a topological propagation over
+    the call DAG from the entry (callers before callees; edge weights
+    summed over call sites)."""
     edges: Dict[str, Dict[str, float]] = collections.defaultdict(dict)
     indeg: Dict[str, int] = {c: 0 for c in comps}
     for c, cc in comps.items():
@@ -284,7 +282,8 @@ def analyze_text(text: str) -> HloCosts:
             edges[c][callee] = m
             indeg[callee] += 1
     mult: Dict[str, float] = {c: 0.0 for c in comps}
-    mult[entry] = 1.0
+    if entry:
+        mult[entry] = 1.0
     order = collections.deque([c for c in comps if indeg[c] == 0])
     while order:
         c = order.popleft()
@@ -293,6 +292,16 @@ def analyze_text(text: str) -> HloCosts:
             indeg[callee] -= 1
             if indeg[callee] == 0:
                 order.append(callee)
+    return mult
+
+
+def analyze_text(text: str) -> HloCosts:
+    comps = parse_computations(text)
+    entry = comps.pop("__entry_name__", None)  # type: ignore
+    comps.pop("__entry__", None)
+    if entry is None:
+        return HloCosts(0, 0, {k: 0 for k in _COLLECTIVES}, 0)
+    mult = _multipliers(comps, entry)
     tot = HloCosts(0.0, 0.0, {k: 0.0 for k in _COLLECTIVES}, 0.0)
     for name, cc in comps.items():
         f = mult.get(name, 0.0)
@@ -304,6 +313,41 @@ def analyze_text(text: str) -> HloCosts:
         for k, v in cc.coll_by_kind.items():
             tot.coll_by_kind[k] += f * v
     return tot
+
+
+def top_collectives(text: str, k: int = 15):
+    """The k largest collectives of dumped HLO text (bytes × execution
+    count) with the JAX op they came from (metadata ``op_name``), as
+    ``(bytes, opcode, op_name, computation)`` tuples, largest first."""
+    comps = parse_computations(text)
+    entry = comps.pop("__entry_name__", None)  # type: ignore
+    comps.pop("__entry__", None)
+    mult = _multipliers(comps, entry)
+    # a second pass over the text attributes each collective line
+    out = []
+    cur = None
+    for line in text.splitlines():
+        if not line.startswith(" "):
+            m = _RE_COMP.match(line.strip())
+            if m and "{" in line:
+                cur = m.group(1)
+            continue
+        if cur is None or not any(c in line for c in _COLLECTIVES):
+            continue
+        mdef = _RE_DEF.match(line)
+        if not mdef:
+            continue
+        rest = mdef.group(2)
+        opcode = _opcode_of(rest)
+        if opcode not in _COLLECTIVES:
+            continue
+        head = rest.split("(")[0]
+        shapes = _shape_list(head) or _shape_list(rest[:100])
+        nbytes = _nbytes(shapes) * max(mult.get(cur, 0.0), 0.0)
+        mname = re.search(r'op_name="([^"]*)"', line)
+        out.append((nbytes, opcode, mname.group(1) if mname else "?", cur))
+    out.sort(reverse=True)
+    return out[:k]
 
 
 # -- the port's producer: a dispatch-mode counter of a torch callable ---------

@@ -17,16 +17,66 @@ the other two; so a rule that only reshards (``fsdp``, ``expert_ep``,
 Hardware constants: NVIDIA's H100 SXM5 data sheet — 989 TFLOP/s dense
 bf16 on the tensor cores, 3.35 TB/s HBM3, 450 GB/s NVLink in each
 direction (900 GB/s both ways).  They assume the full 700 W power limit.
+
+:func:`collective_bytes` reads the collectives of HLO text that XLA
+dumped (a copy of the reference's parser: the same result on the same
+text); the port's own steps produce no HLO.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Dict, Optional
+
+from repro_torch.launch.hlo_analysis import _COLLECTIVES, _RE_SHAPE
 
 PEAK_FLOPS = 989e12          # bf16 dense, tensor cores / card
 HBM_BW = 3.35e12             # B/s / card, HBM3
 LINK_BW = 450e9              # B/s / card, NVLink, one direction
+
+# narrower than ``hlo_analysis._DTYPE_BYTES``, as in the reference: a type
+# outside it (s4, f8e4m3fn, ...) counts 4 bytes here
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2, "f16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8, "c64": 8,
+    "c128": 16,
+}
+
+# e.g.:  %all-gather.3 = bf16[16,512,1024]{2,1,0} all-gather(...)
+_RE_OP = re.compile(
+    r"=\s*(?:\()?\s*([a-z0-9]+)\[([\d,]*)\][^=]*?\s("
+    + "|".join(_COLLECTIVES) + r")\(")
+# tuple-result collectives:  = (bf16[...], bf16[...]) all-reduce(
+_RE_TUPLE = re.compile(
+    r"=\s*\(([^)]*)\)\s*(" + "|".join(_COLLECTIVES) + r")\(")
+
+
+def _shape_bytes(dtype: str, dims: str) -> int:
+    n = 1
+    if dims:
+        for d in dims.split(","):
+            n *= int(d)
+    return n * _DTYPE_BYTES.get(dtype, 4)
+
+
+def collective_bytes(hlo_text: str) -> Dict[str, int]:
+    """Per-collective-kind output bytes (per device, post-SPMD HLO)."""
+    out = {k: 0 for k in _COLLECTIVES}
+    for line in hlo_text.splitlines():
+        if not any(c in line for c in _COLLECTIVES):
+            continue
+        m = _RE_OP.search(line)
+        if m:
+            dtype, dims, kind = m.groups()
+            out[kind] += _shape_bytes(dtype, dims)
+            continue
+        m = _RE_TUPLE.search(line)
+        if m:
+            shapes, kind = m.groups()
+            for dtype, dims in _RE_SHAPE.findall(shapes):
+                out[kind] += _shape_bytes(dtype, dims)
+    return out
 
 
 @dataclasses.dataclass

@@ -1,6 +1,7 @@
 """Carry the JAX package's weights into the port: an LM's into
 ``DecoderLM`` and ``SSMLM`` (:func:`load_reference_params`), a CNN's into
-``CNNModel`` (:func:`load_reference_cnn`).
+``CNNModel`` (:func:`load_reference_cnn`, which also loads ``LayerNorm``
+and ``Embedding``).
 
 The reference keeps an LM's parameters as a pytree whose block leaves are
 stacked over layers: ``embed`` (vocab, D), ``final_norm`` (D), ``head``
@@ -43,7 +44,7 @@ other.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -151,13 +152,17 @@ def flatten_tree(tree: Mapping[str, Any], prefix: str = ""
 
 @torch.no_grad()
 def load_reference_cnn(model: torch.nn.Module, params: Mapping[str, Any],
-                       state: Mapping[str, Any]) -> torch.nn.Module:
+                       state: Optional[Mapping[str, Any]] = None
+                       ) -> torch.nn.Module:
     """Copy the reference's CNN parameters and BatchNorm state (nested
     dicts of arrays, or flat ``/``-joined keys) into ``model`` in place:
     every parameter and buffer must be given exactly once, with its shape.
-    ``model`` must have storage (``init_weights`` first: a model on the
-    ``meta`` device has none).  Returns ``model``."""
-    src = {**flatten_tree(params), **flatten_tree(state)}
+    Any module built of ``nn/layers.py``'s layers loads so, a
+    ``LayerNorm`` from the reference's ``{"scale", "bias"}`` and an
+    ``Embedding`` from its ``{"table"}`` (no state).  ``model`` must have
+    storage (``init_weights`` first: a model on the ``meta`` device has
+    none).  Returns ``model``."""
+    src = {**flatten_tree(params), **flatten_tree(state or {})}
     dense_w = {f"{n}.w" if n else "w" for n, m in model.named_modules()
                if isinstance(m, Dense)}
     dst = {**dict(model.named_parameters()), **dict(model.named_buffers())}

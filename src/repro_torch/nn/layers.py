@@ -1,6 +1,7 @@
-"""Basic layers: RMS normalisation (the LM paths) and the CNN zoo's Dense,
-Conv2d (NCHW, weights OIHW, as in the JAX package), BatchNorm2d in eval
-mode, the pools, SqueezeExcite and the activations.
+"""Basic layers: RMS normalisation (the LM paths), LayerNorm and Embedding
+(public layers that no model of either package uses), and the CNN zoo's
+Dense, Conv2d (NCHW, weights OIHW, as in the JAX package), BatchNorm2d,
+the pools, SqueezeExcite and the activations.
 
 The CNN layers create their parameters on the ``meta`` device: a model of
 any size is built without memory, and ``reset_parameters(generator)`` fills
@@ -8,9 +9,10 @@ them, after ``nn.Module.to_empty`` has given them storage, with the JAX
 package's initialisation (He-normal weights, zero biases, BatchNorm scale
 1, bias 0, running mean 0, running variance 1).  Parameter names follow the
 reference's pytree keys (``w``, ``b``, ``scale``, ``bias``; running
-statistics ``mean`` and ``var`` are buffers).  BatchNorm runs in eval mode
-only: training (batch statistics, running-statistics update) waits for the
-training slice.
+statistics ``mean`` and ``var`` are buffers; LayerNorm's ``scale`` and
+``bias``, Embedding's ``table``), so ``models.convert.load_reference_cnn``
+carries the reference's parameters into any module built of these layers.
+RMSNorm, LayerNorm and Embedding are built on the device given.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.nn.module import constant, frozen, kaiming
+from repro_torch.nn.module import constant, frozen, kaiming, normal_init
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -39,6 +41,40 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.scale, self.eps)
+
+
+class LayerNorm(nn.Module):
+    """``(x - mean) * rsqrt(var + eps) * scale (+ bias)`` over the last
+    axis, with the biased variance, as the reference's; ``scale`` starts
+    at 1, ``bias`` at 0."""
+
+    def __init__(self, d: int, eps: float = 1e-5, bias: bool = True,
+                 device=None):
+        super().__init__()
+        self.d, self.eps = d, eps
+        self.scale = constant((d,), 1.0, device=device)
+        self.bias = constant((d,), 0.0, device=device) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mu = x.mean(dim=-1, keepdim=True)
+        var = (x - mu).pow(2).mean(dim=-1, keepdim=True)
+        y = (x - mu) * torch.rsqrt(var + self.eps) * self.scale
+        return y if self.bias is None else y + self.bias
+
+
+class Embedding(nn.Module):
+    """A (vocab, d) ``table`` drawn N(0, std^2) from ``generator``; rows
+    looked up by id."""
+
+    def __init__(self, vocab: int, d: int, std: float = 0.02, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.vocab, self.d, self.std = vocab, d, std
+        self.table = normal_init((vocab, d), std, generator=generator,
+                                 device=device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.table)
 
 
 def _meta(*shape: int) -> nn.Parameter:

@@ -1,2 +1,3 @@
 from repro_torch.quantize.evaluate import (cnn_measured_accuracy,
-                                           partition_plan, quantized_eval)
+                                           partition_plan, qat_finetune,
+                                           quantized_eval)

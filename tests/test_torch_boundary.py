@@ -1,5 +1,6 @@
-"""The import boundary of the port: nothing under ``src/repro_torch`` and
-nothing in ``chip_smoke.py``, ``chip_profile.py``, ``chip_variants.py`` or
+"""The import boundary of the port: nothing under ``src/repro_torch``, in
+the example twins ``examples/*_torch.py`` or in ``chip_smoke.py``,
+``chip_profile.py``, ``chip_variants.py`` or
 ``tools/cuda_host_shim/rehearse.py`` imports JAX or the JAX package
 ``repro``, and a CPU search, an LM generation, an SSM forward and
 generation, a CNN's measured accuracy, an online re-partition, a
@@ -24,7 +25,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _files():
-    files = sorted(PORT.rglob("*.py")) + [
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(examples) == 5, examples
+    files = sorted(PORT.rglob("*.py")) + examples + [
         ROOT / "chip_smoke.py", ROOT / "chip_profile.py",
         ROOT / "chip_variants.py",
         ROOT / "tools" / "cuda_host_shim" / "rehearse.py"]
