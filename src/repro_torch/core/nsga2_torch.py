@@ -19,17 +19,33 @@ Differences from the NumPy implementation, by construction:
 
 The loops over fronts and generations are Python loops; each peeled front
 reads one count back to the host to decide whether to go on.
+
+With an :class:`~repro_torch.obs.Obs` handle switched on (``obs=``), the
+loop records spans on the ``search`` track (``search.generation`` and its
+children ``search.evaluate``, ``search.offspring``, ``search.rank`` →
+``search.k1`` or ``search.dominance``, ``search.peel`` → ``search.front``,
+``search.infeasible_tail``; ``search.crowding``, ``search.survivors``) and
+counts every device-to-host read in ``search_host_reads``.  Off (the
+default :data:`~repro_torch.obs.NOOP_OBS`), each site costs one attribute
+or local read and takes no clock read.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.obs.handle import NOOP_OBS, Obs
+from repro_torch.obs.trace import Laps
+
 Tensor = torch.Tensor
 EvalFn = Callable[..., Tuple[Tensor, Tensor]]
+
+TRACK = "search"                  # the search path's spans' track
+HOST_READS = "search_host_reads"  # counter: device-to-host reads
 
 
 # -- domination / ranking / crowding --------------------------------------------
@@ -83,34 +99,54 @@ def popcount32(x: Tensor) -> Tensor:
     return y + (x < 0).to(torch.int32)
 
 
-def _peel(Dp: Tensor, alive: Tensor, cap: int) -> Tuple[Tensor, int, int]:
+def _peel(Dp: Tensor, alive: Tensor, cap: int, obs: Obs = NOOP_OBS,
+          rank_args: Optional[dict] = None) -> Tuple[Tensor, int, int]:
     """Peel fronts off the packed domination words ``Dp`` among the
     ``alive`` individuals until at least ``cap`` are ranked or none are
     left; returns (rank, number of fronts, number ranked).  Unranked
-    individuals keep rank n."""
+    individuals keep rank n.  With ``obs`` on: a ``search.peel`` span
+    (``fronts``, ``ranked``) holding one ``search.front`` a front (``k``
+    ranked, ``alive`` before it), and the alive count read at entry given
+    to ``rank_args`` (the enclosing ``search.rank``'s) as ``feasible``."""
+    on = obs.enabled
+    if on:
+        laps = Laps(obs.tracer, "search.peel", TRACK)
+        reads = obs.metrics.counter(HOST_READS)
     n = alive.shape[0]
     rank = torch.full((n,), n, dtype=torch.int64, device=alive.device)
-    n_alive = int(alive.sum())
+    n_alive = int(alive.sum())                # host read: the alive count
+    if on:
+        reads.inc()
+        if rank_args is not None:
+            rank_args["feasible"] = n_alive
+        laps.lap()
     r = done = 0
     while n_alive and done < cap:
         alive_p = _pack_bits(alive[:, None])[:, 0]
         n_dom = popcount32(Dp & alive_p[:, None]).sum(dim=0)
         front = alive & (n_dom == 0)
-        k = int(front.sum())                  # the one host sync per front
+        k = int(front.sum())                  # host read: one a front
         if k == 0:                            # numerical safety
             front, k = alive, n_alive
         rank = torch.where(front, r, rank)
         alive = alive & ~front
+        if on:
+            reads.inc()
+            laps.lap("search.front", {"k": k, "alive": n_alive})
         n_alive -= k
         done += k
         r += 1
+    if on:
+        laps.args = {"fronts": r, "ranked": done}
+        laps.close()
     return rank, r, done
 
 
 def nondominated_rank(F: Tensor, CV: Tensor,
                       cap: Optional[int] = None, *,
                       rank_block: Optional[int] = None,
-                      rank_impl: str = "auto") -> Tensor:
+                      rank_impl: str = "auto",
+                      obs: Optional[Obs] = None) -> Tensor:
     """Front index per individual (0 = first front), peeled until at least
     ``cap`` individuals are ranked (default: all).  The unpeeled tail keeps
     rank ``n`` — environmental selection never reaches it.
@@ -127,24 +163,56 @@ def nondominated_rank(F: Tensor, CV: Tensor,
     domination totally orders infeasible individuals by violation, so their
     ranks (the equal-CV groups, appended after the feasible layers) come in
     closed form.  Ranks are bit-identical to the dense path.
+
+    With ``obs`` on, records a ``search.rank`` span (``n``, ``m``,
+    ``feasible``: the feasible count the tiled path's peel reads anyway,
+    None on the dense path; ``impl``: ``dense`` or the tiled primitive's
+    resolved impl; ``block``) around ``search.k1`` (the tiled primitive) or
+    ``search.dominance`` (the dense matrix and its packing), ``search.peel``
+    and, tiled, ``search.infeasible_tail``.
     """
     n = F.shape[0]
     cap = n if cap is None else min(cap, n)
+    obs = NOOP_OBS if obs is None else obs
+    on = obs.enabled
+    if on:
+        laps = Laps(obs.tracer, "search.rank", TRACK,
+                    {"n": n, "m": F.shape[1], "feasible": None,
+                     "impl": "dense", "block": rank_block or 0})
     if rank_block:
-        return _rank_blocked(F, CV, cap, rank_block, rank_impl)
-    Dp = _pack_bits(domination_matrix(F, CV))
-    return _peel(Dp, torch.ones(n, dtype=torch.bool, device=F.device), cap)[0]
+        rank = _rank_blocked(F, CV, cap, rank_block, rank_impl, obs,
+                             laps.args if on else None)
+    else:
+        Dp = _pack_bits(domination_matrix(F, CV))
+        if on:
+            laps.lap("search.dominance")
+        rank = _peel(Dp, torch.ones(n, dtype=torch.bool, device=F.device),
+                     cap, obs)[0]
+    if on:
+        laps.lap()
+        laps.close()
+    return rank
 
 
 def _rank_blocked(F: Tensor, CV: Tensor, cap: int, block: int,
-                  impl: str) -> Tensor:
+                  impl: str, obs: Obs = NOOP_OBS,
+                  rank_args: Optional[dict] = None) -> Tensor:
     """Tiled non-dominated ranking; see :func:`nondominated_rank`."""
     from repro_torch.kernels import ops
     n = F.shape[0]
     dev = F.device
+    on = obs.enabled
+    if on:
+        t0 = time.perf_counter()
     Dp = ops.packed_domination(F, CV, block=block, impl=impl)
+    if on:
+        t1 = time.perf_counter()
+        obs.tracer.complete("search.k1", track=TRACK, start=t0, end=t1)
+        rank_args["impl"] = ops.resolve_impl(impl, F)
     feas = CV <= 0
-    rank, n_feas_fronts, done = _peel(Dp, feas, cap)
+    rank, n_feas_fronts, done = _peel(Dp, feas, cap, obs, rank_args)
+    if on:
+        t2 = time.perf_counter()
     # infeasible tail: every feasible individual dominates every infeasible
     # one and infeasible pairs compare by violation alone, so the remaining
     # fronts are the equal-CV groups in ascending order.  A group is peeled
@@ -163,7 +231,11 @@ def _rank_blocked(F: Tensor, CV: Tensor, cap: int, block: int,
         0, grp_sorted, pos, "amin", include_self=False)
     before = done + first_idx[grp]              # ranked before my group
     include = ~feas & (before < cap)
-    return torch.where(include, n_feas_fronts + grp, rank)
+    rank = torch.where(include, n_feas_fronts + grp, rank)
+    if on:
+        obs.tracer.complete("search.infeasible_tail", track=TRACK, start=t2,
+                            end=time.perf_counter())
+    return rank
 
 
 def crowding_by_rank(F: Tensor, rank: Tensor) -> Tensor:
@@ -289,28 +361,55 @@ def _resolve_rank_block(rank_block: Optional[int], pop_size: int) -> int:
 
 def _run(eval_fn: EvalFn, gen: torch.Generator, X0: Tensor, n_gen: int,
          lo: int, hi: int, pop_size: int, rank_block: int, rank_impl: str,
-         eval_args: Tuple) -> Tuple[Tensor, Tensor, Tensor]:
+         eval_args: Tuple, obs: Obs = NOOP_OBS
+         ) -> Tuple[Tensor, Tensor, Tensor]:
     """The whole search on X0's device; ``eval_args`` are forwarded to
-    every ``eval_fn(X, *eval_args)`` call."""
+    every ``eval_fn(X, *eval_args)`` call.  With ``obs`` on, one
+    ``search.generation`` span a generation (``gen``; 0 the initial
+    population's evaluation, ranking and crowding)."""
     def rank_of(F, CV, cap=None):
         return nondominated_rank(F, CV, cap, rank_block=rank_block,
-                                 rank_impl=rank_impl)
+                                 rank_impl=rank_impl, obs=obs)
 
+    on = obs.enabled
+    if on:
+        laps = Laps(obs.tracer, "search.generation", TRACK, {"gen": 0})
     X = repair(X0, lo, hi)
     F, CV = eval_fn(X, *eval_args)
-    crowd = crowding_by_rank(F, rank_of(F, CV))
-    for _ in range(n_gen):
+    if on:
+        laps.lap("search.evaluate")
+    rank = rank_of(F, CV)
+    if on:
+        laps.lap()
+    crowd = crowding_by_rank(F, rank)
+    if on:
+        laps.lap("search.crowding")
+        laps.close()
+    for g in range(1, n_gen + 1):
+        if on:
+            laps = Laps(obs.tracer, "search.generation", TRACK, {"gen": g})
         Xc = make_offspring(gen, X, F, CV, crowd, lo, hi)
+        if on:
+            laps.lap("search.offspring")
         Fc, CVc = eval_fn(Xc, *eval_args)
+        if on:
+            laps.lap("search.evaluate")
         Xall = torch.cat([X, Xc])
         Fall = torch.cat([F, Fc])
         CVall = torch.cat([CV, CVc])
         # elitist environmental selection: whole fronts in rank order, the
         # boundary front tie-broken by crowding
         rank = rank_of(Fall, CVall, pop_size)
+        if on:
+            laps.lap()
         crowd_all = crowding_by_rank(Fall, rank)
+        if on:
+            laps.lap("search.crowding")
         keep = survivors(rank, crowd_all, pop_size)
         X, F, CV, crowd = Xall[keep], Fall[keep], CVall[keep], crowd_all[keep]
+        if on:
+            laps.lap("search.survivors")
+            laps.close()
     return X, F, CV
 
 
@@ -368,7 +467,8 @@ def torch_nsga2(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
                 candidates: Optional[Sequence[Sequence[int]]] = None,
                 X0: Optional[np.ndarray] = None, eval_args: Tuple = (),
                 rank_block: Optional[int] = None, rank_impl: str = "auto",
-                device="cuda") -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+                device="cuda", obs: Optional[Obs] = None
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Run the NSGA-II loop on ``device``; returns host (X, F, CV) arrays.
 
     Population init (including ``candidates`` seeding) matches the NumPy
@@ -379,8 +479,12 @@ def torch_nsga2(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
     runtime table values to ``eval_fn(X, *eval_args)``.
     ``rank_block``/``rank_impl`` select the ranking primitive (see
     :func:`nondominated_rank`): the auto policy keeps the dense packed
-    matrix for combined populations ≤ 4096 and tiles beyond.
+    matrix for combined populations ≤ 4096 and tiles beyond.  ``obs``
+    (default :data:`~repro_torch.obs.NOOP_OBS`, off): an
+    :class:`~repro_torch.obs.Obs` handle that records the loop's spans
+    (module docstring) and counts its device-to-host reads.
     """
+    obs = NOOP_OBS if obs is None else obs
     if X0 is None:
         X0 = _init_population(np.random.default_rng(seed), pop_size, n_var,
                               lower, upper, candidates)
@@ -392,7 +496,9 @@ def torch_nsga2(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
                                     device=device),
                     n_gen, lower, upper, pop_size,
                     _resolve_rank_block(rank_block, pop_size), rank_impl,
-                    eval_args)
+                    eval_args, obs)
+    if obs.enabled:                       # host reads: X, F and CV below
+        obs.metrics.counter(HOST_READS).inc(3)
     return (X.cpu().numpy().astype(np.int64),
             F.cpu().numpy().astype(np.float64),
             CV.cpu().numpy().astype(np.float64))
@@ -405,7 +511,8 @@ def torch_nsga2_restarts(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
                          X0s: Optional[np.ndarray] = None,
                          eval_args: Tuple = (),
                          rank_block: Optional[int] = None,
-                         rank_impl: str = "auto", device="cuda"
+                         rank_impl: str = "auto", device="cuda",
+                         obs: Optional[Obs] = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Multi-restart search: ``n_restarts`` independently seeded runs, one
     after the other.
@@ -415,29 +522,34 @@ def torch_nsga2_restarts(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
     non-dominated front equals the union of the per-seed fronts after one
     final non-dominated filter.  Returns host (X, F, CV) with the restarts
     stacked into ``n_restarts * pop_size`` rows.  ``X0s`` overrides the
-    per-restart init (shape (n_restarts, pop_size, n_var)).
+    per-restart init (shape (n_restarts, pop_size, n_var)).  ``obs`` is
+    passed to each restart.
     """
     outs = [torch_nsga2(eval_fn, n_var, lower, upper, pop_size, n_gen,
                         seed=seed + i, candidates=candidates,
                         X0=None if X0s is None else X0s[i],
                         eval_args=eval_args, rank_block=rank_block,
-                        rank_impl=rank_impl, device=device)
+                        rank_impl=rank_impl, device=device, obs=obs)
             for i in range(n_restarts)]
     return tuple(np.concatenate(parts) for parts in zip(*outs))
 
 
 def pareto_indices_blocked(X: np.ndarray, F: np.ndarray, CV: np.ndarray,
                            block: int = 2048, impl: str = "auto",
-                           device="cuda") -> np.ndarray:
+                           device="cuda", obs: Optional[Obs] = None
+                           ) -> np.ndarray:
     """Memory-bounded twin of :func:`repro_torch.core.nsga2.pareto_indices`:
     the first-front mask comes from the tiled dominator-count primitive on
     ``device`` instead of the dense host-side sort, then the same
-    feasible-subset / unique-decision-vector selection applies."""
+    feasible-subset / unique-decision-vector selection applies.  ``obs``
+    counts its one device-to-host read."""
     from repro_torch.kernels import ops
     counts = ops.domination_counts(
         torch.as_tensor(F, dtype=torch.float32, device=device),
         torch.as_tensor(CV, dtype=torch.float32, device=device),
-        block=block, impl=impl).cpu().numpy()
+        block=block, impl=impl).cpu().numpy()  # host read: the counts
+    if obs is not None and obs.enabled:
+        obs.metrics.counter(HOST_READS).inc()
     first = np.flatnonzero(counts == 0)
     if not len(first):                    # numerical safety, as in the dense
         first = np.arange(len(F))

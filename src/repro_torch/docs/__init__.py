@@ -61,7 +61,7 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
         "DriftSignal",
     )),
     ("repro_torch.obs", (
-        "Obs", "Tracer", "NullTracer", "Span", "MetricsRegistry",
+        "Obs", "Tracer", "NullTracer", "Span", "Laps", "MetricsRegistry",
         "Counter", "Gauge", "Histogram", "default_registry",
         "to_chrome_trace", "write_chrome_trace", "load_chrome_trace",
         "validate_chrome_trace", "percentile", "latency_summary",
@@ -78,6 +78,7 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("repro_torch.serving", (
         "GenerationEngine", "PartitionedLMRunner", "PartitionedCNNRunner",
     )),
+    ("repro_torch.quantize", ("cnn_measured_accuracy",)),
     ("repro_torch.training", (
         "make_train_step", "lm_loss", "cross_entropy", "init_params",
         "make_classifier_train_step",

@@ -17,10 +17,19 @@ evaluator, so cost-table sharing benefits the device path too.
 Every entry point takes ``device`` (default ``"cuda"``), the device the
 tensor strategies run on.  With the default and no CUDA device they raise;
 pass ``device="cpu"`` to run on the CPU.
+
+Every entry point also takes ``obs``, an :class:`~repro_torch.obs.Obs`
+handle (default off, :data:`~repro_torch.obs.NOOP_OBS`): switched on, the
+search records its spans on the ``search`` track (``search.build`` for
+what :func:`run_spec` and :func:`explore_graph` build for every search,
+``search.prepare`` for :func:`run_search`'s own steps before the
+strategies, and the strategies' spans) and counts its device-to-host reads
+(``search_host_reads``) in the handle's registry.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -31,6 +40,7 @@ from repro_torch.core.graph import LayerGraph, linearize
 from repro_torch.core.layers import LayerInfo
 from repro_torch.core.memory import SegmentMemoryTable
 from repro_torch.core.nsga2 import fast_non_dominated_sort
+from repro_torch.core.nsga2_torch import TRACK
 from repro_torch.core.partition import (Constraints, PartitionEval,
                                   PartitionEvaluator, SystemConfig,
                                   single_platform_eval)
@@ -38,6 +48,7 @@ from repro_torch.explore.filters import candidate_positions, link_feasibility
 from repro_torch.explore.result import ExplorationResult
 from repro_torch.explore.spec import AccuracySpec, ExplorationSpec, SearchSettings
 from repro_torch.explore.strategies import (SearchContext, resolve_strategies)
+from repro_torch.obs.handle import NOOP_OBS, Obs
 
 DEFAULT_OBJECTIVES = ("latency", "energy")
 
@@ -75,7 +86,8 @@ def run_search(evaluator: PartitionEvaluator, *,
                settings: Optional[SearchSettings] = None,
                candidates: Optional[Sequence[int]] = None,
                warm_cuts: Optional[Sequence[Sequence[int]]] = None,
-               device="cuda") -> ExplorationResult:
+               device="cuda", obs: Optional[Obs] = None
+               ) -> ExplorationResult:
     """Run the configured strategies over a prebuilt evaluator and finish:
     union pool → final non-dominated filter → Def.-2 selection.
 
@@ -86,8 +98,12 @@ def run_search(evaluator: PartitionEvaluator, *,
     domination instead of by re-filtering.  ``warm_cuts`` feeds a previous
     Pareto front's cut rows to warm-startable strategies (honored when
     ``settings.warm_start`` is on).  ``device`` is where the tensor
-    strategies run.
+    strategies run; ``obs`` (module docstring) reaches them through
+    ``SearchContext.obs``.
     """
+    obs = NOOP_OBS if obs is None else obs
+    if obs.enabled:
+        t0 = time.perf_counter()
     dev = resolve_device(device)
     constraints = constraints or Constraints()
     settings = settings or SearchSettings()
@@ -105,10 +121,13 @@ def run_search(evaluator: PartitionEvaluator, *,
         link_feas=link_feasibility(evaluator, constraints.max_link_bytes),
         warm_cuts=(np.asarray(warm_cuts, dtype=int)
                    if warm_cuts is not None and len(warm_cuts) else None),
-        device=str(dev))
+        device=str(dev), obs=obs)
 
     baselines = [single_platform_eval(evaluator, i, constraints)
                  for i in range(len(evaluator.system.platforms))]
+    if obs.enabled:
+        obs.tracer.complete("search.prepare", track=TRACK, start=t0,
+                            end=time.perf_counter())
 
     scan_pool: List[PartitionEval] = []
     search_pool: List[PartitionEval] = []
@@ -164,7 +183,8 @@ def explore_graph(graph: LayerGraph, system: SystemConfig, *,
                   schedule: Optional[Sequence[LayerInfo]] = None,
                   cost_cache: Optional[Dict] = None,
                   memtable: Optional[SegmentMemoryTable] = None,
-                  device="cuda") -> ExplorationResult:
+                  device="cuda", obs: Optional[Obs] = None
+                  ) -> ExplorationResult:
     """Run one exploration over live graph/system objects.
 
     ``schedule`` / ``cost_cache`` / ``memtable`` let campaign runners share
@@ -172,8 +192,12 @@ def explore_graph(graph: LayerGraph, system: SystemConfig, *,
     accuracy oracle resolves in precedence order: a live ``accuracy_fn``
     object, then a declarative ``accuracy`` :class:`AccuracySpec` (proxy
     knobs or a registered measured oracle), then the default
-    :class:`ProxyAccuracy`.
+    :class:`ProxyAccuracy`.  ``obs``: as :func:`run_search`, with a
+    ``search.build`` span over the schedule, the oracle and the evaluator.
     """
+    obs = NOOP_OBS if obs is None else obs
+    if obs.enabled:
+        t0 = time.perf_counter()
     resolve_device(device)
     if schedule is None:
         schedule = linearize(graph, schedule_policy)
@@ -186,19 +210,30 @@ def explore_graph(graph: LayerGraph, system: SystemConfig, *,
         graph, schedule, system, accuracy_fn=acc, batch=batch,
         shared_groups=shared_groups, cost_cache=cost_cache,
         memtable=memtable)
+    if obs.enabled:
+        obs.tracer.complete("search.build", track=TRACK, start=t0,
+                            end=time.perf_counter())
     return run_search(evaluator, constraints=constraints,
                       objectives=objectives, weights=weights,
-                      settings=search, device=device)
+                      settings=search, device=device, obs=obs)
 
 
-def run_spec(spec: ExplorationSpec, device="cuda") -> ExplorationResult:
+def run_spec(spec: ExplorationSpec, device="cuda",
+             obs: Optional[Obs] = None) -> ExplorationResult:
     """Resolve a declarative spec (model + system refs) and run it, with the
-    tensor strategies on ``device``."""
+    tensor strategies on ``device``.  ``obs``: as :func:`run_search`, with
+    a ``search.build`` span over the model's graph and the system."""
+    obs = NOOP_OBS if obs is None else obs
+    if obs.enabled:
+        t0 = time.perf_counter()
     resolve_device(device)
     graph, shared = spec.model.build()
     system = spec.system.build()
+    if obs.enabled:
+        obs.tracer.complete("search.build", track=TRACK, start=t0,
+                            end=time.perf_counter())
     return explore_graph(
         graph, system, objectives=spec.objectives, weights=spec.weights,
         constraints=spec.constraints, search=spec.search,
         schedule_policy=spec.schedule_policy, batch=spec.batch,
-        accuracy=spec.accuracy, shared_groups=shared, device=device)
+        accuracy=spec.accuracy, shared_groups=shared, device=device, obs=obs)

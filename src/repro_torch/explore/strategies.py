@@ -43,6 +43,7 @@ from repro_torch.core.partition import (Constraints, PartitionEval,
                                   PartitionEvaluator)
 from repro_torch.explore.filters import feasible_cut_rows
 from repro_torch.explore.spec import SearchSettings
+from repro_torch.obs.handle import Obs
 from repro_torch.obs.metrics import default_registry
 
 # full per-point scans are kept (for Fig.-2-style plots) only below this size
@@ -61,6 +62,7 @@ class SearchContext:
     link_feas: Optional[np.ndarray] = None   # (n_links, L-1) or None
     warm_cuts: Optional[np.ndarray] = None   # (n, n_cuts) previous front
     device: str = "cuda"                     # where tensor strategies run
+    obs: Obs = dataclasses.field(default_factory=Obs.off)  # spans, reads
 
     @property
     def n_cuts(self) -> int:
@@ -335,6 +337,13 @@ class TorchNSGA2Search:
     ``search_warm_starts``.  The reference's compiled-runner counters
     (``search_jit_runner_cache_hits``/``_misses``) and its compile time
     (``search_jit_compile_s``) have no counterpart: nothing is compiled here.
+
+    With ``ctx.obs`` on, it records on the ``search`` track
+    ``search.tables`` (the gene table and ``torch_tables``, up to where
+    ``search_wall_s`` starts), ``search.run`` (on ``search_wall_s``'s two
+    clock reads: the loop's spans lie inside it) and ``search.final_front``
+    (the final front's mask and its exact re-scoring), and passes the
+    handle to the loop and to ``pareto_indices_blocked``.
     """
 
     name = "torch_nsga2"
@@ -364,12 +373,16 @@ class TorchNSGA2Search:
 
         import torch
 
-        from repro_torch.core.nsga2_torch import (pareto_indices_blocked,
+        from repro_torch.core.nsga2_torch import (TRACK,
+                                                  pareto_indices_blocked,
                                                   torch_nsga2,
                                                   torch_nsga2_restarts,
                                                   warm_population)
         from repro_torch.core.partition_torch import make_runtime_eval_fn
 
+        obs = ctx.obs
+        if obs.enabled:
+            t_tables = time.perf_counter()
         table = _gene_table(ctx)
         n_cuts = ctx.n_cuts
         pop, n_gen = _pop_gen(ctx)
@@ -378,6 +391,9 @@ class TorchNSGA2Search:
         tables = evaluator.torch_tables(ctx.device)
         reg = default_registry()
         t_search = time.perf_counter()
+        if obs.enabled:
+            obs.tracer.complete("search.tables", track=TRACK, start=t_tables,
+                                end=t_search)
         eval_cuts = make_runtime_eval_fn(tables, ctx.objectives,
                                          ctx.constraints)
 
@@ -390,7 +406,7 @@ class TorchNSGA2Search:
             eval_args=(torch.as_tensor(table, dtype=torch.int64,
                                        device=ctx.device), tables),
             rank_block=settings.rank_block, rank_impl=settings.rank_impl,
-            device=ctx.device)
+            device=ctx.device, obs=obs)
         warm = _warm_genes(ctx, table)
         if warm is not None:
             reg.counter("search_warm_starts").inc()
@@ -412,12 +428,16 @@ class TorchNSGA2Search:
                                      pop, n_cuts, 0, len(table) - 1, warm)
             X, F, CV = torch_nsga2(_eval_genes, seed=settings.seed, X0=X0,
                                    **knobs)
-        reg.histogram("search_wall_s").observe(time.perf_counter() - t_search)
+        t_end = time.perf_counter()
+        reg.histogram("search_wall_s").observe(t_end - t_search)
+        if obs.enabled:
+            obs.tracer.complete("search.run", track=TRACK, start=t_search,
+                                end=t_end)
         if len(X) > self._DENSE_PARETO_MAX:
             p_idx = pareto_indices_blocked(X, F, CV,
                                            block=settings.rank_block or 2048,
                                            impl=settings.rank_impl,
-                                           device=ctx.device)
+                                           device=ctx.device, obs=obs)
         else:
             p_idx = pareto_indices(X, F, CV)
         res = NSGA2Result(X=X, F=F, CV=CV, pareto_idx=p_idx, history=[])
@@ -426,6 +446,9 @@ class TorchNSGA2Search:
             evals = evaluator.evaluate_batch(
                 np.sort(table[res.pareto_X], axis=1),
                 ctx.constraints).to_evals()
+        if obs.enabled:
+            obs.tracer.complete("search.final_front", track=TRACK,
+                                start=t_end, end=time.perf_counter())
         return StrategyOutput(evals, nsga=res,
                               n_evaluated=n_restarts * pop * (n_gen + 1),
                               strategy_used=self.name)

@@ -177,6 +177,37 @@ class Tracer:
         return sum(r.dropped for r in rings)
 
 
+class Laps:
+    """Consecutive spans under one parent span on one track, each ending at
+    the clock read that starts the next, so ``n`` laps take ``n + 1``
+    reads.  :meth:`lap` closes a child span (or, with no name, skips the
+    time since the last read, which then counts to the parent alone);
+    :meth:`close` records the parent, ending at the last lap's read.  Built
+    only behind ``if obs.enabled:``: its first read is taken here."""
+
+    __slots__ = ("tracer", "name", "track", "args", "start", "t")
+
+    def __init__(self, tracer: "Tracer", name: str, track: str,
+                 args: Optional[Dict[str, Any]] = None):
+        self.tracer, self.name, self.track, self.args = (tracer, name, track,
+                                                         args)
+        self.start = self.t = time.perf_counter()
+
+    def lap(self, name: Optional[str] = None,
+            args: Optional[Dict[str, Any]] = None) -> None:
+        """End the current lap now; record it as ``name`` unless None."""
+        t = time.perf_counter()
+        if name is not None:
+            self.tracer.complete(name, track=self.track, start=self.t, end=t,
+                                 args=args)
+        self.t = t
+
+    def close(self) -> None:
+        """Record the parent span, from construction to the last lap."""
+        self.tracer.complete(self.name, track=self.track, start=self.start,
+                             end=self.t, args=self.args)
+
+
 class _NullSpanCtx:
     """Reusable no-op ``with`` target for :class:`NullTracer.span`."""
 

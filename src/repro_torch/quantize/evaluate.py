@@ -15,7 +15,8 @@ port's models hold their weights, so ``model`` stands for all three.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence, Tuple
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,10 +25,11 @@ from torch.func import functional_call
 from repro_torch.core.quant import QuantSpec, quantize_pytree
 from repro_torch.models.convert import reference_leaves
 from repro_torch.nn.module import trainable
+from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           clip_by_global_norm, stacked_grads,
                                           stacked_params)
-from repro_torch.serving.pipeline import PartitionedCNNRunner
+from repro_torch.serving.pipeline import TRACK, PartitionedCNNRunner
 from repro_torch.training.train_lib import cross_entropy
 
 
@@ -69,11 +71,17 @@ def partition_plan(model, schedule, cuts: Sequence[int],
 def cnn_measured_accuracy(model, schedule, val_x: np.ndarray,
                           val_y: np.ndarray,
                           quant_specs: Sequence[QuantSpec],
+                          obs: Optional[Obs] = None,
                           ) -> Callable[[Sequence[int]], float]:
     """accuracy_fn(cuts) for the explorer (2+-platform CNN systems).
 
     Each cut vector runs as :func:`partition_plan` lays it out; results
-    are cached per cut vector."""
+    are cached per cut vector.  ``obs`` (default off,
+    :data:`~repro_torch.obs.NOOP_OBS`): switched on, each call records an
+    ``oracle.measure`` span (``cuts``, ``cached``) on the ``oracle`` track
+    around the runner's spans (:class:`PartitionedCNNRunner`) and an
+    ``oracle.read``, the top-1's read back to the host."""
+    obs = NOOP_OBS if obs is None else obs
     model.to_graph()   # populate graph_boundaries
     cache: Dict[Tuple[int, ...], float] = {}
     dev = model.device
@@ -81,12 +89,26 @@ def cnn_measured_accuracy(model, schedule, val_x: np.ndarray,
     yd = torch.as_tensor(val_y, device=dev)
 
     def measure(cuts) -> float:
+        on = obs.enabled
+        if on:
+            t0 = time.perf_counter()
         key = tuple(int(c) for c in cuts)
         if key in cache:
+            if on:
+                obs.tracer.complete("oracle.measure", track=TRACK, start=t0,
+                                    args={"cuts": key, "cached": True})
             return cache[key]
         runner_cuts, specs = partition_plan(model, schedule, key, quant_specs)
-        logits, _ = PartitionedCNNRunner(model, runner_cuts, specs).run(xd)
+        logits, _ = PartitionedCNNRunner(model, runner_cuts, specs,
+                                         obs=obs).run(xd)
+        if on:
+            t1 = time.perf_counter()
         acc = _top1(logits, yd)
+        if on:
+            t2 = time.perf_counter()
+            obs.tracer.complete("oracle.read", track=TRACK, start=t1, end=t2)
+            obs.tracer.complete("oracle.measure", track=TRACK, start=t0,
+                                end=t2, args={"cuts": key, "cached": False})
         cache[key] = acc
         return acc
 

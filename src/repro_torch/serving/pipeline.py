@@ -34,7 +34,10 @@ from repro_torch.models.convert import reference_leaves
 from repro_torch.models.decoder import (run_blocks, stacked_caches,
                                         step_positions)
 from repro_torch.nn.layers import rms_norm
+from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.serving.engine import sync
+
+TRACK = "oracle"     # PartitionedCNNRunner's spans' track
 
 
 def def4_throughput(stage_latencies: Sequence[float],
@@ -82,10 +85,19 @@ class PartitionedCNNRunner:
     model's buffers either way.  The activation leaving a quantized stage
     is fake-quantized to its width (``quantize_tensor``, per tensor), as
     it would cross the link.
+
+    ``obs`` (default off, :data:`~repro_torch.obs.NOOP_OBS`): switched on,
+    the runner records on the ``oracle`` track one ``oracle.quantize`` a
+    stage as it is built (``stage``, ``bits``: None for the model's own
+    weights, ``tensors`` quantized), and in :meth:`run` one
+    ``oracle.stage`` a stage (on the two clock reads that time it) and one
+    ``oracle.link`` a link fake-quant (``bytes``).
     """
 
     def __init__(self, model, cuts: Sequence[int],
-                 quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None):
+                 quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None,
+                 obs: Optional[Obs] = None):
+        self.obs = obs = NOOP_OBS if obs is None else obs
         self.model = model
         self.cuts = list(cuts)
         n_stages = len(self.cuts) + 1
@@ -99,11 +111,23 @@ class PartitionedCNNRunner:
                              for a, b in zip(bounds, bounds[1:])]
         # per stage, per block: its fake-quantized parameters, or None for
         # the model's own
+        self.stage_params = []
         with torch.no_grad():
-            self.stage_params = [
-                [None if spec is None else quantize_pytree(b, spec)
-                 for _, b in blocks]
-                for blocks, spec in zip(self.stage_blocks, self.quant_specs)]
+            for i, (blocks, spec) in enumerate(zip(self.stage_blocks,
+                                                   self.quant_specs)):
+                if obs.enabled:
+                    t0 = time.perf_counter()
+                params = [None if spec is None else quantize_pytree(b, spec)
+                          for _, b in blocks]
+                self.stage_params.append(params)
+                if obs.enabled:
+                    obs.tracer.complete(
+                        "oracle.quantize", track=TRACK, start=t0,
+                        end=time.perf_counter(),
+                        args={"stage": i,
+                              "bits": None if spec is None else spec.bits,
+                              "tensors": sum(len(p) for p in params
+                                             if p is not None)})
 
     @property
     def n_stages(self) -> int:
@@ -121,19 +145,28 @@ class PartitionedCNNRunner:
         """Logits of the NCHW batch ``x`` through the stages in turn, with
         each stage's wall time (waiting for the device when
         ``time_stages``) and the bytes each link carries."""
-        dev = self.model.device
+        dev, obs = self.model.device, self.obs
         lat, link_bytes = [], []
         for i in range(self.n_stages):
             t0 = time.perf_counter()
             x = self._run_stage(i, x)
             if time_stages:
                 sync(dev)
-            lat.append(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            lat.append(t1 - t0)
+            if obs.enabled:
+                obs.tracer.complete("oracle.stage", track=TRACK, start=t0,
+                                    end=t1)
             if i < self.n_stages - 1:
                 spec = self.quant_specs[i]
                 link_bytes.append(link_transfer_bytes(x.numel(), spec))
                 if spec is not None:
                     x = quantize_tensor(x, spec)    # fake-quant over the link
+                    if obs.enabled:
+                        obs.tracer.complete(
+                            "oracle.link", track=TRACK, start=t1,
+                            end=time.perf_counter(),
+                            args={"bytes": link_bytes[-1]})
         return x, StageReport(lat, link_bytes)
 
 
