@@ -132,7 +132,7 @@ def instrument():
         FRONTS.append(out[1])
         return out
 
-    nsga2_torch._peel = _timed("peel fronts (popcount passes)",
+    nsga2_torch._peel = _timed("peel fronts (K6 on the card)",
                                counting_peel)
     ops.packed_domination = _timed("packed_domination kernel",
                                    ops.packed_domination)

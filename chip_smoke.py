@@ -5,8 +5,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (4, 17, 18, 19, 20, 21), and prints no kernels
-line.
+those that stand alone (1, 3, 4, 17, 18, 19, 20, 21), and prints the
+kernels line of the records they make (their launches 0 unless a listed
+phase counts them: phase 3 for phase 1's).
 
 It imports the port (``src/repro_torch``) and nothing of the JAX package,
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
@@ -16,15 +17,19 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    are integers: tolerance 0), at the main path's shapes and at ragged
    sizes, on the search's populations and on edge cases (NaN, -0.0, +inf,
    ties, m 3 and 8), and times kernel, plain version and the kernel's lower
-   bound; it prints both kernels' SASS instructions per pair (FSETP, VOTE,
+   bound; it prints K1's and K2's SASS instructions per pair (FSETP, VOTE,
    POPC, LDS of their 32-column loop) and the instruction floor they imply;
+   the peel (K6) is held against the plain loop, ranks and counts, on K1's
+   words at n 16384 and 32768 with the feasible individuals alive and
+   caps None and 16384, its bound the bytes its fronts cannot do without,
+   beside the fronts times the cost of a front that reads next to nothing;
 2. checks the tiled ranking on the card against the dense ranking on the
    CPU on a small population (exact ranks);
 3. drives the search path once through ``repro_torch.explore.run_spec``:
    the full-size EfficientNet-B0 on a four-platform chain, searched by
    ``torch_nsga2`` at population 16384 for 10 generations, with each
-   kernel's launch count set to 0 just before and read just after; checks
-   the front against the exact NumPy evaluator;
+   kernel's launch count set to 0 just before and read just after (K6 once
+   a ranking: 11); checks the front against the exact NumPy evaluator;
 4. holds the sliding-window attention kernel against its plain version on
    the card at ragged sizes (head dims 32, 64, 128 and 160; groups 1, 3
    and 7) and at the two LM shapes that take it (smollm-360m: 2 prompts of
@@ -100,7 +105,7 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     has the serial report's fingerprint; a second ``run_fleet`` on the
     complete manifest starts no worker and rewrites no shard;
 12. drives the serve runtime once at full width, with every launch count
-    set to 0 just before and read just after (0 for all five kernels, as
+    set to 0 just before and read just after (0 for all six kernels, as
     in the reference: the cached attention takes no kernel): phase 5's
     smollm-360m cut at phase 5's block cuts, a Poisson burst of 16
     requests (prompt 128, 8 new tokens, greedy) routed by a
@@ -114,9 +119,9 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     ``--measured`` run on the card, the latter firing its re-partition
     from the measured link divergence;
 13. drives the training side once at full width, with every launch count
-    set to 0 just before and read just after (0 for all five kernels in
+    set to 0 just before and read just after (0 for all six kernels in
     every train step, as in the reference, whose training takes ``impl=
-    "ref"``; K1 and K2 only in the search that picks the oracle's cut
+    "ref"``; K1, K2 and K6 only in the search that picks the oracle's cut
     vectors): smollm-360m at its published size (remat on) takes one SGD
     step on the card and on the CPU from the same seeded weights (loss and
     parameters agree), SGD steps with remat on and off and with four
@@ -138,7 +143,7 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     prompt 8, 12 new tokens, 2 replicas, eth10): nothing dropped, async
     tokens equal to serial tokens;
 15. runs quantized LM stages once at full width, with every launch count
-    set to 0 just before and read just after (0 for all five kernels, as
+    set to 0 just before and read just after (0 for all six kernels, as
     in the reference): phase 5's smollm-360m (rebuilt from its seed) at
     phase 5's block cuts, each stage fake-quantized to its platform's
     width in the LM search's system (16 and 8 bits), the weights
@@ -149,7 +154,7 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     the quantized ``stage_weights`` gives the quantized runner's
     last-position logits;
 16. drives the moe family once at full width, each part with every launch
-    count set to 0 just before and read just after (0 for all five: MoE
+    count set to 0 just before and read just after (0 for all six: MoE
     and MLA reach no kernel, as in the reference), each model freed before
     the next: deepseek-moe-16b at full width and depth (16.38 B
     parameters on the card) runs a forward over 2 x 2048 tokens (finite,
@@ -217,8 +222,8 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     ``.analysis-baseline-torch.json``, in a process where ``torch`` and
     ``jax`` cannot be imported (exit 0: no finding the baseline does not
     justify), and checks that the wrappers the analyzer finds launching a
-    kernel in ``repro_torch/kernels/`` are exactly the five whose
-    ``launches`` counters this script reads (K1-K5);
+    kernel in ``repro_torch/kernels/`` are exactly the six whose
+    ``launches`` counters this script reads (K1-K6);
 21. runs the five example twins (``examples/*_torch.py``: the quickstart
     tour, the automotive chain, the pod campaign, the serve launcher, QAT)
     each as its own process on the card at the reference examples' sizes,
@@ -715,7 +720,93 @@ def check_kernels(dev):
         bound_by=b_by, library_ms=None))
     print_pareto_sass({"packed_domination": n2 * n2,
                        "domination_counts": POP * POP})
+    records.append(check_peel(dev))
     return records
+
+
+def peel_bytes(alive, rank, fronts):
+    """Bytes the peel that gave ``rank`` cannot do without, front by front
+    as the plain loop takes them: each front member's column at every live
+    word row (only all of them show that no alive row dominates it), one
+    word of every other alive column (its dominator's), the alive mask read
+    and every rank written."""
+    from repro_torch.kernels import ref
+    n = alive.shape[0]
+    total = n + 8 * n
+    for r in range(fronts):
+        alive_r = alive & (rank >= r)
+        live = int((ref.pack_bits(alive_r[:, None])[:, 0] != 0).sum())
+        k, n_alive = int((rank == r).sum()), int(alive_r.sum())
+        total += 4 * (k * live + n_alive - k)
+    return total
+
+
+def chain_words(n, length, dev):
+    """Packed words (ceil(n/32), n) in which each of the first ``length``
+    individuals dominates every later one of them and no other bit is set:
+    those alive alone peel as ``length`` fronts of one, each reading next
+    to nothing."""
+    from repro_torch.kernels import ref
+    words = torch.zeros(((n + 31) // 32, n), dtype=torch.int32, device=dev)
+    chain = ref.pack_bits(torch.ones(length, length, dtype=torch.bool,
+                                     device=dev).triu(1))
+    words[:chain.shape[0], :length] = chain
+    return words
+
+
+def check_peel(dev):
+    """K6 against the plain loop on K1's words of the initial population
+    (n POP) and of a generation's combined one (n 2 POP), the feasible
+    individuals alive as the tiled ranking has them, caps None and POP:
+    ranks and counts bit for bit.  Times kernel and plain loop at both
+    shapes; the bound is ``peel_bytes`` of the run at 3.35 TB/s, and
+    beside it the floor of its fronts' order: the fronts times the cost of
+    a front that reads next to nothing (a chain of 256, one a front).
+    Returns K6's record at the main path's shape (n 2 POP, cap POP)."""
+    from repro_torch.kernels import ops, pareto_rank, ref
+
+    def peel(words, alive, cap):
+        got, info = pareto_rank.peel_fronts(words, alive, cap)
+        want, fronts, done, entry = ref.peel_fronts(words, alive, cap)
+        assert torch.equal(got, want), ("peel_fronts", alive.shape[0], cap)
+        assert info.tolist() == [fronts, done, entry], (info.tolist(), fronts)
+        return want, fronts, done
+
+    tile = dict(bp=ops._row_tile(RANK_BLOCK), bq=ops._COL_TILE)
+    chain_n = 256
+    for n, seed in ((POP, 5), (2 * POP, 1)):
+        Fh, CVh = population(n, seed=seed)
+        F, CV = torch.from_numpy(Fh).to(dev), torch.from_numpy(CVh).to(dev)
+        words = pareto_rank.packed_domination(F, CV, F, CV, **tile)
+        feas = CV <= 0
+        runs = {cap: peel(words, feas, cap) for cap in (n, POP)}
+        cap = min(n, POP)       # the search's: all first, then POP a ranking
+        rank, fronts, done = runs[cap]
+        ms = cuda_ms(lambda: pareto_rank.peel_fronts(words, feas, cap), 20)
+        plain = cuda_ms(lambda: ref.peel_fronts(words, feas, cap), 3)
+        n_bytes = peel_bytes(feas, rank, fronts)
+        b_ms, b_by = bound(n_bytes, 0)
+        chain = chain_words(n, chain_n, dev)
+        head = torch.arange(n, device=dev) < chain_n
+        assert peel(chain, head, n)[1] == chain_n
+        front_ms = cuda_ms(lambda: pareto_rank.peel_fronts(chain, head, n),
+                           20) / chain_n
+        print(f"peel_fronts at n {n} ({int(feas.sum())} feasible alive), "
+              f"cap {cap}: {fronts} fronts, {done} ranked; kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+              f"({n_bytes} {b_by}), fronts x {front_ms * 1e3:.2f} us a front of the "
+              f"chain {fronts * front_ms:.4f} ms; caps None and {POP} "
+              f"bit-exact")
+    return dict(
+        name="peel_fronts", route="cuda",
+        source="src/repro_torch/kernels/csrc/pareto_rank.cu",
+        replaces="none (src/repro/core/nsga2_jax.py peels in a compiled "
+                 "lax.while_loop)",
+        shape=f"words {tuple(words.shape)} int32, {int(feas.sum())} "
+              f"feasible alive, cap {cap} -> rank ({n},) int64, {fronts} "
+              f"fronts",
+        launches=0, max_abs_err=0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, front_floor_ms=fronts * front_ms, library_ms=None)
 
 
 def check_ranking(dev):
@@ -753,11 +844,12 @@ def main_spec():
 
 
 def pareto_kernels():
-    """The two search kernels' wrappers by name (each counts its launches
+    """The three search kernels' wrappers by name (each counts its launches
     in its ``launches`` attribute)."""
     from repro_torch.kernels import pareto_rank
     return {"packed_domination": pareto_rank.packed_domination,
-            "domination_counts": pareto_rank.domination_counts}
+            "domination_counts": pareto_rank.domination_counts,
+            "peel_fronts": pareto_rank.peel_fronts}
 
 
 def read_launches(kernels):
@@ -806,6 +898,7 @@ def main_path(dev, records):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
+    assert launches["peel_fronts"] == N_GEN + 1, launches   # one a ranking
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     assert res.strategy_used == "torch_nsga2", res.strategy_used
@@ -1513,8 +1606,8 @@ def cnn_path(dev, records, card, model, vx, vy, xd, front):
           f"memory of the accuracy path {peak:.0f} MiB [{card}]")
 
 class FrontCount:
-    """While installed, counts the fronts the searches' peel takes (one
-    host sync each: the bottleneck of the search, PERF.md §5)."""
+    """While installed, counts the fronts the searches' peel takes (K6
+    runs them all in one launch a ranking on the card)."""
 
     def __enter__(self):
         from repro_torch.core import nsga2_torch
@@ -1689,11 +1782,12 @@ def campaign_path(dev, card, main_res):
 
 
 def all_kernels():
-    """The five kernels' wrappers by name."""
+    """The six kernels' wrappers by name."""
     from repro_torch.kernels import (pareto_rank, quant_matmul, ssd_scan,
                                      window_attn)
     return {"packed_domination": pareto_rank.packed_domination,
             "domination_counts": pareto_rank.domination_counts,
+            "peel_fronts": pareto_rank.peel_fronts,
             "quant_matmul": quant_matmul.quant_matmul,
             "ssd_scan": ssd_scan.ssd_scan,
             "window_attn": window_attn.window_attn}
@@ -2517,7 +2611,7 @@ def v3_path(dev, card):
 
 def moe_phase(dev, card):
     """Phase 16: the moe family at full width, every kernel's launch count
-    set to 0 just before and read just after (0 for all five: MoE and MLA
+    set to 0 just before and read just after (0 for all six: MoE and MLA
     reach no kernel, as in the reference); each model freed before the
     next is built."""
     kernels = all_kernels()
@@ -3244,7 +3338,8 @@ def keep_pareto_inputs():
                                         bp=bp, bq=bq)
     ops._kern = types.SimpleNamespace(
         packed_domination=keeping,
-        domination_counts=module.domination_counts)
+        domination_counts=module.domination_counts,
+        peel_fronts=module.peel_fronts)
     try:
         yield kept
     finally:
@@ -3330,6 +3425,8 @@ def quickstart_kernel_check(dev, card):
 
 # the phases that stand alone (``--phases``): what each needs of no other
 ALONE = {
+    "1": lambda dev, card, records: records.extend(check_kernels(dev)),
+    "3": lambda dev, card, records: main_path(dev, records),
     "4": lambda dev, card, records: records.extend(check_window_attn(dev)),
     "17": family_phase,
     "18": pipeline_phase,
@@ -3365,6 +3462,8 @@ def main(argv=None) -> int:
         for phase in args.phases:
             ALONE[phase](dev, card, records)
         print(f"phases {', '.join(args.phases)} passed")
+        if records:
+            report(records)
     else:
         report(all_phases(dev, card))
     print(card)
@@ -3418,13 +3517,15 @@ def report(records):
                          f"on the main path {r['launches']}")
         f32 = ("" if r.get("bound_f32_ms") is None else
                f"; float32 CUDA-core bound {r['bound_f32_ms']:.4f} ms")
+        if r.get("front_floor_ms") is not None:
+            f32 += (f"; the fronts' order {r['front_floor_ms']:.4f} ms")
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}{f32}), library {lib}, launches {launches}, "
               f"max_abs_err {r['max_abs_err']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
-            "library_ms", "launches_in", "design")
+            "front_floor_ms", "library_ms", "launches_in", "design")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
 

@@ -17,15 +17,19 @@ Differences from the NumPy implementation, by construction:
   population and carried into the next generation's tournaments instead of
   being recomputed on the survivors.
 
-The loops over fronts and generations are Python loops; each peeled front
-reads one count back to the host to decide whether to go on.
+The loop over generations is a Python loop.  The fronts of a ranking are
+peeled by ``kernels.ops.peel_fronts``: on a CUDA tensor one launch of the
+peel kernel runs every front, its stop test on the device, and the host
+reads three counts once a ranking; on a CPU tensor (or ``rank_impl="ref"``)
+the plain loop reads one count a front to decide whether to go on.
 
 With an :class:`~repro_torch.obs.Obs` handle switched on (``obs=``), the
 loop records spans on the ``search`` track (``search.generation`` and its
 children ``search.evaluate``, ``search.offspring``, ``search.rank`` →
-``search.k1`` or ``search.dominance``, ``search.peel`` → ``search.front``,
-``search.infeasible_tail``; ``search.crowding``, ``search.survivors``) and
-counts every device-to-host read in ``search_host_reads``.  Off (the
+``search.k1`` or ``search.dominance``, ``search.peel`` (→ one
+``search.front`` a front on the plain loop only), ``search.infeasible_tail``;
+``search.crowding``, ``search.survivors``) and counts every device-to-host
+read in ``search_host_reads``.  Off (the
 default :data:`~repro_torch.obs.NOOP_OBS`), each site costs one attribute
 or local read and takes no clock read.
 """
@@ -38,6 +42,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.ref import pack_bits as _pack_bits
 from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.obs.trace import Laps
 
@@ -69,75 +74,39 @@ def domination_matrix(F: Tensor, CV: Tensor) -> Tensor:
     return D & ~torch.eye(n, dtype=torch.bool, device=F.device)
 
 
-def _pack_bits(B: Tensor) -> Tensor:
-    """Pack a boolean (n, m) matrix into (ceil(n/32), m) int32 words along
-    axis 0, carrying the uint32 bit pattern (bit j of word w, column q =
-    B[32w + j, q])."""
-    n, m = B.shape
-    pad = (-n) % 32
-    if pad:
-        B = torch.cat([B, B.new_zeros((pad, m))])
-    W = B.reshape(-1, 32, m).to(torch.int64)
-    weights = torch.ones(32, dtype=torch.int64, device=B.device) << torch.arange(
-        32, dtype=torch.int64, device=B.device)
-    words = (W * weights[None, :, None]).sum(dim=1)        # in [0, 2**32)
-    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
-
-
-def popcount32(x: Tensor) -> Tensor:
-    """Set bits of each int32 word (its uint32 bit pattern), as int32.
-
-    SWAR count on the low 31 bits — non-negative, so no shift drags the
-    sign bit in and no sum overflows — plus the sign bit counted apart.
-    """
-    y = x & 0x7FFFFFFF
-    y = y - ((y >> 1) & 0x55555555)
-    y = (y & 0x33333333) + ((y >> 2) & 0x33333333)
-    y = (y + (y >> 4)) & 0x0F0F0F0F
-    y = y + (y >> 8)
-    y = (y + (y >> 16)) & 0x3F
-    return y + (x < 0).to(torch.int32)
-
-
-def _peel(Dp: Tensor, alive: Tensor, cap: int, obs: Obs = NOOP_OBS,
-          rank_args: Optional[dict] = None) -> Tuple[Tensor, int, int]:
+def _peel(Dp: Tensor, alive: Tensor, cap: int, impl: str = "auto",
+          obs: Obs = NOOP_OBS, rank_args: Optional[dict] = None
+          ) -> Tuple[Tensor, int, int]:
     """Peel fronts off the packed domination words ``Dp`` among the
     ``alive`` individuals until at least ``cap`` are ranked or none are
-    left; returns (rank, number of fronts, number ranked).  Unranked
-    individuals keep rank n.  With ``obs`` on: a ``search.peel`` span
-    (``fronts``, ``ranked``) holding one ``search.front`` a front (``k``
-    ranked, ``alive`` before it), and the alive count read at entry given
-    to ``rank_args`` (the enclosing ``search.rank``'s) as ``feasible``."""
+    left (``kernels.ops.peel_fronts``: on a CUDA tensor one launch of the
+    peel kernel and one host read, else the plain loop, one read a front);
+    returns (rank, number of fronts, number ranked).  Unranked individuals
+    keep rank n.  With ``obs`` on: a ``search.peel`` span (``fronts``,
+    ``ranked``, ``impl``), holding on the plain loop one ``search.front`` a
+    front (``k`` ranked, ``alive`` before it), and the alive count at
+    entry given to ``rank_args`` (the enclosing ``search.rank``'s) as
+    ``feasible``."""
+    from repro_torch.kernels import ops
     on = obs.enabled
+    on_read = None
     if on:
         laps = Laps(obs.tracer, "search.peel", TRACK)
         reads = obs.metrics.counter(HOST_READS)
-    n = alive.shape[0]
-    rank = torch.full((n,), n, dtype=torch.int64, device=alive.device)
-    n_alive = int(alive.sum())                # host read: the alive count
-    if on:
-        reads.inc()
-        if rank_args is not None:
-            rank_args["feasible"] = n_alive
-        laps.lap()
-    r = done = 0
-    while n_alive and done < cap:
-        alive_p = _pack_bits(alive[:, None])[:, 0]
-        n_dom = popcount32(Dp & alive_p[:, None]).sum(dim=0)
-        front = alive & (n_dom == 0)
-        k = int(front.sum())                  # host read: one a front
-        if k == 0:                            # numerical safety
-            front, k = alive, n_alive
-        rank = torch.where(front, r, rank)
-        alive = alive & ~front
-        if on:
+
+        def on_read(k, n_alive):
             reads.inc()
-            laps.lap("search.front", {"k": k, "alive": n_alive})
-        n_alive -= k
-        done += k
-        r += 1
+            if k is None:
+                if rank_args is not None:
+                    rank_args["feasible"] = n_alive
+                laps.lap()
+            else:
+                laps.lap("search.front", {"k": k, "alive": n_alive})
+    rank, r, done, _ = ops.peel_fronts(Dp, alive, cap, impl=impl,
+                                       on_read=on_read)
     if on:
-        laps.args = {"fronts": r, "ranked": done}
+        laps.args = {"fronts": r, "ranked": done,
+                     "impl": ops.resolve_impl(impl, Dp)}
         laps.close()
     return rank, r, done
 
@@ -152,9 +121,10 @@ def nondominated_rank(F: Tensor, CV: Tensor,
     rank ``n`` — environmental selection never reaches it.
 
     With ``rank_block`` unset/0 the dense path runs: the full domination
-    matrix is built in one broadcast, bit-packed (32 individuals per word),
-    and each peel step counts surviving dominators with a popcount over a
-    (n/32, n) word matrix.
+    matrix is built in one broadcast and bit-packed (32 individuals per
+    word), and the fronts are peeled off the (n/32, n) words by
+    ``kernels.ops.peel_fronts`` with ``rank_impl`` (on a CUDA tensor the
+    peel kernel, one launch a ranking).
 
     ``rank_block > 0`` switches to the tiled primitive
     (``repro_torch.kernels.ops.packed_domination``): the packed words are
@@ -169,7 +139,7 @@ def nondominated_rank(F: Tensor, CV: Tensor,
     None on the dense path; ``impl``: ``dense`` or the tiled primitive's
     resolved impl; ``block``) around ``search.k1`` (the tiled primitive) or
     ``search.dominance`` (the dense matrix and its packing), ``search.peel``
-    and, tiled, ``search.infeasible_tail``.
+    (its ``impl`` the peel's) and, tiled, ``search.infeasible_tail``.
     """
     n = F.shape[0]
     cap = n if cap is None else min(cap, n)
@@ -187,7 +157,7 @@ def nondominated_rank(F: Tensor, CV: Tensor,
         if on:
             laps.lap("search.dominance")
         rank = _peel(Dp, torch.ones(n, dtype=torch.bool, device=F.device),
-                     cap, obs)[0]
+                     cap, rank_impl, obs)[0]
     if on:
         laps.lap()
         laps.close()
@@ -210,7 +180,7 @@ def _rank_blocked(F: Tensor, CV: Tensor, cap: int, block: int,
         obs.tracer.complete("search.k1", track=TRACK, start=t0, end=t1)
         rank_args["impl"] = ops.resolve_impl(impl, F)
     feas = CV <= 0
-    rank, n_feas_fronts, done = _peel(Dp, feas, cap, obs, rank_args)
+    rank, n_feas_fronts, done = _peel(Dp, feas, cap, impl, obs, rank_args)
     if on:
         t2 = time.perf_counter()
     # infeasible tail: every feasible individual dominates every infeasible

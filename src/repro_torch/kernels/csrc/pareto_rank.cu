@@ -1,9 +1,10 @@
 // Constrained Pareto-domination kernels for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of the JAX package,
+// Two replace the Pallas TPU kernels of the JAX package,
 // repro/kernels/pareto_rank.py:
 //   * packed_domination_kernel  <- packed_domination / _packed_kernel
 //   * domination_counts_kernel  <- domination_counts / _counts_kernel
+// The third, peel_fronts_kernel, replaces none (its note is at the kernel).
 //
 // Both evaluate Deb constrained domination of a dominator row p over a
 // column q, with exactly the tie rules of the plain version
@@ -47,6 +48,7 @@
 // Plain C interface, loaded with ctypes; every launch goes on the caller's
 // stream and returns cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -250,6 +252,211 @@ int launch_counts(const float* f_rows, const float* cv_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// peel_fronts_kernel: the whole front loop of one ranking in one launch.
+//
+// It replaces no Pallas kernel.  The JAX package peels its fronts inside a
+// compiled lax.while_loop (repro/core/nsga2_jax.py, nondominated_rank and
+// _rank_blocked), one XLA program with no host decision in it.  The port's
+// loop was plain PyTorch (kernels/ref.py::peel_fronts): about ten
+// elementwise passes over the (W, n) words and one host read a front.  This
+// kernel runs that loop on the device, with the plain loop's ranks, stop
+// rules and "numerical safety" branch bit for bit, and the host reads one
+// small result a ranking.
+//
+// It reads K1's words as they are: bit j of word (w, q) is set when row
+// 32w + j dominates column q.  Column q joins front r when no alive row
+// dominates it: words[w, q] & alive[w] == 0 for every word row w.
+//
+// What bounds it on an H100.  A front reads at most the alive columns of
+// the alive word rows, W x n x 4 bytes, 128 MiB at n = 32768 (40 us at
+// 3.35 TB/s); a column stops at its first alive dominator and a dead word
+// row is never read, so most fronts read far less (chip_smoke.py counts
+// the bytes a ranking's fronts need).  The fronts depend on each other, so
+// each also pays a grid barrier and the staging of the alive words: about
+// 4 us a front.  Neither is the limit: a front takes about 65 us at
+// n = 32768, against 1 us of bytes.  A front member's column reads every
+// live word row, 64 rows in flight a block, so the walk's chain of
+// dependent loads is the likely limit.  The design:
+//   * one cooperative launch, as many blocks as the card holds at once and
+//     at most one a column slice (32 columns, one alive word), so that the
+//     blocks can wait for each other at a grid barrier between fronts;
+//   * the alive mask packed in device memory and double-buffered: front r
+//     reads `cur` and writes `next`, so no block waits inside a front;
+//   * each front, every block stages the W alive words in shared memory with
+//     the list of the non-zero ones and their population count, the alive
+//     count, the same in every block;
+//   * the block's 8 warps walk that list for its slice, kPeelUnroll word rows
+//     a lane in flight, the lanes on neighbouring columns (coalesced).  A lane
+//     stops loading once its column is dominated, a warp once every column
+//     of the slice is settled; the warps share the dominated columns through
+//     a word in shared memory;
+//   * front members take rank r, and the block adds its front count to one
+//     of three counters in turn (one is zeroed while another is read).  After
+//     the barrier every block reads it and applies the plain loop's stop
+//     rules, so that all blocks leave the loop at the same front.
+constexpr int kPeelWarps = 8;          // warps per block
+constexpr int kPeelUnroll = 8;         // word rows a lane loads at once
+constexpr int kPeelHeader = 4;         // shared words before the alive words
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
+  return v;
+}
+
+inline size_t peel_smem_bytes(int n) {
+  return (size_t)(kPeelHeader + 2 * ((n + 31) / 32)) * 4;
+}
+
+// words (W, n) and alive (n,) as given; alive_a, alive_b (W,) and counts
+// (3,) scratch; rank (n,) and result (3,: fronts, ranked, alive at entry)
+// written.
+__global__ void __launch_bounds__(kPeelWarps * 32) peel_fronts_kernel(
+    const uint32_t* __restrict__ words, const uint8_t* __restrict__ alive,
+    int n, int cap, uint32_t* alive_a, uint32_t* alive_b, int* counts,
+    int64_t* __restrict__ rank, int64_t* __restrict__ result) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  extern __shared__ __align__(16) uint32_t peel_smem[];
+  const int W = (n + 31) / 32;
+  int* s_len = reinterpret_cast<int*>(peel_smem);      // live word rows
+  int* s_alive_n = s_len + 1;                          // alive individuals
+  uint32_t* s_dom = peel_smem + 2;                     // slice's dominated
+  uint32_t* s_alive = peel_smem + kPeelHeader;         // (W,) alive words
+  int* s_list = reinterpret_cast<int*>(s_alive + W);   // live word rows
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // entry: the alive mask packed, every rank n, the counters zeroed
+  for (int s = blockIdx.x * kPeelWarps + warp; s < W;
+       s += gridDim.x * kPeelWarps) {
+    const int q = 32 * s + lane;
+    const uint32_t word = __ballot_sync(kAll, q < n && alive[q] != 0);
+    if (q < n) rank[q] = n;
+    if (lane == 0) alive_a[s] = word;
+  }
+  if (blockIdx.x == 0 && threadIdx.x < 3) counts[threadIdx.x] = 0;
+  grid.sync();
+
+  uint32_t* cur = alive_a;
+  uint32_t* next = alive_b;
+  int r = 0, done = 0, entry = 0;
+  for (;;) {
+    // stage the alive words, the list of live word rows, the alive count
+    // (read past L1: other blocks wrote them before the barrier)
+    if (threadIdx.x == 0) *s_len = *s_alive_n = 0;
+    __syncthreads();
+    int pop = 0;
+    for (int base = warp * 32; base < W; base += kPeelWarps * 32) {
+      const int w = base + lane;
+      const uint32_t a = w < W ? __ldcg(cur + w) : 0u;
+      if (w < W) s_alive[w] = a;
+      pop += __popc(a);
+      const uint32_t live = __ballot_sync(kAll, a != 0u);
+      int at = 0;
+      if (lane == 0 && live) at = atomicAdd(s_len, __popc(live));
+      at = __shfl_sync(kAll, at, 0);
+      if (a) s_list[at + __popc(live & ((1u << lane) - 1u))] = w;
+    }
+    pop = warp_sum(pop);
+    if (lane == 0 && pop) atomicAdd(s_alive_n, pop);
+    __syncthreads();
+    const int n_alive = *s_alive_n, len = *s_len;
+    if (r == 0) entry = n_alive;
+    if (n_alive == 0 || done >= cap) break;      // the same in every block
+
+    // the front test of the block's slices
+    int k_block = 0;
+    for (int s = blockIdx.x; s < W; s += gridDim.x) {
+      const uint32_t cols = s_alive[s];
+      if (cols == 0u) {
+        if (threadIdx.x == 0) next[s] = 0u;
+        continue;
+      }
+      if (threadIdx.x == 0) *s_dom = 0u;
+      __syncthreads();
+      const uint32_t* col = words + 32 * s + lane;
+      bool settled = !((cols >> lane) & 1u);     // dead (or past n): no load
+      for (int i0 = warp * kPeelUnroll; i0 < len;
+           i0 += kPeelWarps * kPeelUnroll) {
+        uint32_t hit = 0u;
+        if (!settled) {
+#pragma unroll
+          for (int u = 0; u < kPeelUnroll; ++u) {
+            if (i0 + u < len) {
+              const int w = s_list[i0 + u];
+              hit |= __ldg(col + (size_t)w * n) & s_alive[w];
+            }
+          }
+        }
+        const uint32_t dom = __ballot_sync(kAll, hit != 0u);
+        if (lane == 0 && dom) atomicOr(s_dom, dom);
+        settled = settled || hit != 0u ||
+                  ((*reinterpret_cast<volatile uint32_t*>(s_dom) >> lane) &
+                   1u);
+        if (__all_sync(kAll, settled)) break;
+      }
+      __syncthreads();
+      const uint32_t front = cols & ~*s_dom;
+      if (warp == 0 && ((front >> lane) & 1u)) rank[32 * s + lane] = r;
+      if (threadIdx.x == 0) {
+        next[s] = cols & ~front;
+        k_block += __popc(front);
+      }
+      __syncthreads();                           // *s_dom is reused
+    }
+    if (threadIdx.x == 0) {
+      if (k_block) atomicAdd(&counts[r % 3], k_block);
+      if (blockIdx.x == 0) counts[(r + 1) % 3] = 0;
+    }
+    grid.sync();
+
+    const int k = __ldcg(&counts[r % 3]);
+    if (k == 0) {                                // numerical safety
+      for (int s = blockIdx.x; s < W; s += gridDim.x)
+        if (warp == 0 && ((s_alive[s] >> lane) & 1u))
+          rank[32 * s + lane] = r;
+      done += n_alive;
+      ++r;
+      break;
+    }
+    done += k;
+    ++r;
+    uint32_t* t = cur;
+    cur = next;
+    next = t;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    result[0] = r;
+    result[1] = done;
+    result[2] = entry;
+  }
+}
+
+// The cooperative grid for n individuals: the blocks the card holds at
+// once, at most one a 32-column slice; or a negative CUDA error code.
+int peel_grid(int n, size_t smem) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(peel_fronts_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, peel_fronts_kernel, kPeelWarps * 32, smem);
+  if (err == cudaSuccess && per_sm < 1)
+    err = cudaErrorCooperativeLaunchTooLarge;
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const int slices = (n + 31) / 32;
+  return per_sm * sms < slices ? per_sm * sms : slices;
+}
+
 }  // namespace
 
 extern "C" {
@@ -288,6 +495,32 @@ int domination_counts_launch(const float* f_rows, const float* cv_rows,
                                    cv_cols, n, m, out, s)
                 : launch_counts<8>(f_rows, cv_rows, alive_rows, r, f_cols,
                                    cv_cols, n, m, out, s);
+}
+
+// The largest n whose alive words and list fit in a block's shared memory.
+int peel_fronts_max_n() { return ((232448 / 4 - kPeelHeader) / 2) * 32; }
+
+// ``scratch`` holds 2 * ceil(n / 32) + 3 int32; nothing need be zeroed.
+int peel_fronts_launch(const int32_t* words, const uint8_t* alive, int n,
+                       int cap, int32_t* scratch, int64_t* rank,
+                       int64_t* result, void* stream) {
+  if (n <= 0 || n > peel_fronts_max_n() || cap < 0)
+    return cudaErrorInvalidValue;
+  const size_t smem = peel_smem_bytes(n);
+  const int grid = peel_grid(n, smem);
+  if (grid < 0) return -grid;
+  const int W = (n + 31) / 32;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(words);
+  uint32_t* alive_a = reinterpret_cast<uint32_t*>(scratch);
+  uint32_t* alive_b = alive_a + W;
+  int* counts = reinterpret_cast<int*>(scratch + 2 * W);
+  void* args[] = {&w, &alive, &n, &cap, &alive_a, &alive_b, &counts, &rank,
+                  &result};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      peel_fronts_kernel, dim3(grid), dim3(kPeelWarps * 32), args, smem,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* pareto_error_string(int code) {

@@ -9,7 +9,7 @@ picks the kernel for a CUDA tensor and ``ref`` for a CPU tensor.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -78,6 +78,32 @@ def domination_counts(F, CV, alive: Optional[torch.Tensor] = None, *,
     if resolve_impl(impl, F) == "ref":
         return _ref.domination_counts(F, CV, alive.to(torch.bool), block)
     return _kern.domination_counts(F, CV, alive)
+
+
+def peel_fronts(Dp: torch.Tensor, alive: torch.Tensor,
+                cap: Optional[int] = None, *, impl: str = "auto",
+                on_read: Optional[Callable[[Optional[int], int], None]] = None
+                ) -> Tuple[torch.Tensor, int, int, int]:
+    """Peel fronts off the packed domination words ``Dp`` (ceil(n/32), n)
+    among the ``alive`` (n,) individuals until at least ``cap`` (default
+    n) are ranked or none are left.  Returns (rank (n,) int64, unranked
+    ones n; fronts peeled, individuals ranked, alive count at entry).
+
+    The kernel runs every front in one launch and the host reads its three
+    counts once; the plain loop reads the alive count at entry and one
+    count a front.  ``on_read(k, n_alive)`` follows each host read: (None,
+    the alive count at entry) for the entry read and the kernel's one
+    read, (k ranked, alive before it) after each front of the plain loop.
+    """
+    n = alive.shape[0]
+    cap = n if cap is None else cap
+    if resolve_impl(impl, Dp) == "ref":
+        return _ref.peel_fronts(Dp, alive, cap, on_read)
+    rank, info = _kern.peel_fronts(Dp.contiguous(), alive.contiguous(), cap)
+    fronts, done, n_alive = info.tolist()     # host read: one a ranking
+    if on_read is not None:
+        on_read(None, n_alive)
+    return rank, fronts, done, n_alive
 
 
 # -- window_attn ----------------------------------------------------------------

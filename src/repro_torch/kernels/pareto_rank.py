@@ -1,6 +1,6 @@
 """Wrappers of the hand-written CUDA Pareto-domination kernels.
 
-The kernels (``csrc/pareto_rank.cu``) replace the JAX package's Pallas
+Two kernels (``csrc/pareto_rank.cu``) replace the JAX package's Pallas
 TPU kernels ``repro/kernels/pareto_rank.py::packed_domination`` and
 ``::domination_counts``.  Both put 32 dominator rows on the 32 lanes of a
 warp and test them against one column at a time with the branch-free Deb
@@ -12,6 +12,10 @@ test:
 * :func:`domination_counts` — the vote's popcount, summed over row splits
   of the grid by integer ``atomicAdd`` (exact, independent of order).
 
+The third, :func:`peel_fronts`, replaces no Pallas kernel: it peels the
+fronts off the packed words, the whole front loop of one ranking in one
+cooperative launch, where the JAX package runs a compiled ``while_loop``.
+
 On a CPU tensor each wrapper runs the kernel's plain version
 (``kernels.ref``); on a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its launches in its ``launches`` attribute.
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -43,7 +48,10 @@ def _lib() -> ctypes.CDLL:
     lib.domination_counts_launch.argtypes = [
         _p, _p, _p, _i, _p, _p, _i, _i, _p, _p]
     lib.domination_counts_launch.restype = _i
-    for name in ("pareto_max_objectives", "pareto_rows_per_lane"):
+    lib.peel_fronts_launch.argtypes = [_p, _p, _i, _i, _p, _p, _p, _p]
+    lib.peel_fronts_launch.restype = _i
+    for name in ("pareto_max_objectives", "pareto_rows_per_lane",
+                 "peel_fronts_max_n"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = _i
     lib.pareto_error_string.argtypes = [_i]
@@ -153,3 +161,59 @@ def domination_counts(F: torch.Tensor, CV: torch.Tensor,
 
 
 domination_counts.launches = 0
+
+
+def peel_fronts(words: torch.Tensor, alive: torch.Tensor,
+                cap: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Front index per individual, peeled off the packed domination words
+    among the ``alive`` individuals until at least ``cap`` are ranked or
+    none are left, the plain loop's rules bit for bit
+    (``kernels.ref.peel_fronts``).
+
+    ``words`` (ceil(n/32), n) int32 in the ``nsga2_torch._pack_bits``
+    layout (K1's output), ``alive`` (n,) bool.  Returns (rank (n,) int64,
+    unranked ones n; info (3,) int64: fronts peeled, individuals ranked,
+    alive count at entry), both on the device, with nothing read back: one
+    launch runs every front, its stop test on the device.
+    """
+    if words.device.type == "cpu":
+        rank, fronts, done, n_alive = _ref.peel_fronts(words, alive, cap)
+        return rank, torch.tensor([fronts, done, n_alive],
+                                  dtype=torch.int64)
+    if words.device.type != "cuda":
+        raise ValueError(f"peel_fronts: no kernel for device {words.device}")
+    dev = words.device
+    n = alive.shape[0] if alive.dim() == 1 else -1
+    if alive.device != dev:
+        raise ValueError(f"peel_fronts: every input must be on {dev}")
+    if words.dtype != torch.int32 or alive.dtype != torch.bool:
+        raise TypeError(f"peel_fronts: words must be int32 and alive bool, "
+                        f"got {words.dtype} and {alive.dtype}")
+    if n < 0 or words.shape != ((n + 31) // 32, n):
+        raise ValueError(f"peel_fronts: shapes {tuple(words.shape)} and "
+                         f"{tuple(alive.shape)} are not (ceil(n/32), n) "
+                         f"and (n,)")
+    if not (words.is_contiguous() and alive.is_contiguous()):
+        raise ValueError("peel_fronts: inputs must be contiguous")
+    rank = torch.empty(n, dtype=torch.int64, device=dev)
+    if n == 0:
+        return rank, torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = _lib()
+    if n > lib.peel_fronts_max_n():
+        raise ValueError(f"peel_fronts: {n} individuals exceed the "
+                         f"kernel's {lib.peel_fronts_max_n()}")
+    # the kernel writes every element of these before it reads one
+    info = torch.empty(3, dtype=torch.int64, device=dev)
+    scratch = torch.empty(2 * ((n + 31) // 32) + 3, dtype=torch.int32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.peel_fronts_launch(
+            words.data_ptr(), alive.data_ptr(), n, max(0, min(cap, n)),
+            scratch.data_ptr(), rank.data_ptr(), info.data_ptr(), stream)
+    _check(lib, code, "peel_fronts")
+    peel_fronts.launches += 1
+    return rank, info
+
+
+peel_fronts.launches = 0

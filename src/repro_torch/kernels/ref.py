@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the port's kernels (the ground truth).
 
 Pareto half: Deb constrained domination, tiled and bit-packed exactly as
-the CUDA kernels in ``kernels/csrc/pareto_rank.cu`` compute it.  Packed
-words are int32 tensors carrying the uint32 bit pattern: bit j of word
-(w, q) means row 32w+j dominates column q (view them with
+the CUDA kernels in ``kernels/csrc/pareto_rank.cu`` compute it, and the
+front loop that peels ranks off the packed words (:func:`peel_fronts`).
+Packed words are int32 tensors carrying the uint32 bit pattern: bit j of
+word (w, q) means row 32w+j dominates column q (view them with
 ``.numpy().view(np.uint32)``).  These functions run on any device; the
 CPU tests use them, and on the card they are what the kernels are held
 against.
@@ -23,7 +24,7 @@ Quantized half: :func:`quant_matmul`, the fake-quant int8 product that
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -107,6 +108,73 @@ def domination_counts(F: torch.Tensor, CV: torch.Tensor,
         d &= alive[i:i + rows, None].to(torch.bool)
         acc += d.sum(dim=0, dtype=torch.int32)
     return acc
+
+
+def pack_bits(B: torch.Tensor) -> torch.Tensor:
+    """Pack a boolean (n, m) matrix into (ceil(n/32), m) int32 words along
+    axis 0, carrying the uint32 bit pattern (bit j of word w, column q =
+    B[32w + j, q])."""
+    n, m = B.shape
+    pad = (-n) % 32
+    if pad:
+        B = torch.cat([B, B.new_zeros((pad, m))])
+    W = B.reshape(-1, 32, m).to(torch.int64)
+    weights = torch.ones(32, dtype=torch.int64, device=B.device) << torch.arange(
+        32, dtype=torch.int64, device=B.device)
+    words = (W * weights[None, :, None]).sum(dim=1)        # in [0, 2**32)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int32 word (its uint32 bit pattern), as int32.
+
+    SWAR count on the low 31 bits — non-negative, so no shift drags the
+    sign bit in and no sum overflows — plus the sign bit counted apart.
+    """
+    y = x & 0x7FFFFFFF
+    y = y - ((y >> 1) & 0x55555555)
+    y = (y & 0x33333333) + ((y >> 2) & 0x33333333)
+    y = (y + (y >> 4)) & 0x0F0F0F0F
+    y = y + (y >> 8)
+    y = (y + (y >> 16)) & 0x3F
+    return y + (x < 0).to(torch.int32)
+
+
+def peel_fronts(Dp: torch.Tensor, alive: torch.Tensor, cap: int,
+                on_read: Optional[Callable[[Optional[int], int], None]] = None
+                ) -> Tuple[torch.Tensor, int, int, int]:
+    """Peel fronts off the packed domination words ``Dp`` (ceil(n/32), n)
+    among the ``alive`` (n,) individuals until at least ``cap`` are ranked
+    or none are left; returns (rank (n,) int64, number of fronts, number
+    ranked, alive count at entry).  Unranked individuals keep rank n.  A
+    front with no member (only a domination cycle makes one) takes every
+    alive individual.
+
+    Each front costs ten elementwise passes over the words and one host
+    read; ``on_read(k, n_alive)`` is called after each read: at entry (k
+    None, the alive count), then after each front (k ranked, ``n_alive``
+    alive before it)."""
+    n = alive.shape[0]
+    rank = torch.full((n,), n, dtype=torch.int64, device=alive.device)
+    n_alive = entry = int(alive.sum())        # host read: the alive count
+    if on_read is not None:
+        on_read(None, n_alive)
+    r = done = 0
+    while n_alive and done < cap:
+        alive_p = pack_bits(alive[:, None])[:, 0]
+        n_dom = popcount32(Dp & alive_p[:, None]).sum(dim=0)
+        front = alive & (n_dom == 0)
+        k = int(front.sum())                  # host read: one a front
+        if k == 0:                            # numerical safety
+            front, k = alive, n_alive
+        rank = torch.where(front, r, rank)
+        alive = alive & ~front
+        if on_read is not None:
+            on_read(k, n_alive)
+        n_alive -= k
+        done += k
+        r += 1
+    return rank, r, done, entry
 
 
 # -- window_attn ----------------------------------------------------------------

@@ -26,9 +26,12 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   ``search.generation`` a generation (``gen``) with ``search.evaluate``,
   ``search.offspring``, ``search.rank`` (``n``, ``m``, ``feasible``,
   ``impl``, ``block``) → ``search.k1`` or ``search.dominance``,
-  ``search.peel`` (``fronts``, ``ranked``) → one ``search.front`` a front
-  (``k``, ``alive``), ``search.infeasible_tail``; ``search.crowding``,
-  ``search.survivors``; then ``search.final_front``; and the counter ``search_host_reads``, every device-to-host read;
+  ``search.peel`` (``fronts``, ``ranked``, ``impl``) → on the plain loop
+  (``impl`` ``ref``) one ``search.front`` a front (``k``, ``alive``), none
+  on the peel kernel's one launch, ``search.infeasible_tail``;
+  ``search.crowding``, ``search.survivors``; then ``search.final_front``;
+  and the counter ``search_host_reads``, every device-to-host read (one a
+  ranking on the kernel, one a front and one at entry on the plain loop);
 * the measured accuracy oracle (``obs=`` of ``cnn_measured_accuracy`` and
   ``PartitionedCNNRunner``; track ``oracle``): one ``oracle.measure`` a cut
   vector (``cuts``, ``cached``) holding one ``oracle.quantize`` a stage

@@ -381,7 +381,7 @@ MUTATIONS = [
     ("helper-does-not-raise", "kernels/pareto_rank.py", None,
      lambda s: replace('        raise RuntimeError(f"{what} launch failed: "',
                        '        print(f"{what} launch failed: "', s),
-     {"RPT203": 2}),
+     {"RPT203": 3}),
     ("surplus-launch-argument", "kernels/ssd_scan.py", None,
      lambda s: replace("b, t, h, p, n, chunk, stream)",
                        "b, t, h, p, n, chunk, chunk, stream)", s),
@@ -494,6 +494,7 @@ def test_kernel_wrappers_are_the_five_counted_ones():
     assert kernel_wrappers(str(KERNELS)) == [
         "repro_torch.kernels.pareto_rank.domination_counts",
         "repro_torch.kernels.pareto_rank.packed_domination",
+        "repro_torch.kernels.pareto_rank.peel_fronts",
         "repro_torch.kernels.quant_matmul.quant_matmul",
         "repro_torch.kernels.ssd_scan.ssd_scan",
         "repro_torch.kernels.window_attn.window_attn",

@@ -280,7 +280,7 @@ def test_popcount32_matches_numpy_including_bit31():
         np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 31 - 1, 2 ** 31 + 1,
                   0x80000001, 0xAAAAAAAA, 0x55555555], dtype=np.uint64),
     ]).astype(np.uint32)
-    got = nsga2_torch.popcount32(torch.from_numpy(u.view(np.int32))).numpy()
+    got = ref.popcount32(torch.from_numpy(u.view(np.int32))).numpy()
     want = np.array([bin(int(v)).count("1") for v in u])
     assert (got == want).all()
     assert (got == np.bitwise_count(u)).all()

@@ -1,6 +1,7 @@
 // Host shim: runs a CUDA source's kernels on the CPU, one std::thread per
-// CUDA thread, blocks one at a time; warp collectives through per-warp
-// buffers and 32-thread barriers.
+// CUDA thread, blocks one at a time (a cooperative launch: all its blocks
+// at once, with a grid barrier); warp collectives through per-warp buffers
+// and 32-thread barriers.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -11,6 +12,8 @@
 #include <limits>
 #include <memory>
 #include <thread>
+#include <type_traits>
+#include <utility>
 #include <vector>
 
 #define __global__
@@ -39,9 +42,23 @@ inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
+constexpr int cudaErrorNotSupported = 801;
+constexpr int cudaErrorCooperativeLaunchTooLarge = 720;
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
+// a small card: SHIM_SMS multiprocessors, one block each, so that a
+// cooperative grid is a few blocks and a block takes several slices
+constexpr int SHIM_SMS = 3;
+enum cudaDeviceAttr { cudaDevAttrCooperativeLaunch, cudaDevAttrMultiProcessorCount };
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? SHIM_SMS : 1;
+  return 0;
+}
+template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
+  *n = 1;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 inline int cudaGetDevice(int* device) { *device = 0; return 0; }
 inline const char* cudaGetErrorString(int) { return "shim error"; }
@@ -58,7 +75,9 @@ inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); r
 inline float __int_as_float(int32_t i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 inline int atomicAdd(int32_t* a, int32_t v) { return __atomic_fetch_add(a, v, __ATOMIC_RELAXED); }
+inline uint32_t atomicOr(uint32_t* a, uint32_t v) { return __atomic_fetch_or(a, v, __ATOMIC_RELAXED); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) { return __atomic_load_n(p, __ATOMIC_RELAXED); }
 inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {   // prmt
   const uint64_t v = (uint64_t)y << 32 | x;
   uint32_t r = 0;
@@ -74,7 +93,7 @@ struct ShimBlock {
   std::vector<uint32_t> fa, fb;       // [warp][32][4], [warp][32][2]
   std::vector<char> dyn;
 };
-inline ShimBlock* g_block = nullptr;
+inline thread_local ShimBlock* g_block = nullptr;   // the thread's block
 inline void __syncthreads() { g_block->block_bar->arrive_and_wait(); }
 inline void warp_sync() { g_block->warp_bars[threadIdx.x / 32]->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { warp_sync(); }
@@ -88,6 +107,21 @@ inline uint32_t __ballot_sync(unsigned, int pred) {
   warp_sync();
   return r;
 }
+inline int __all_sync(unsigned m, int pred) { return __ballot_sync(m, pred) == 0xffffffffu; }
+// a 4-byte value through the warp's vote buffer
+template <class T> inline T shim_shfl(T v, int src) {
+  static_assert(sizeof(T) == 4, "4-byte shuffles only");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* buf = &g_block->vote[warp * 32];
+  std::memcpy(&buf[lane], &v, 4);
+  warp_sync();
+  T r;
+  std::memcpy(&r, &buf[src], 4);
+  warp_sync();
+  return r;
+}
+inline int __shfl_sync(unsigned, int v, int src) { return shim_shfl(v, src % 32); }
+inline int __shfl_xor_sync(unsigned, int v, int m) { return shim_shfl(v, (threadIdx.x % 32) ^ m); }
 inline float __shfl_xor_sync(unsigned, float v, int m, int w = 32) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* buf = &g_block->shfl[warp * 32];
@@ -176,10 +210,7 @@ inline void mma_m16n8k32(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b
 }
 }  // namespace s8
 
-template <class F>
-void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
-  const int n = block.x * block.y * block.z;
-  ShimBlock sb;
+inline void shim_block_init(ShimBlock& sb, int n, size_t smem) {
   sb.block_bar = std::make_unique<std::barrier<>>(n);
   for (int w = 0; w < (n + 31) / 32; ++w)
     sb.warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32, n - 32 * w)));
@@ -192,10 +223,17 @@ void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
     float nan = std::numeric_limits<float>::quiet_NaN();
     for (size_t i = 0; i + 4 <= sb.dyn.size(); i += 4) std::memcpy(&sb.dyn[i], &nan, 4);
   }
-  g_block = &sb;
+}
+
+template <class F>
+void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
+  const int n = block.x * block.y * block.z;
+  ShimBlock sb;
+  shim_block_init(sb, n, smem);
   std::vector<std::thread> ths;
   for (int i = 0; i < n; ++i)
     ths.emplace_back([&, i] {
+      g_block = &sb;
       threadIdx = {(unsigned)i, 0, 0};
       blockDim = block;
       gridDim = grid;
@@ -208,5 +246,43 @@ void shim_launch(dim3 grid, dim3 block, size_t smem, F fn) {
           }
     });
   for (auto& t : ths) t.join();
-  g_block = nullptr;
+}
+
+// A cooperative launch: every block of the (1-D) grid at once, each thread
+// of each block a std::thread, cooperative_groups::this_grid().sync() a
+// barrier of them all.  The last such launch's block count is read by name
+// (rehearse.py prints it).
+inline std::barrier<>* g_grid_bar = nullptr;
+extern "C" {
+inline unsigned shim_cooperative_grid = 0;
+}
+
+template <class... A, size_t... I>
+void shim_call(void (*f)(A...), void** args, std::index_sequence<I...>) {
+  f(*static_cast<std::remove_reference_t<A>*>(args[I])...);
+}
+
+template <class... A>
+int cudaLaunchCooperativeKernel(void (*f)(A...), dim3 grid, dim3 block, void** args,
+                                size_t smem, cudaStream_t) {
+  const int n = block.x * block.y * block.z;
+  std::vector<ShimBlock> blocks(grid.x);
+  for (auto& sb : blocks) shim_block_init(sb, n, smem);
+  std::barrier<> grid_bar(n * grid.x);
+  g_grid_bar = &grid_bar;
+  shim_cooperative_grid = grid.x;
+  std::vector<std::thread> ths;
+  for (unsigned b = 0; b < grid.x; ++b)
+    for (int i = 0; i < n; ++i)
+      ths.emplace_back([&, b, i] {
+        g_block = &blocks[b];
+        threadIdx = {(unsigned)i, 0, 0};
+        blockIdx = {b, 0, 0};
+        blockDim = block;
+        gridDim = grid;
+        shim_call(f, args, std::index_sequence_for<A...>{});
+      });
+  for (auto& t : ths) t.join();
+  g_grid_bar = nullptr;
+  return 0;
 }

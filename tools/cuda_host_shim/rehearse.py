@@ -8,8 +8,12 @@ launch's bytes) and built against ``cuda_runtime.h`` here, which runs one
 ``mma_tf32x3.cuh`` and ``mma_s8.cuh`` keep under ``__CUDACC__`` (the
 rounding, each ``mma`` as a warp collective over its fragment layout,
 ``cp.async`` as a copy), what ``pareto_rank.cu`` uses (the warp vote
-``__ballot_sync``, ``__popc``, ``atomicAdd``) and what ``quant_matmul.cu``
-uses (``__byte_perm``, ``__ldg``, ``cudaGetDevice``).  The library is
+``__ballot_sync``, ``__popc``, ``atomicAdd``; for the peel kernel a cooperative launch of
+all its blocks at once, ``cooperative_groups::this_grid().sync()`` as a
+barrier of all their threads, ``__shfl_sync``, ``__all_sync``,
+``atomicOr``, ``__ldcg`` and the occupancy queries of a card of three
+multiprocessors) and what ``quant_matmul.cu`` uses (``__byte_perm``,
+``__ldg``, ``cudaGetDevice``).  The library is
 built with AddressSanitizer, so a read past a buffer stops the run.  The
 kernels are then held against their plain PyTorch versions at small
 shapes, the int8 product bit for bit against
@@ -134,6 +138,49 @@ def pareto_rank(lib, n, m, infeas, seed, bp=2048, bq=256, alive=True):
     return ok
 
 
+def cycle_words(n):
+    """Packed words in which rows 0 and 1 dominate each other and every
+    other row: no individual is free of an alive dominator, so the peel's
+    first front is empty and takes everyone (the numerical-safety rule)."""
+    B = torch.zeros((n, n), dtype=torch.bool)
+    B[0, 1:] = True
+    B[1, 0] = B[1, 2:] = True
+    return ref.pack_bits(B)
+
+
+def peel_fronts(lib, n, m, infeas, seed, mask="all", cap=None):
+    """The peel kernel against the plain loop, ranks and counts bit for
+    bit, on K1's words of an edge population (or a domination cycle),
+    under an alive mask: all, random, or random with whole dead words."""
+    if m == 0:
+        words = cycle_words(n)
+    else:
+        F, CV = edge_population(n, m, infeas, seed)
+        words = ref.packed_domination(F, CV, F, CV)
+    rng = np.random.default_rng(seed)
+    alive = torch.ones(n, dtype=torch.bool)
+    if mask != "all":
+        alive = torch.from_numpy(rng.random(n) < 0.7)
+    if mask == "dead_words":
+        for w in range(0, (n + 31) // 32, 2):
+            alive[32 * w:32 * w + 32] = False
+    cap = n if cap is None else cap
+    rank = torch.full((n,), -7, dtype=torch.int64)
+    info = torch.full((3,), -7, dtype=torch.int64)
+    scratch = torch.full((2 * ((n + 31) // 32) + 3,), -1, dtype=torch.int32)
+    code = lib.peel_fronts_launch(words.data_ptr(), alive.data_ptr(), n, cap,
+                                  scratch.data_ptr(), rank.data_ptr(),
+                                  info.data_ptr(), None)
+    want, fronts, done, entry = ref.peel_fronts(words, alive, cap)
+    ok = code == 0 and torch.equal(rank, want) and info.tolist() == [
+        fronts, done, entry]
+    grid = ctypes.c_uint.in_dll(lib, "shim_cooperative_grid").value
+    print(f"peel_fronts n {n} m {m} infeasible {infeas} alive {mask} cap "
+          f"{cap} grid {grid}: {fronts} fronts, {done} ranked "
+          f"{'bit-exact' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def quant_matmul(lib, m, k, n, splits, seed, w_offset=0, x_offset=0):
     """The int8 product twice in a row on one scratch (filled with 0xab
     first: each call zeroes the split sums it adds to), bit for bit against
@@ -180,6 +227,7 @@ def main() -> int:
         p_, p_]
     pr.domination_counts_launch.argtypes = [p_, p_, p_, i_, p_, p_, i_, i_,
                                             p_, p_]
+    pr.peel_fronts_launch.argtypes = [p_, p_, i_, i_, p_, p_, p_, p_]
     qm = build(CSRC / "quant_matmul.cu", out / "quant_matmul.so")
     qm.quant_matmul_launch.argtypes = [p_] * 6 + [i_] * 4 + [p_]
     qm.quant_matmul_scratch_bytes.argtypes = [i_] * 4
@@ -198,6 +246,14 @@ def main() -> int:
                                 (70, 5, 96, 1024), (97, 8, 128, 64),
                                 (1100, 3, 1024, 256))]
     ok += [pareto_rank(pr, 4099, 3, 0.3, seed=1, alive=False)]
+    ok += [peel_fronts(pr, n, m, 0.3, seed=n + m, mask=mask, cap=cap)
+           for n, m in ((33, 3), (97, 1), (130, 8), (300, 3))
+           for mask in ("all", "random", "dead_words")
+           for cap in (None, 1, n // 2)]
+    ok += [peel_fronts(pr, n, 3, infeas, seed=n, cap=cap)
+           for n in (1, 32, 64) for infeas in (0.0, 1.0) for cap in (0, n)]
+    ok += [peel_fronts(pr, n, 0, 0.0, seed=n, mask=mask)
+           for n in (5, 40) for mask in ("all", "random")]
     ok += [window_attn(wa, *case, seed=i) for i, case in enumerate((
         (1, 1, 1, 1, 32, 1), (1, 100, 2, 2, 32, 64), (1, 130, 3, 1, 64, 100),
         (2, 129, 2, 2, 64, 129), (1, 300, 3, 3, 64, 37),
