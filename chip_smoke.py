@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (1, 3, 4, 17, 18, 19, 20, 21), and prints the
+those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22), and prints the
 kernels line of the records they make (their launches 0 unless a listed
 phase counts them: phase 3 for phase 1's).
 
@@ -50,8 +50,9 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    generation engine answers 8 requests (prompt 128, 32 new tokens,
    greedy) whose first-step logits agree with the forward;
 6. holds the SSD scan kernel against its plain version on the card, at the
-   reference's sweep shapes and at mamba2-370m's and zamba2-2.7b's head and
-   state sizes over two 8192-token rows, and times kernel, plain version
+   reference's sweep shapes and at mamba2-370m's, zamba2-2.7b's and
+   granite-4.0-h-micro's head and state sizes and chunks (128, 128, 256)
+   over two 8192-token rows, and times kernel, plain version
    and both bounds, as phase 4 (no single PyTorch call computes the scan),
    and counts its HMMA instructions;
 7. drives the SSM inference path once at full width and depth, with every
@@ -243,10 +244,21 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     in 2048-row tiles; 4096 x 2 in 512-row tiles): K1 on them bit-exact
     against its plain version, both timed, each front exact against the
     NumPy evaluator, and step 4's front against the same spec's search on
-    the CPU at the Pareto-front level.
+    the CPU at the Pareto-front level;
+22. runs granite-4.0-h-micro (the mixed family: 36 Mamba2 mixers, 4 GQA
+    layers without RoPE) at full width on two 8192-token rows: the SSD
+    scan kernel at its shape (phase 6's record, made here when the phase
+    runs alone), then ``PartitionedLMRunner(..., impl="cuda")`` over a cut
+    vector at the search's positions (one boundary between a mixer and
+    its MLP), float, with the scan kernel's launches set to 0 just before
+    and read just after (exactly 36, one a Mamba2 mixer) and its logits
+    against the model's forward through the plain scan; then the same
+    cut with its stages fake-quantized at the benchmark cell's 16/16/8/8
+    bits and the links at theirs (36 launches again, finite logits, the
+    top-1's agreement with the float forward printed).
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 21),
+card's name and power limit (also beside every time of phases 6 to 22),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -322,7 +334,9 @@ PART_TOL = 1e-6
 # the SSM path: mamba2-370m at full width and depth (48 layers, d 1024,
 # N 128), the LM path's prompts, search and requests
 SSM_ARCH = "mamba2-370m"
-SSD_MODELS = ("mamba2-370m", "zamba2-2.7b")
+GRANITE_ARCH = "granite-4.0-h-micro"
+GRANITE_K4 = f"ssd_scan[{GRANITE_ARCH}]"
+SSD_MODELS = ("mamba2-370m", "zamba2-2.7b", GRANITE_ARCH)
 SSD_SWEEP = tuple((t, chunk, h, p, n) for t, chunk in ((128, 32), (256, 64),
                                                         (192, 64))
                   for h, p, n in ((2, 16, 8), (3, 32, 16)))
@@ -332,7 +346,8 @@ SSD_SWEEP = tuple((t, chunk, h, p, n) for t, chunk in ((128, 32), (256, 64),
 # version's cumulative decay, which the card sums in another order than the
 # kernel's sequential one, moves exponents of up to |cs| ~ 50 by ~1e-5,
 # i.e. terms by up to ~3e-4: the stated bound there is 1e-3 (rtol and atol);
-# a fault of indexing or masking would be O(1)
+# granite's chunk 256 reaches |y| ~ 62 and reads 3.9e-4 (NVIDIA H100).  A
+# fault of indexing or masking would be O(1)
 SSD_TOL, SSD_TOL_MODEL = 2e-4, 1e-3
 # the accuracy path: EfficientNet-B0 at its published size, 256 synthetic
 # images (the reference oracle's eval_size), up to 8 of phase 3's cuts
@@ -1160,69 +1175,84 @@ def ssd_work(b, t, h, p, n, chunk):
     return n_bytes, ops
 
 
-def check_ssd_scan(dev, card):
-    """Phase 6: the SSD scan kernel against its plain version on the card;
-    returns its record (launches filled in by the SSM path)."""
+def ssd_inputs(dev, b, t, h, p, n, seed):
+    """SSD scan inputs of the reference's sweep's distribution
+    (tests/test_kernels.py)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, t, h, p), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), generator=g, device=dev) - 1)
+    A = -torch.exp(torch.randn((h,), generator=g, device=dev) * 0.3)
+    B = torch.randn((b, t, n), generator=g, device=dev) * 0.5
+    C = torch.randn((b, t, n), generator=g, device=dev) * 0.5
+    return x, dt, A, B, C
+
+
+def ssd_check(args, chunk, tol):
+    """The scan kernel on ``args`` against its plain version, within
+    ``tol`` (rtol and atol); returns the largest absolute error."""
+    from repro_torch.kernels import ops, ssd_scan
+    y, st = ssd_scan.ssd_scan(*args, chunk)
+    y_ref, st_ref = ops.ssd_scan(*args, chunk, impl="ref")
+    err = max(float((y - y_ref).abs().max()),
+              float((st - st_ref).abs().max()))
+    print(f"  max_abs_err {err:.3e} (max |y| "
+          f"{float(y_ref.abs().max()):.2f}, bound {tol})")
+    torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
+    return err
+
+
+def ssd_model_record(dev, card, arch, name="ssd_scan"):
+    """The scan kernel at ``arch``'s shape (``LM_B`` x ``LM_T`` tokens, its
+    heads, state and chunk) against its plain version within
+    ``SSD_TOL_MODEL``, kernel and plain version timed beside the bound;
+    returns its record under ``name`` (launches 0)."""
     from repro_torch.kernels import ops, ssd_scan
     from repro_torch.models.registry import get_config
+    cfg = get_config(arch)
+    b, t, chunk = LM_B, LM_T, cfg.ssm_chunk
+    h = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    p, n = cfg.ssm_headdim, cfg.ssm_state
+    args = ssd_inputs(dev, b, t, h, p, n, 1)
+    print(f"ssd_scan at {arch}'s shape:")
+    err = ssd_check(args, chunk, SSD_TOL_MODEL)
+    ms = cuda_ms(lambda: ssd_scan.ssd_scan(*args, chunk), 10)
+    plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk, impl="ref"), 2)
+    (b_ms, b_by), (f32_ms, f32_by) = bounds_3xtf32(
+        *ssd_work(b, t, h, p, n, chunk))
+    print(f"  x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}), chunk {chunk}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; float32 on the CUDA cores "
+          f"{f32_ms:.4f} ms, {f32_by}) [{card}]")
+    return dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan.py:71",
+        shape=f"x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}) f32, "
+              f"chunk {chunk}",
+        launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
+        library_ms=None)
 
-    def inputs(b, t, h, p, n, seed):
-        """The distribution of the reference's sweep (tests/test_kernels.py)."""
-        g = torch.Generator(device=dev).manual_seed(seed)
-        x = torch.randn((b, t, h, p), generator=g, device=dev)
-        dt = torch.nn.functional.softplus(
-            torch.randn((b, t, h), generator=g, device=dev) - 1)
-        A = -torch.exp(torch.randn((h,), generator=g, device=dev) * 0.3)
-        B = torch.randn((b, t, n), generator=g, device=dev) * 0.5
-        C = torch.randn((b, t, n), generator=g, device=dev) * 0.5
-        return x, dt, A, B, C
 
-    def check(args, chunk, tol):
-        y, st = ssd_scan.ssd_scan(*args, chunk)
-        y_ref, st_ref = ops.ssd_scan(*args, chunk, impl="ref")
-        err = max(float((y - y_ref).abs().max()),
-                  float((st - st_ref).abs().max()))
-        print(f"  max_abs_err {err:.3e} (max |y| "
-              f"{float(y_ref.abs().max()):.2f}, bound {tol})")
-        torch.testing.assert_close(y, y_ref, rtol=tol, atol=tol)
-        torch.testing.assert_close(st, st_ref, rtol=tol, atol=tol)
-        return err
-
+def check_ssd_scan(dev, card):
+    """Phase 6: the SSD scan kernel against its plain version on the card,
+    at the reference's sweep and at each of ``SSD_MODELS``' shapes;
+    returns the records of ``SSM_ARCH``'s shape and of ``GRANITE_ARCH``'s
+    (launches filled in by phases 7 and 22)."""
     for i, (t, chunk, h, p, n) in enumerate(SSD_SWEEP):
-        check(inputs(2, t, h, p, n, i), chunk, SSD_TOL)
+        ssd_check(ssd_inputs(dev, 2, t, h, p, n, i), chunk, SSD_TOL)
     print(f"ssd_scan: {len(SSD_SWEEP)} sweep cases (t, chunk, h, p, n) "
           f"{SSD_SWEEP} within {SSD_TOL}")
-
-    record = None
+    records = []
     for arch in SSD_MODELS:
-        cfg = get_config(arch)
-        b, t, chunk = LM_B, LM_T, cfg.ssm_chunk
-        h = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
-        p, n = cfg.ssm_headdim, cfg.ssm_state
-        args = inputs(b, t, h, p, n, 1)
-        print(f"ssd_scan at {arch}'s shape:")
-        err = check(args, chunk, SSD_TOL_MODEL)
-        ms = cuda_ms(lambda: ssd_scan.ssd_scan(*args, chunk), 10)
-        plain_ms = cuda_ms(lambda: ops.ssd_scan(*args, chunk, impl="ref"), 2)
-        (b_ms, b_by), (f32_ms, f32_by) = bounds_3xtf32(
-            *ssd_work(b, t, h, p, n, chunk))
-        print(f"  x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}), chunk {chunk}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; float32 on the CUDA cores "
-              f"{f32_ms:.4f} ms, {f32_by}) [{card}]")
-        if arch == SSM_ARCH:
-            record = dict(
-                name="ssd_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan.py:71",
-                shape=f"x ({b}, {t}, {h}, {p}), B/C ({b}, {t}, {n}) f32, "
-                      f"chunk {chunk}",
-                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, bound_f32_ms=f32_ms,
-                library_ms=None)
-        del args
+        name = {SSM_ARCH: "ssd_scan", GRANITE_ARCH: GRANITE_K4}.get(arch)
+        rec = ssd_model_record(dev, card, arch, name or "ssd_scan")
+        if name:
+            records.append(rec)
     print_hmma("ssd_scan.cu")
-    return record
+    return records
 
 
 def ssm_path(dev, records, card):
@@ -3423,6 +3453,86 @@ def quickstart_kernel_check(dev, card):
           f"{cpu_s:.1f} s [{card}]")
 
 
+# phase 22: granite-4.0-h-micro (the mixed family) at full width on LM_B x
+# LM_T tokens.  Its cut vector (positions of the model's chain: 0 the
+# embedding, 2l + 1 layer l's mixer, 2l + 2 its MLP) ends stage 0 after
+# layer 5's attention mixer (its MLP on stage 1), stage 1 after layer 19's
+# MLP and stage 2 after layer 30's Mamba2 mixer; the stages' widths are
+# the benchmark cell's (bench/configs/granite-h-micro-4plat.json)
+GRANITE_CUTS, GRANITE_BITS = (11, 40, 61), (16, 16, 8, 8)
+# the float partitioned forward through the scan kernel against the
+# model's forward through the plain scan, over the largest |logit|: the
+# scan's sums in another order (5.7e-6 against the benchmark's plain
+# reference, PERF.md); a missing term moves the logits by 1e-2 or more
+GRANITE_TOL = 1e-4
+
+
+def granite_phase(dev, card, records):
+    """Phase 22: granite-4.0-h-micro's partitioned forward on the card,
+    float and fake-quantized, with the scan kernel's launches read; fills
+    in (or makes) the scan kernel's record at its shape."""
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.serving import PartitionedLMRunner
+
+    rec = next((r for r in records if r["name"] == GRANITE_K4), None)
+    if rec is None:
+        rec = ssd_model_record(dev, card, GRANITE_ARCH, GRANITE_K4)
+        records.append(rec)
+    cfg = get_config(GRANITE_ARCH)
+    mamba = cfg.layer_types.count("mamba")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, build_s = timed(lambda: build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_B, LM_T))).to(dev)}
+    specs = [QuantSpec(bits=b) for b in GRANITE_BITS]
+    with torch.no_grad():
+        want, ref_s = timed(lambda: model(batch, impl="ref"))
+        runner = PartitionedLMRunner(model, GRANITE_CUTS, impl="cuda")
+        ssd_scan.ssd_scan.launches = 0
+        (logits, _), fwd_s = timed(lambda: runner.forward(batch))
+        launches = ssd_scan.ssd_scan.launches
+        err = float((logits - want).abs().max() / want.abs().max())
+        top1 = logits.argmax(-1)
+        del logits, want, runner
+        print(f"granite forward: {n_params / 1e9:.3f} B parameters "
+              f"(built in {build_s:.1f} s), {cfg.n_layers} layers "
+              f"({mamba} Mamba2, {cfg.n_layers - mamba} attention), {LM_B} "
+              f"x {LM_T} tokens, cuts {GRANITE_CUTS}: partitioned through "
+              f"the kernel {fwd_s:.3f} s ({launches} launches), the model "
+              f"through the plain scan {ref_s:.3f} s; logits rel err "
+              f"{err:.3e} (bound {GRANITE_TOL}) [{card}]")
+        assert launches == mamba, launches
+        assert err <= GRANITE_TOL, err
+        ssd_scan.ssd_scan.launches = 0
+        (logits, rep), q_s = timed(lambda: PartitionedLMRunner(
+            model, GRANITE_CUTS, specs, link_quant=True,
+            impl="cuda").forward(batch))
+        q_launches = ssd_scan.ssd_scan.launches
+        agree = float((logits.argmax(-1) == top1).double().mean())
+        finite = bool(torch.isfinite(logits).all())
+        del logits, top1
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"granite fake-quantized: stages at {GRANITE_BITS} bits, links "
+          f"fake-quantized ({len(rep.link_bytes)} links), quantized and run "
+          f"in {q_s:.3f} s ({q_launches} launches); top-1 agreement with "
+          f"the float forward {agree:.4f}; peak device memory {peak:.2f} "
+          f"GiB [{card}]")
+    assert q_launches == mamba and finite, (q_launches, finite)
+    rec["launches"] = launches
+    rec["launches_in"] = (
+        f"phase 22's partitioned forward ({launches}, one a Mamba2 mixer) "
+        f"and its fake-quantized forward ({q_launches})")
+    del model
+    torch.cuda.empty_cache()
+
+
 # the phases that stand alone (``--phases``): what each needs of no other
 ALONE = {
     "1": lambda dev, card, records: records.extend(check_kernels(dev)),
@@ -3433,6 +3543,7 @@ ALONE = {
     "19": lambda dev, card, records: pod_phase(dev, card),
     "20": lambda dev, card, records: analyzer_phase(card),
     "21": lambda dev, card, records: examples_phase(dev, card),
+    "22": granite_phase,
 }
 
 
@@ -3474,13 +3585,13 @@ def main(argv=None) -> int:
 
 
 def all_phases(dev, card):
-    """Phases 1-21; the kernels' records."""
+    """Phases 1-22; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
     records += check_window_attn(dev)
     lm_model, lm_cuts = lm_path(dev, records)
-    records.append(check_ssd_scan(dev, card))
+    records += check_ssd_scan(dev, card)
     ssm_path(dev, records, card)
     model, vx, vy, xd, pooled = cnn_setup(dev)
     records.append(check_quant_matmul(dev, card, model, pooled))
@@ -3503,6 +3614,7 @@ def all_phases(dev, card):
     pod_phase(dev, card)
     analyzer_phase(card)
     examples_phase(dev, card)
+    granite_phase(dev, card, records)
     return records
 
 

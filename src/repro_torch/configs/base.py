@@ -1,8 +1,24 @@
 """Unified model/run configuration for the assigned architectures.
 
-One :class:`ModelConfig` describes any of the 6 families (dense / moe / ssm /
-hybrid / audio / vlm).  ``reduced()`` produces the CPU smoke-test variant
-(≤2 layers, d_model ≤ 512, ≤4 experts) of the same family.
+One :class:`ModelConfig` describes any of the 7 families (dense / moe / ssm /
+hybrid / mixed / audio / vlm).  ``reduced()`` produces the CPU smoke-test
+variant (≤2 layers, d_model ≤ 512, ≤4 experts) of the same family.
+
+The fields after ``source`` are the port's own (the JAX package's config
+has none of them); each defaults to the behaviour every other config has:
+
+* ``layer_types``: the ``mixed`` family's mixer of each layer, ``"mamba"``
+  or ``"attention"`` (IBM Granite 4.0-H: a Mamba2 mixer or a GQA attention
+  in each layer, each followed by the layer's own gated MLP); None for
+  every other family;
+* ``embedding_multiplier``, ``residual_multiplier``, ``logits_scaling``:
+  the token embeddings times the first, each residual branch times the
+  second, the logits divided by the third (muP; read by the ``mixed``
+  family, 1.0 elsewhere);
+* ``attention_scale``: the softmax scale of the attention scores, None for
+  1/sqrt(head_dim); ``rope``: rotary position embeddings on q and k
+  (False: no positional encoding);
+* ``norm_eps``: the eps of every RMSNorm of the LM families.
 """
 
 from __future__ import annotations
@@ -13,8 +29,18 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """One LM architecture: family, widths, attention, MoE, SSM and the
+    audio / vlm fields, the dtype, and the port's own fields after
+    ``source``: ``layer_types`` (the mixed family's mixer of each layer,
+    ``"mamba"`` or ``"attention"``), ``embedding_multiplier``,
+    ``residual_multiplier`` and ``logits_scaling`` (muP, the mixed family
+    only), ``attention_scale`` (None: 1/sqrt(head_dim)), ``rope`` (False:
+    no positional encoding) and ``norm_eps`` (every RMSNorm's eps, 1e-6
+    by default).  Each defaults to the behaviour of the configs that have
+    no such field."""
+
     arch_id: str
-    family: str                      # dense | moe | ssm | hybrid | audio | vlm
+    family: str              # dense | moe | ssm | hybrid | mixed | audio | vlm
     n_layers: int
     d_model: int
     vocab: int
@@ -59,9 +85,33 @@ class ModelConfig:
     optimizer: str = "adamw"              # adafactor for the 70B+ configs
     # citation for the config source
     source: str = ""
+    # the port's own fields (see the module docstring)
+    layer_types: Optional[Tuple[str, ...]] = None
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_scale: Optional[float] = None
+    rope: bool = True
+    norm_eps: float = 1e-6
+
+    def __post_init__(self):
+        mixed = self.family == "mixed"
+        if mixed != (self.layer_types is not None):
+            raise ValueError(f"{self.arch_id}: layer_types is given for the "
+                             f"mixed family only (family {self.family!r})")
+        if mixed and (len(self.layer_types) != self.n_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}):
+            raise ValueError(f"{self.arch_id}: layer_types must name "
+                             f"'mamba' or 'attention' for each of the "
+                             f"{self.n_layers} layers")
+        if not mixed and (self.embedding_multiplier, self.residual_multiplier,
+                          self.logits_scaling) != (1.0, 1.0, 1.0):
+            raise ValueError(f"{self.arch_id}: the multipliers are read by "
+                             f"the mixed family only")
 
     @property
     def resolved_head_dim(self) -> int:
+        """``head_dim``, else ``d_model // n_heads``."""
         if self.head_dim:
             return self.head_dim
         return self.d_model // max(self.n_heads, 1)
@@ -81,9 +131,17 @@ class ModelConfig:
         layers = min(self.n_layers, 2)
         if self.family == "hybrid":
             layers = min(self.attn_every, 6)  # one full shared-attn group
+        types = None
+        if self.layer_types is not None:
+            # each mixer kind once, in order of first use, then the first
+            # again: a cut falls on either side of every kind
+            kinds = list(dict.fromkeys(self.layer_types))
+            types = tuple(kinds + kinds[:1])
+            layers = len(types)
         return dataclasses.replace(
             self,
             n_layers=layers,
+            layer_types=types,
             d_model=d,
             n_heads=heads, n_kv=kv,
             head_dim=64 if self.head_dim else None,

@@ -13,8 +13,10 @@ Two implementations of the ``accuracy_fn(cuts) -> float`` protocol:
   (e.g. fake-quant inference of a trained model on a validation set for
   each platform assignment).  Results are cached per cut vector.
 
-Two measured oracles are registered by name: ``cnn_fakequant``, which
-trains a CNN and scores partitioned fake-quant inference, and ``table``.
+Three measured oracles are registered by name: ``cnn_fakequant``, which
+trains a CNN and scores partitioned fake-quant inference, ``lm_fakequant``,
+which scores a mixed-family LM's partitioned fake-quant inference against
+its float top-1, and ``table``.
 """
 
 from __future__ import annotations
@@ -197,6 +199,43 @@ def _cnn_fakequant_measure(graph=None, schedule=None, system=None,
     return measure
 
 
+def _lm_fakequant_measure(graph=None, schedule=None, system=None,
+                          device="cuda", *, name: str, seq: int,
+                          batch: int = 1, reduced: bool = False):
+    """Built-in measured oracle for an LM of the mixed family: the registry
+    model ``name`` (``reduced()`` when asked) on the search's ``device``,
+    weights drawn from a generator seeded 0, ``batch`` sequences of ``seq``
+    tokens drawn uniformly from the vocabulary by the same generator,
+    the labels the float model's top-1 at each next-token position, and
+    per cut vector the partitioned fake-quant inference
+    (``repro_torch.quantize.evaluate.lm_measured_accuracy``), weights at
+    each platform's bit width and the links' activations at the
+    producer's.  ``seq`` and ``reduced`` must be the spec's ``ModelRef``
+    options, so that the model's chain is the schedule the cut indices
+    refer to.  The returned callable carries the ``model``."""
+    import torch
+
+    from repro_torch.explore.runner import resolve_device
+    from repro_torch.models.registry import build_model, get_config
+    from repro_torch.quantize.evaluate import lm_measured_accuracy
+
+    dev = resolve_device(device)
+    cfg = get_config(name)
+    if reduced:
+        cfg = cfg.reduced()
+    g = torch.Generator(device=dev).manual_seed(0)
+    m = build_model(cfg, device=dev, generator=g)
+    tokens = torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                           device=dev)
+    with torch.no_grad():
+        labels = m({"tokens": tokens}, impl="auto").argmax(-1)[:, :-1]
+    sched = schedule if schedule is not None else m.to_graph(seq).topo_sort()
+    specs = [plat.quant for plat in system.platforms]
+    measure = lm_measured_accuracy(m, sched, tokens, labels, specs)
+    measure.model = m
+    return measure
+
+
 def _table_measure(graph=None, schedule=None, system=None, device=None, *,
                    table: Dict[str, float], default: float = 0.0):
     """Measured oracle backed by an explicit ``{"c0,c1": acc}`` table —
@@ -211,4 +250,5 @@ def _table_measure(graph=None, schedule=None, system=None, device=None, *,
 
 
 register_accuracy_measure("cnn_fakequant", _cnn_fakequant_measure)
+register_accuracy_measure("lm_fakequant", _lm_fakequant_measure)
 register_accuracy_measure("table", _table_measure)

@@ -199,14 +199,19 @@ def moe_layer(name: str, d_model: int, d_ff: int, seq: int, n_experts: int,
 
 def ssm_layer(name: str, d_model: int, d_state: int, seq: int,
               expand: int = 2, conv_kernel: int = 4,
-              headdim: int = 64) -> LayerInfo:
+              headdim: int = 64, conv_bias: bool = False,
+              d_skip: bool = False) -> LayerInfo:
+    """A Mamba2 mixer; ``conv_bias`` and ``d_skip`` count the convolution's
+    bias and the per-head skip ``D`` among the parameters (left out by
+    default, as the JAX package counts them)."""
     d_inner = expand * d_model
     n_heads = d_inner // headdim
     # in_proj produces z, x, B, C, dt ; out_proj back to d_model
     proj_in = d_model * (2 * d_inner + 2 * d_state + n_heads)
     proj_out = d_inner * d_model
-    conv_p = conv_kernel * (d_inner + 2 * d_state)
+    conv_p = (conv_kernel + conv_bias) * (d_inner + 2 * d_state)
     params = proj_in + proj_out + conv_p + n_heads * 2 + d_inner  # A,dt_bias,norm
+    params += n_heads if d_skip else 0
     scan_macs = seq * d_inner * d_state * 2  # state update + output
     params_macs = seq * (proj_in + proj_out)
     return LayerInfo(name, SSM, (seq, d_model), (seq, d_model),

@@ -67,18 +67,20 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
         "validate_chrome_trace", "percentile", "latency_summary",
         "mean_tail",
     )),
+    ("repro_torch.configs.base", ("ModelConfig",)),
     ("repro_torch.models.registry", (
         "get_config", "build_model", "model_graph",
     )),
     ("repro_torch.models.decoder", ("DecoderLM",)),
-    ("repro_torch.models.ssm_lm", ("SSMLM",)),
+    ("repro_torch.models.ssm_lm", ("SSMLM", "MixedLM")),
     ("repro_torch.models.convert", (
         "load_reference_params", "reference_params", "load_reference_cnn",
     )),
     ("repro_torch.serving", (
         "GenerationEngine", "PartitionedLMRunner", "PartitionedCNNRunner",
     )),
-    ("repro_torch.quantize", ("cnn_measured_accuracy",)),
+    ("repro_torch.quantize", ("cnn_measured_accuracy",
+                              "lm_measured_accuracy")),
     ("repro_torch.training", (
         "make_train_step", "lm_loss", "cross_entropy", "init_params",
         "make_classifier_train_step",

@@ -91,7 +91,7 @@ def mla_config(cfg: ModelConfig) -> MLAConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
         kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
         qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
-        rope_theta=cfg.rope_theta)
+        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
 
 
 class DecoderBlock(nn.Module):
@@ -103,6 +103,7 @@ class DecoderBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kind = kind
+        self.eps = cfg.norm_eps
         dt = _DTYPES[cfg.dtype]
         d = cfg.d_model
         init = dict(dtype=dt, device=device, generator=generator)
@@ -115,7 +116,8 @@ class DecoderBlock(nn.Module):
                 d, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
                 qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
                 window=cfg.window, rope_theta=cfg.rope_theta,
-                mrope_sections=cfg.mrope_sections, **init)
+                mrope_sections=cfg.mrope_sections, rope=cfg.rope,
+                scale=cfg.attention_scale, norm_eps=cfg.norm_eps, **init)
         if kind == "moe":
             self.moe = MoEFFN(d, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
                               cfg.n_shared, sigmoid_gate=cfg.sigmoid_gate,
@@ -128,10 +130,10 @@ class DecoderBlock(nn.Module):
         """``(x, new_cache, aux)``: ``aux`` is the MoE FFN's (empty for a
         dense block).  A lane cache (``pos`` of shape (B,)) routes every
         row as its own group."""
-        a, new_cache = self.attn(rms_norm(x, self.ln1), positions=positions,
-                                 cache=cache, impl=impl)
+        a, new_cache = self.attn(rms_norm(x, self.ln1, self.eps),
+                                 positions=positions, cache=cache, impl=impl)
         x = x + a
-        h = rms_norm(x, self.ln2)
+        h = rms_norm(x, self.ln2, self.eps)
         if self.kind == "moe":
             lanes = cache is not None and cache["pos"].dim() > 0
             f, aux = self.moe(h, lanes=lanes)
@@ -275,7 +277,7 @@ class TokenLM(nn.Module):
 
     def head_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Final norm and the (tied or own) LM head."""
-        return self.project(rms_norm(x, self.final_norm))
+        return self.project(rms_norm(x, self.final_norm, self.cfg.norm_eps))
 
     def forward_aux(self, batch, *, impl: str = "ref", train: bool = False):
         """``(logits, aux)``, the reference's ``apply``: a model without aux
@@ -396,7 +398,7 @@ class DecoderLM(TokenLM):
         emb, positions = self.embed_batch(batch)
         x, _, aux = run_blocks(self.blocks, emb, positions, impl=impl,
                                remat=train and cfg.remat)
-        x = rms_norm(x, self.final_norm)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
         logits = self.project(x)
         if cfg.mtp and train:
             # multi-token prediction: one more dense stack over the final

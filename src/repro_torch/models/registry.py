@@ -23,21 +23,36 @@ _CONFIG_MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
 }
 
+# configurations of the port alone, with no twin in the JAX package:
+# ``get_config`` finds them; the reference's grid (``ARCH_IDS``: the dry-run
+# pairs, the parity tests) leaves them out
+_PORT_CONFIG_MODULES = {
+    "granite-4.0-h-micro": "repro_torch.configs.granite_4_0_h_micro",
+}
+
 ARCH_IDS: List[str] = list(_CONFIG_MODULES)
+PORT_ARCH_IDS: List[str] = list(_PORT_CONFIG_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    """The published configuration of ``arch_id`` (one of ``ARCH_IDS``)."""
-    if arch_id not in _CONFIG_MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; have {ARCH_IDS}")
-    return importlib.import_module(_CONFIG_MODULES[arch_id]).CONFIG
+    """The published configuration of ``arch_id`` (one of ``ARCH_IDS`` or
+    ``PORT_ARCH_IDS``)."""
+    module = _CONFIG_MODULES.get(arch_id, _PORT_CONFIG_MODULES.get(arch_id))
+    if module is None:
+        raise KeyError(f"unknown arch {arch_id!r}; have "
+                       f"{ARCH_IDS + PORT_ARCH_IDS}")
+    return importlib.import_module(module).CONFIG
 
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None):
     """The model of ``cfg`` with weights drawn from ``generator``: an
-    ``SSMLM`` for the ssm and hybrid families, else a ``DecoderLM`` (the
-    dense, moe with MLA and MTP, audio and vlm families)."""
+    ``SSMLM`` for the ssm and hybrid families, a ``MixedLM`` for the mixed
+    family, else a ``DecoderLM`` (the dense, moe with MLA and MTP, audio
+    and vlm families)."""
+    if cfg.family == "mixed":
+        from repro_torch.models.ssm_lm import MixedLM
+        return MixedLM(cfg, device=device, generator=generator)
     if cfg.family in ("ssm", "hybrid"):
         from repro_torch.models.ssm_lm import SSMLM
         return SSMLM(cfg, device=device, generator=generator)
@@ -48,7 +63,7 @@ def build_model(cfg: ModelConfig, *, device="cuda",
 def model_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
     """The partitioner's layer graph of ``cfg`` at ``seq`` tokens, from the
     configuration alone: no weights are allocated."""
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "mixed"):
         from repro_torch.models.ssm_lm import ssm_graph
         return ssm_graph(cfg, seq)
     from repro_torch.models.decoder import lm_graph

@@ -1,5 +1,6 @@
 """SSM and hybrid decoder LMs: Mamba2 (SSD) and the Zamba2-style hybrid
-(the JAX package's ``repro.models.ssm_lm``).
+(the JAX package's ``repro.models.ssm_lm``), and the port's own ``mixed``
+family (IBM Granite 4.0-H, :class:`MixedLM`).
 
 Mamba2 LM: embed -> L x [norm -> Mamba2Mixer] -> norm -> (tied) head.
 
@@ -21,11 +22,41 @@ layout:
 
 The SSM state and the convolution history are float32 whatever the
 attention cache's dtype.  Caches are written in place.
+
+Mixed (Granite 4.0-H; ``layer_types`` names each layer's mixer), with e
+the ``embedding_multiplier``, r the ``residual_multiplier``, s the
+``logits_scaling``, every RMSNorm at ``norm_eps``::
+
+    h = e · E[tokens]
+    for l in 0 .. L-1:
+        h = h + r · (Attn(RMSNorm(h)) if layer_types[l] == "attention"
+                     else Mamba2(RMSNorm(h)))                  # MixerUnit
+        v = RMSNorm(h)
+        h = h + r · W_down(silu(v W_gate) ⊙ v W_up)            # MlpUnit
+    logits = RMSNorm(h) Eᵀ / s                  (the head, tied or own)
+    Attn(u):   q = u W_q, k = u W_k, v = u W_v (GQA; RoPE unless
+               ``rope`` is False); causal softmax(q kᵀ · attention_scale) v,
+               then W_o
+    Mamba2(u): [z | xBC | dt] = u W_in; xBC = silu(causal depthwise
+               conv(xBC) + b_conv) -> x (heads × headdim), B, C (one group);
+               dt = softplus(dt + dt_bias); A = -exp(A_log);
+               y = SSD(x, dt, A, B, C; chunk) + D ⊙ x;
+               out = RMSNorm(y ⊙ silu(z)) W_out
+
+(the multipliers placed as the public ``transformers`` ``GraniteMoeHybrid``
+model places them).  A layer's mixer and its MLP are modules of their own,
+``blocks[l].mix`` and ``blocks[l].ffn``: :meth:`MixedLM.units` lists them
+in the order of the partitioner's chain (:func:`ssm_graph`: ``Embed_0``,
+per layer ``SSM_l`` or ``Attention_l`` then ``Mlp_l``, ``Head_0``), so that
+a stage can end between a mixer and its MLP.  On a CUDA tensor with
+``impl`` ``"cuda"`` or ``"auto"`` every Mamba2 mixer of the cacheless
+forward takes the SSD scan kernel, and the attention without a window
+takes ``chunked_sdpa`` from 2048 tokens.  The family has no caches yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -41,7 +72,16 @@ from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.module import constant, normal_init
 from repro_torch.nn.ssm import Mamba2Mixer, init_ssm_cache
 
-FAMILIES = ("ssm", "hybrid")
+FAMILIES = ("ssm", "hybrid")     # SSMLM's; MixedLM builds "mixed"
+
+
+def mamba_mixer(cfg: ModelConfig, *, device=None,
+                generator: Optional[torch.Generator] = None) -> Mamba2Mixer:
+    """The Mamba2 mixer of ``cfg``'s widths."""
+    return Mamba2Mixer(cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
+                       cfg.ssm_headdim, chunk=cfg.ssm_chunk,
+                       norm_eps=cfg.norm_eps, dtype=_DTYPES[cfg.dtype],
+                       device=device, generator=generator)
 
 
 class MambaBlock(nn.Module):
@@ -51,14 +91,13 @@ class MambaBlock(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         dt = _DTYPES[cfg.dtype]
+        self.eps = cfg.norm_eps
         self.ln = constant((cfg.d_model,), 1.0, device=device, dtype=dt)
-        self.mixer = Mamba2Mixer(cfg.d_model, cfg.ssm_state, cfg.ssm_expand,
-                                 cfg.ssm_headdim, chunk=cfg.ssm_chunk,
-                                 dtype=dt, device=device, generator=generator)
+        self.mixer = mamba_mixer(cfg, device=device, generator=generator)
 
     def forward(self, x, *, cache=None, impl="ref"):
-        y, new_cache = self.mixer(rms_norm(x, self.ln), cache=cache,
-                                  impl=impl)
+        y, new_cache = self.mixer(rms_norm(x, self.ln, self.eps),
+                                  cache=cache, impl=impl)
         return x + y.to(x.dtype), new_cache
 
 
@@ -70,19 +109,22 @@ class SharedAttnBlock(nn.Module):
         super().__init__()
         dt = _DTYPES[cfg.dtype]
         d, ff = cfg.d_model, cfg.d_ff
+        self.eps = cfg.norm_eps
         self.ln1 = constant((d,), 1.0, device=device, dtype=dt)
         self.ln2 = constant((d,), 1.0, device=device, dtype=dt)
         self.attn = GQAAttention(d, cfg.n_heads, cfg.n_kv,
-                                 cfg.resolved_head_dim, dtype=dt,
+                                 cfg.resolved_head_dim, rope=cfg.rope,
+                                 scale=cfg.attention_scale,
+                                 norm_eps=cfg.norm_eps, dtype=dt,
                                  device=device, generator=generator)
         self.mlp = gated_mlp_init(d, ff, generator=generator, device=device,
                                   dtype=dt)
 
     def forward(self, x, *, positions, cache=None, impl="ref"):
-        a, new_cache = self.attn(rms_norm(x, self.ln1), positions=positions,
-                                 cache=cache, impl=impl)
+        a, new_cache = self.attn(rms_norm(x, self.ln1, self.eps),
+                                 positions=positions, cache=cache, impl=impl)
         x = x + a
-        x = x + gated_mlp(self.mlp, rms_norm(x, self.ln2))
+        x = x + gated_mlp(self.mlp, rms_norm(x, self.ln2, self.eps))
         return x, new_cache
 
 
@@ -219,9 +261,170 @@ class SSMLM(TokenLM):
         return shared_groups(self.cfg)
 
 
+# -- the mixed family (Granite 4.0-H) ---------------------------------------------
+
+class MixerUnit(nn.Module):
+    """``h + r · mixer(RMSNorm(h))``, r the residual multiplier: a layer's
+    Mamba2 mixer (``kind`` ``"mamba"``) or GQA attention
+    (``"attention"``)."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dt = _DTYPES[cfg.dtype]
+        self.kind, self.r, self.eps = (kind, cfg.residual_multiplier,
+                                       cfg.norm_eps)
+        self.ln = constant((cfg.d_model,), 1.0, device=device, dtype=dt)
+        if kind == "mamba":
+            self.mixer = mamba_mixer(cfg, device=device, generator=generator)
+        else:
+            self.mixer = GQAAttention(
+                cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.resolved_head_dim,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                window=cfg.window, rope_theta=cfg.rope_theta, rope=cfg.rope,
+                scale=cfg.attention_scale, norm_eps=cfg.norm_eps, dtype=dt,
+                device=device, generator=generator)
+
+    def forward(self, x, *, positions=None, impl="ref"):
+        u = rms_norm(x, self.ln, self.eps)
+        if self.kind == "mamba":
+            y, _ = self.mixer(u, impl=impl)
+        else:
+            y, _ = self.mixer(u, positions=positions, impl=impl)
+        return x + self.r * y.to(x.dtype)
+
+
+class MlpUnit(nn.Module):
+    """``h + r · W_down(silu(v W_gate) ⊙ v W_up)``, ``v = RMSNorm(h)``: a
+    layer's own gated MLP.  Takes (and ignores) the mixer's keywords, so
+    that a stage calls every unit alike."""
+
+    kind = "mlp"
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dt = _DTYPES[cfg.dtype]
+        self.r, self.eps = cfg.residual_multiplier, cfg.norm_eps
+        self.ln = constant((cfg.d_model,), 1.0, device=device, dtype=dt)
+        self.mlp = gated_mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
+                                  device=device, dtype=dt)
+
+    def forward(self, x, *, positions=None, impl="ref"):
+        return x + self.r * gated_mlp(self.mlp, rms_norm(x, self.ln, self.eps))
+
+
+class MixedLayer(nn.Module):
+    """One layer of the mixed family: its mixer unit, then its MLP unit."""
+
+    def __init__(self, cfg: ModelConfig, kind: str, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mix = MixerUnit(cfg, kind, device=device, generator=generator)
+        self.ffn = MlpUnit(cfg, device=device, generator=generator)
+
+    def forward(self, x, *, positions=None, impl="ref"):
+        return self.ffn(self.mix(x, positions=positions, impl=impl))
+
+
+def _layer_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
+    return blk(x, **kw)
+
+
+class MixedLM(TokenLM):
+    """The mixed family (``family='mixed'``): a Mamba2 mixer or a GQA
+    attention in each layer, as ``cfg.layer_types`` says, each followed by
+    the layer's own gated MLP, with scaled embeddings, residual branches
+    and logits (the module docstring's equations).  Weights are drawn from
+    ``generator`` (a generator on ``device`` seeded 0 when None); on
+    ``device="meta"`` nothing is allocated.  Runs on the CUDA device unless
+    the caller passes another ``device``."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.family != "mixed":
+            raise ValueError(f"{cfg.arch_id}: MixedLM builds the mixed "
+                             f"family, not {cfg.family!r}")
+        from repro_torch.explore.runner import resolve_device
+        device = resolve_device(device)
+        if generator is None and device.type != "meta":
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.cfg = cfg
+        dt = _DTYPES[cfg.dtype]
+        init = dict(generator=generator, device=device, dtype=dt)
+        self.embed = normal_init((cfg.vocab, cfg.d_model), 0.02, **init)
+        self.final_norm = constant((cfg.d_model,), 1.0, device=device,
+                                   dtype=dt)
+        self.blocks = nn.ModuleList(
+            MixedLayer(cfg, kind, device=device, generator=generator)
+            for kind in cfg.layer_types)
+        if not cfg.tied_embeddings:
+            self.head = normal_init((cfg.d_model, cfg.vocab),
+                                    cfg.d_model ** -0.5, **init)
+
+    def units(self) -> List[nn.Module]:
+        """Each layer's mixer unit and MLP unit, in order: the graph's
+        positions 1 .. 2L (position 0 the embedding, 2L + 1 the head)."""
+        return [u for blk in self.blocks for u in (blk.mix, blk.ffn)]
+
+    def embed_tokens(self, batch, pos0=None):
+        """Token embeddings times the embedding multiplier, and the
+        positions (as :meth:`TokenLM.embed_tokens`)."""
+        x, positions = super().embed_tokens(batch, pos0)
+        return x * self.cfg.embedding_multiplier, positions
+
+    def head_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and the head, divided by the logits scaling."""
+        return super().head_logits(x) / self.cfg.logits_scaling
+
+    def forward(self, batch, *, impl: str = "ref",
+                train: bool = False) -> torch.Tensor:
+        """Logits (B, T, vocab) of ``batch["tokens"]``.
+        ``impl="cuda"``/``"auto"`` takes the SSD scan kernel in every Mamba2
+        mixer; ``train`` checkpoints every layer when the config asks for
+        ``remat``."""
+        x, positions = self.embed_tokens(batch)
+        for blk in self.blocks:
+            x = remat_block(_layer_out, blk, x, train and self.cfg.remat,
+                            positions=positions, impl=impl)
+        return self.head_logits(x)
+
+    def to_graph(self, seq: int) -> LayerGraph:
+        """The partitioner's layer graph at ``seq`` tokens."""
+        return ssm_graph(self.cfg, seq)
+
+
+def _mixed_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
+    g = LayerGraph(name=cfg.arch_id)
+    prev = g.add(GL.embed_layer("Embed_0", cfg.vocab, cfg.d_model,
+                                seq)).name
+    for i, kind in enumerate(cfg.layer_types):
+        if kind == "mamba":
+            mixer = GL.ssm_layer(f"SSM_{i}", cfg.d_model, cfg.ssm_state, seq,
+                                 cfg.ssm_expand, headdim=cfg.ssm_headdim,
+                                 conv_bias=True, d_skip=True)
+        else:
+            mixer = GL.attention_layer(
+                f"Attention_{i}", cfg.d_model, cfg.n_heads, cfg.n_kv, seq,
+                cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
+                qk_norm=cfg.qk_norm, window=cfg.window)
+        prev = g.add(mixer, after=[prev]).name
+        prev = g.add(GL.mlp_layer(f"Mlp_{i}", cfg.d_model, cfg.d_ff, seq),
+                     after=[prev]).name
+    g.add(GL.lm_head_layer("Head_0", cfg.d_model, cfg.vocab, seq,
+                           tied=cfg.tied_embeddings), after=[prev])
+    return g
+
+
 def ssm_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
-    """The partitioner's per-block layer graph of an SSM or hybrid LM, from
-    the configuration alone (no weights)."""
+    """The partitioner's per-block layer graph of an SSM, hybrid or mixed
+    LM, from the configuration alone (no weights).  The mixed family's is
+    a chain of 2L + 2 nodes: ``Embed_0``; per layer ``SSM_l`` (its
+    convolution bias and ``D`` counted: the mixed family's mixers have
+    both) or ``Attention_l``, then ``Mlp_l``; ``Head_0``."""
+    if cfg.family == "mixed":
+        return _mixed_graph(cfg, seq)
     hybrid = cfg.family == "hybrid"
     g = LayerGraph(name=cfg.arch_id)
     prev = g.add(GL.embed_layer("Embed_0", cfg.vocab, cfg.d_model,

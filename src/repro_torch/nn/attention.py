@@ -102,13 +102,15 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
-def sdpa(q, k, v, mask) -> torch.Tensor:
-    """q: (B,T,H,hd), k: (B,S,Kv,hd), v: (B,S,Kv,vd), mask: (B,T,S)/(T,S)."""
+def sdpa(q, k, v, mask, scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,T,H,hd), k: (B,S,Kv,hd), v: (B,S,Kv,vd), mask: (B,T,S)/(T,S).
+    ``scale``: the scores' factor, None for 1/sqrt(hd)."""
     b, t, h, hd = q.shape
     kv = k.shape[2]
     vd = v.shape[-1]
     qg = q.reshape(b, t, kv, h // kv, hd)
-    scores = torch.einsum("btkgh,bskh->bkgts", qg, k) / math.sqrt(hd)
+    scores = torch.einsum("btkgh,bskh->bkgts", qg, k)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     if mask.dim() == 2:
         mask = mask[None]
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
@@ -118,12 +120,13 @@ def sdpa(q, k, v, mask) -> torch.Tensor:
 
 
 def chunked_sdpa(q, k, v, window: Optional[int] = None,
-                 chunk_q: int = 512) -> torch.Tensor:
+                 chunk_q: int = 512,
+                 scale: Optional[float] = None) -> torch.Tensor:
     """Memory-bounded causal attention: a loop over query chunks.
 
     Never materializes the (T, T) score matrix: per step it is
     (chunk_q, S), so long prefills need O(T * chunk) intermediates.
-    q: (B,T,H,hd); k/v: (B,S,Kv,hd-like).  The softmax runs in float32,
+    q: (B,T,H,hd); k/v: (B,S,Kv,hd-like); ``scale`` as :func:`sdpa`'s.  The softmax runs in float32,
     or in q's dtype when the installed rules say ``softmax_dtype ==
     "compute"`` (``--opt softmax_low``), as the reference's.
     """
@@ -134,7 +137,8 @@ def chunked_sdpa(q, k, v, window: Optional[int] = None,
     if t % chunk_q:
         chunk_q = t  # fallback: single chunk
     k_pos = torch.arange(s, device=q.device)
-    scale = 1.0 / math.sqrt(hd)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
     low = current_rules().get("softmax_dtype") == "compute"
     out = q.new_empty((b, t, h, vd))
     for q0 in range(0, t, chunk_q):
@@ -225,6 +229,9 @@ def cache_positions(cache: Cache, ring: bool) -> torch.Tensor:
 class GQAAttention(nn.Module):
     """Grouped-query attention with RoPE or M-RoPE, qk-norm and an optional
     window.  With ``mrope_sections`` the positions must be (3, B, T).
+    ``rope=False`` leaves q and k without positional encoding; ``scale``
+    is the scores' factor (None: 1/sqrt(head_dim)), which the window
+    kernel does not take.  ``norm_eps``: the qk-norm's eps.
 
     Weights keep the reference's (in, out) layout (``x @ wq``)."""
 
@@ -233,9 +240,15 @@ class GQAAttention(nn.Module):
                  qk_norm: bool = False, window: Optional[int] = None,
                  rope_theta: float = 10000.0,
                  mrope_sections: Optional[Tuple[int, ...]] = None, *,
+                 rope: bool = True, scale: Optional[float] = None,
+                 norm_eps: float = 1e-6,
                  dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if window is not None and scale is not None:
+            raise ValueError("GQAAttention: the window kernel scales the "
+                             "scores by 1/sqrt(head_dim); no other scale "
+                             "with a window")
         self.d = d_model
         self.h, self.kv = n_heads, n_kv
         self.hd = head_dim or d_model // n_heads
@@ -243,6 +256,7 @@ class GQAAttention(nn.Module):
         self.window = window
         self.theta = rope_theta
         self.mrope_sections = mrope_sections
+        self.rope, self.scale, self.eps = rope, scale, norm_eps
         d, h, kv, hd = self.d, self.h, self.kv, self.hd
         init = dict(generator=generator, device=device, dtype=dtype)
         self.wq = normal_init((d, h * hd), d ** -0.5, **init)
@@ -267,8 +281,10 @@ class GQAAttention(nn.Module):
         k = k.reshape(b, t, self.kv, self.hd)
         v = v.reshape(b, t, self.kv, self.hd)
         if self.qk_norm:
-            q = rms_norm(q, self.q_norm)
-            k = rms_norm(k, self.k_norm)
+            q = rms_norm(q, self.q_norm, self.eps)
+            k = rms_norm(k, self.k_norm, self.eps)
+        if not self.rope:
+            return q, k, v
         if self.mrope_sections is not None:
             if positions.dim() != 3:
                 raise ValueError("M-RoPE needs (3, B, T) positions, got "
@@ -302,9 +318,10 @@ class GQAAttention(nn.Module):
             if self.window is not None and impl != "ref":
                 y = kops.window_attn(q, k, v, self.window, impl=impl)
             elif t >= 2048:
-                y = chunked_sdpa(q, k, v, self.window)
+                y = chunked_sdpa(q, k, v, self.window, scale=self.scale)
             else:
-                y = sdpa(q, k, v, causal_mask(q_pos, q_pos, self.window))
+                y = sdpa(q, k, v, causal_mask(q_pos, q_pos, self.window),
+                         self.scale)
         else:
             ring = self.window is not None and cache["k"].shape[1] <= self.window
             new_cache = cache_update(cache, k, v, ring=ring)
@@ -314,7 +331,7 @@ class GQAAttention(nn.Module):
             if self.window is not None:
                 mask &= kpos > q_pos[:, :, None] - self.window
             y = sdpa(q, new_cache["k"].to(q.dtype),
-                     new_cache["v"].to(q.dtype), mask)
+                     new_cache["v"].to(q.dtype), mask, self.scale)
         return y.reshape(b, t, self.h * self.hd) @ self.wo, new_cache
 
 
@@ -330,6 +347,7 @@ class MLAConfig:
     qk_rope_dim: int = 64
     v_head_dim: int = 128
     rope_theta: float = 10000.0
+    norm_eps: float = 1e-6          # the latents' RMSNorms (the port's own)
 
 
 def init_mla_cache(batch: int, capacity: int, cfg: MLAConfig,
@@ -402,12 +420,12 @@ class MLAAttention(nn.Module):
     def _latents(self, x, positions):
         c = self.cfg
         b, t, _ = x.shape
-        cq = rms_norm(x @ self.w_dq, self.q_norm)
+        cq = rms_norm(x @ self.w_dq, self.q_norm, c.norm_eps)
         q = (cq @ self.w_uq).reshape(b, t, c.n_heads,
                                      c.qk_nope_dim + c.qk_rope_dim)
         q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
         q_rope = apply_rope(q_rope, positions, c.rope_theta)
-        ckv = rms_norm(x @ self.w_dkv, self.kv_norm)             # (B,T,r)
+        ckv = rms_norm(x @ self.w_dkv, self.kv_norm, c.norm_eps)  # (B,T,r)
         k_rope = apply_rope((x @ self.w_kr)[:, :, None, :], positions,
                             c.rope_theta)[:, :, 0]              # (B,T,rd)
         return q_nope, q_rope, ckv, k_rope

@@ -131,13 +131,15 @@ class Mamba2Mixer(nn.Module):
     """Full Mamba2 block mixer: in_proj -> causal conv -> SSD -> gated out.
 
     Weights keep the reference's layouts: ``w_in`` (d, d_proj), ``conv_w``
-    (conv_kernel, channels), ``w_out`` (d_inner, d)."""
+    (conv_kernel, channels), ``w_out`` (d_inner, d).  ``norm_eps``: the
+    gated RMSNorm's eps."""
 
     def __init__(self, d_model: int, d_state: int = 128, expand: int = 2,
                  headdim: int = 64, conv_kernel: int = 4, chunk: int = 128,
-                 *, dtype=torch.float32, device=None,
+                 *, norm_eps: float = 1e-6, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.eps = norm_eps
         self.d = d_model
         self.n = d_state
         self.d_inner = expand * d_model
@@ -176,6 +178,16 @@ class Mamba2Mixer(nn.Module):
         return (xBC[..., :di].reshape(b, t, self.h, self.p),
                 xBC[..., di:di + n], xBC[..., di + n:])
 
+    @staticmethod
+    def scan_impl(u: torch.Tensor, impl: str,
+                  cache: Optional[Cache] = None) -> str:
+        """The scan a forward of ``u`` takes: ``"cuda"`` (the SSD scan
+        kernel) for the cacheless forward of a CUDA tensor under ``impl``
+        ``"cuda"`` or ``"auto"``, else ``"ref"``."""
+        if cache is None and kops.resolve_impl(impl, u) == "cuda":
+            return "cuda"
+        return "ref"
+
     def forward(self, u: torch.Tensor, *, cache: Optional[Cache] = None,
                 impl: str = "ref"):
         """u: (B, T, d).  cache: {'conv': (B, ck-1, ch), 'ssm': (B, h, p, n),
@@ -201,7 +213,7 @@ class Mamba2Mixer(nn.Module):
             x, B, C = self._heads(F.silu(xconv + self.conv_b))
             pad_t = (-t) % self.chunk
             x, dt, B, C = (_pad_time(a, pad_t) for a in (x, dt, B, C))
-            if cache is None and kops.resolve_impl(impl, x) == "cuda":
+            if self.scan_impl(x, impl, cache) == "cuda":
                 y, final = kops.ssd_scan(x, dt, A, B, C, chunk=self.chunk,
                                          impl="cuda")
                 y = y + x * self.D[None, None, :, None]
@@ -224,7 +236,7 @@ class Mamba2Mixer(nn.Module):
             new_cache = {"conv": conv_hist[:, 1:], "ssm": new_ssm,
                          "pos": cache["pos"] + 1}
 
-        y = rms_norm(y * F.silu(z), self.norm)
+        y = rms_norm(y * F.silu(z), self.norm, self.eps)
         return y @ self.w_out, new_cache
 
 

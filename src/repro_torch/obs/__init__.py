@@ -37,6 +37,13 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   vector (``cuts``, ``cached``) holding one ``oracle.quantize`` a stage
   (``stage``, ``bits``, ``tensors``), one ``oracle.stage`` a stage, one
   ``oracle.link`` a link fake-quant (``bytes``) and ``oracle.read``;
+* the LM oracle (``obs=`` of ``lm_measured_accuracy`` and, for the mixed
+  family, ``PartitionedLMRunner``; track ``oracle``): the same spans, each
+  ``oracle.stage`` with ``stage``, ``mamba`` and ``attention`` (the mixers
+  it holds) and ``tokens``, the head in the last; the counters
+  ``ssm_scan_calls.cuda`` and ``ssm_scan_calls.ref`` (each Mamba2 mixer's
+  scan, by the path it takes: the SSD scan kernel or the plain chunked
+  scan) and ``oracle_positions`` (next-token positions scored);
 * ``OnlineRepartitioner``: its decisions (instants and counters).
 """
 

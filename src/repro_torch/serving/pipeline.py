@@ -8,7 +8,9 @@ activation crossing each link to the producer's width: the measured-
 accuracy oracle of the explorer (``quantize.evaluate``).
 :class:`PartitionedLMRunner` splits a decoder LM the same way, each
 stage's weights calibrated over the stage's stacked layers, as the
-reference calibrates them.
+reference calibrates them, and a mixed-family LM (Granite 4.0-H) at the
+search's own positions, a stage boundary falling between a layer's mixer
+and its MLP too.
 
 On one device the stages run in turn; the throughput model (Def. 4) comes
 from per-stage timings.  With quantization off the partitioned output
@@ -30,14 +32,15 @@ import torch.nn.functional as F
 
 from repro_torch.core.quant import (QuantSpec, quantize_leaf,
                                     quantize_pytree, quantize_tensor)
-from repro_torch.models.convert import reference_leaves
 from repro_torch.models.decoder import (run_blocks, stacked_caches,
                                         step_positions)
 from repro_torch.nn.layers import rms_norm
+from repro_torch.nn.ssm import Mamba2Mixer
 from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.serving.engine import sync
 
-TRACK = "oracle"     # PartitionedCNNRunner's spans' track
+TRACK = "oracle"     # the partitioned runners' spans' track
+SSM_SCAN_CALLS = "ssm_scan_calls"   # counters .cuda / .ref: Mamba2 scans
 
 
 def def4_throughput(stage_latencies: Sequence[float],
@@ -182,33 +185,38 @@ class QuantizedBlock:
         return functional_call(self.block, self.params, (x,), kw)
 
 
-def quantized_blocks(model, a: int, b: int, spec: QuantSpec
-                     ) -> List[QuantizedBlock]:
-    """Blocks ``a:b`` of ``model`` on fake-quantized copies of their
-    parameters, calibrated as the reference calibrates a stage: every
-    stacked leaf (``models.convert.reference_leaves``) sliced to the
-    stage's layers and quantized whole, so a per-tensor range spans all of
-    them, and the stacked norm scales, now (L, d), are quantized too."""
-    params: List[Dict[str, torch.Tensor]] = [{} for _ in range(b - a)]
-    for key, leaf in reference_leaves(model).items():
-        if not key.startswith("blocks_dense/"):
-            continue
-        name = key.partition("/")[2].replace("/", ".")
-        q = quantize_leaf(torch.stack(leaf.params[a:b]), spec)
-        for i, t in enumerate(q.unbind(0)):
-            params[i][name] = t
-    return [QuantizedBlock(blk, p)
-            for blk, p in zip(model.blocks[a:b], params)]
+def quantized_units(units: Sequence[torch.nn.Module], spec: QuantSpec
+                    ) -> List[QuantizedBlock]:
+    """``units`` (blocks, or a mixed model's mixer and MLP units) on
+    fake-quantized copies of their parameters, calibrated as the reference
+    calibrates a stage: each parameter stacked over the units of its kind
+    (their ``kind``) and quantized whole, so a per-tensor range spans all
+    of them, and the stacked one-dimensional leaves (norm scales, now
+    (L, d)) are quantized too."""
+    params: List[Dict[str, torch.Tensor]] = [{} for _ in units]
+    by_kind: Dict[object, List[int]] = {}
+    for i, u in enumerate(units):
+        by_kind.setdefault(getattr(u, "kind", None), []).append(i)
+    for idx in by_kind.values():
+        named = [dict(units[i].named_parameters()) for i in idx]
+        for name in named[0]:
+            q = quantize_leaf(torch.stack([p[name] for p in named]), spec)
+            for i, t in zip(idx, q.unbind(0)):
+                params[i][name] = t
+    return [QuantizedBlock(u, p) for u, p in zip(units, params)]
 
 
 class PartitionedLMRunner:
-    """Split a ``DecoderLM`` at block boundaries (pipeline stages).
+    """Split an LM into pipeline stages.
 
-    ``cuts=[b]`` puts a stage boundary after block ``b``.  Stage 0 owns the
+    A ``DecoderLM`` (dense, vlm, audio) is split at block boundaries:
+    ``cuts=[b]`` puts a stage boundary after block ``b``; stage 0 owns the
     embedding, the last stage owns the final norm and the head.  A stage
     without a ``QuantSpec`` shares the model's weights (``blocks[a:b]``, no
     copies); a stage with one runs on fake-quantized copies of its blocks'
-    parameters (:func:`quantized_blocks`; the model's own weights stay
+    parameters (:func:`quantized_units`: every stacked leaf of the
+    reference's ``blocks_dense``, sliced to the stage's layers and
+    quantized whole; the model's own weights stay
     float, the embedding and the head are not quantized, as in the
     reference).  Those copies are a snapshot of the weights when the runner
     is built: a model trained or loaded afterwards changes its float
@@ -219,18 +227,47 @@ class PartitionedLMRunner:
     reference's runner does, and a moe model raises as there; stage 0
     embeds the batch by family (``DecoderLM.embed_batch``: codebooks,
     vision embeddings, M-RoPE positions).
+
+    A ``MixedLM`` (the mixed family) is split at the search's own
+    positions: ``cuts`` is a cut vector over the model's chain
+    (``to_graph``: position 0 the embedding, 1 .. 2L each layer's mixer
+    and MLP units, 2L + 1 the head), read as the cost model reads it:
+    platform k holds the positions ``cuts[k-1] + 1 .. cuts[k]`` (-1: none
+    before it), so a cut after a mixer puts that layer's MLP on the next
+    stage, and a platform that holds nothing drops out with its spec.  A
+    quantized stage's units are :func:`quantized_units`, each leaf stacked
+    over the stage's units of one kind (Mamba2 mixers, attention mixers,
+    MLPs); the embedding and the head stay float, and the head runs in
+    the last stage.  ``quant_specs`` has one entry a platform.
+
+    ``impl`` is passed to every block or unit (``"cuda"``/``"auto"``: the
+    kernels on a CUDA tensor).  ``obs`` (default off,
+    :data:`~repro_torch.obs.NOOP_OBS`): switched on, a mixed model's runner
+    records on the ``oracle`` track one ``oracle.quantize`` a stage as it
+    is built (``stage``, ``bits``, ``tensors``), and in :meth:`forward` one
+    ``oracle.stage`` a stage (``stage``, ``mamba``, ``attention``: the
+    mixers it holds, ``tokens``) and one ``oracle.link`` a link fake-quant
+    (``bytes``), and counts each Mamba2 mixer's scan in
+    ``ssm_scan_calls.cuda`` (the kernel) or ``ssm_scan_calls.ref``.
     """
 
     def __init__(self, model, cuts: Sequence[int],
                  quant_specs: Optional[Sequence[Optional[QuantSpec]]] = None,
-                 link_quant: bool = False):
+                 link_quant: bool = False, *, impl: str = "ref",
+                 obs: Optional[Obs] = None):
         cfg = model.cfg
-        if cfg.family not in ("dense", "vlm", "audio"):
+        if cfg.family not in ("dense", "vlm", "audio", "mixed"):
             raise ValueError(f"{cfg.arch_id}: the LM pipeline runner "
-                             f"supports homogeneous block stacks, not the "
-                             f"{cfg.family} family")
+                             f"supports homogeneous block stacks and the "
+                             f"mixed family, not the {cfg.family} family")
         self.model = model
         self.cuts = list(cuts)
+        self.link_quant = link_quant
+        self.impl = impl
+        self.obs = NOOP_OBS if obs is None else obs
+        if cfg.family == "mixed":
+            self._init_chain(quant_specs)
+            return
         bounds = [0] + [c + 1 for c in self.cuts] + [cfg.n_layers]
         self.ranges = list(zip(bounds, bounds[1:]))
         self.quant_specs = (list(quant_specs) if quant_specs
@@ -238,12 +275,52 @@ class PartitionedLMRunner:
         if len(self.quant_specs) != self.n_stages:
             raise ValueError(f"{len(self.quant_specs)} quant specs for "
                              f"{self.n_stages} stages")
-        self.link_quant = link_quant
         with torch.no_grad():
             self._blocks = [
                 model.blocks[a:b] if spec is None
-                else quantized_blocks(model, a, b, spec)
+                else quantized_units(model.blocks[a:b], spec)
                 for (a, b), spec in zip(self.ranges, self.quant_specs)]
+
+    def _init_chain(self, quant_specs) -> None:
+        """A mixed model's stages: ``ranges`` over ``model.units()``, the
+        platforms that hold a node and their specs."""
+        units = self.model.units()
+        head = len(units) + 1
+        n_plat = len(self.cuts) + 1
+        specs = list(quant_specs) if quant_specs else [None] * n_plat
+        if len(specs) != n_plat:
+            raise ValueError(f"{len(specs)} quant specs for {n_plat} "
+                             f"platforms")
+        if any(not -1 <= c <= head for c in self.cuts) or \
+                self.cuts != sorted(self.cuts):
+            raise ValueError(f"cuts {self.cuts} are not sorted positions "
+                             f"in -1 .. {head}")
+        bounds = [-1] + self.cuts + [head]
+        held = [(bounds[k] + 1, bounds[k + 1], spec)
+                for k, spec in enumerate(specs) if bounds[k + 1] > bounds[k]]
+        self.quant_specs = [spec for _, _, spec in held]
+        # units of positions a .. b: indices max(a, 1) - 1 .. min(b, 2L) - 1
+        self.ranges = [(max(a, 1) - 1, min(b, head - 1))
+                       for a, b, _ in held]
+        self._kinds = [[u.kind for u in units[a:b]] for a, b in self.ranges]
+        self._blocks = []
+        obs = self.obs
+        with torch.no_grad():
+            for si, ((a, b), spec) in enumerate(zip(self.ranges,
+                                                    self.quant_specs)):
+                if obs.enabled:
+                    t0 = time.perf_counter()
+                blocks = (units[a:b] if spec is None
+                          else quantized_units(units[a:b], spec))
+                self._blocks.append(blocks)
+                if obs.enabled:
+                    obs.tracer.complete(
+                        "oracle.quantize", track=TRACK, start=t0,
+                        end=time.perf_counter(),
+                        args={"stage": si,
+                              "bits": None if spec is None else spec.bits,
+                              "tensors": 0 if spec is None else sum(
+                                  len(q.params) for q in blocks)})
 
     @property
     def n_stages(self) -> int:
@@ -253,16 +330,19 @@ class PartitionedLMRunner:
     @torch.no_grad()
     def forward(self, batch) -> Tuple[torch.Tensor, StageReport]:
         """Logits of ``batch`` through the stages in turn, with each
-        stage's wall time (embedding in stage 0, head in none: as the
-        reference times it) and the bytes each link carries at the
-        producing stage's width."""
+        stage's wall time (embedding in stage 0; the head in none, as the
+        reference times it, but in the last stage for the mixed family,
+        where the cost model puts it) and the bytes each link carries at
+        the producing stage's width."""
         m = self.model
+        if m.cfg.family == "mixed":
+            return self._forward_chain(batch)
         dev = m.device
         lat, link_bytes = [], []
         t0 = time.perf_counter()
         x, positions = m.embed_batch(batch)
         for si, blocks in enumerate(self._blocks):
-            x, _, _ = run_blocks(blocks, x, positions)
+            x, _, _ = run_blocks(blocks, x, positions, impl=self.impl)
             sync(dev)
             lat.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
@@ -272,6 +352,45 @@ class PartitionedLMRunner:
                 if self.link_quant and spec is not None:
                     x = quantize_tensor(x, spec)    # fake-quant over the link
         return m.head_logits(x), StageReport(lat, link_bytes)
+
+    def _forward_chain(self, batch) -> Tuple[torch.Tensor, StageReport]:
+        m, obs = self.model, self.obs
+        lat, link_bytes = [], []
+        last = self.n_stages - 1
+        x = positions = None
+        for si, blocks in enumerate(self._blocks):
+            t0 = time.perf_counter()
+            if si == 0:
+                x, positions = m.embed_tokens(batch)
+            kinds = self._kinds[si]
+            for unit, kind in zip(blocks, kinds):
+                if kind == "mamba" and obs.enabled:
+                    obs.metrics.counter(
+                        f"{SSM_SCAN_CALLS}."
+                        f"{Mamba2Mixer.scan_impl(x, self.impl)}").inc()
+                x = unit(x, positions=positions, impl=self.impl)
+            if si == last:
+                x = m.head_logits(x)
+            sync(m.device)
+            t1 = time.perf_counter()
+            lat.append(t1 - t0)
+            if obs.enabled:
+                obs.tracer.complete(
+                    "oracle.stage", track=TRACK, start=t0, end=t1,
+                    args={"stage": si, "mamba": kinds.count("mamba"),
+                          "attention": kinds.count("attention"),
+                          "tokens": x.shape[0] * x.shape[1]})
+            if si < last:
+                spec = self.quant_specs[si]
+                link_bytes.append(link_transfer_bytes(x.numel(), spec))
+                if self.link_quant and spec is not None:
+                    x = quantize_tensor(x, spec)    # fake-quant over the link
+                    if obs.enabled:
+                        obs.tracer.complete(
+                            "oracle.link", track=TRACK, start=t1,
+                            end=time.perf_counter(),
+                            args={"bytes": link_bytes[-1]})
+        return x, StageReport(lat, link_bytes)
 
     def stage_weights(self, si: int) -> Dict:
         """What stage ``si`` owns: its blocks (on their fake-quantized
@@ -333,7 +452,7 @@ class PartitionedLMRunner:
             x, new_caches, _ = run_blocks(weights["blocks"], x, positions,
                                           caches=caches)
             if last:
-                x = rms_norm(x, weights["final_norm"])
+                x = rms_norm(x, weights["final_norm"], cfg.norm_eps)
                 x = x @ (weights["embed"].T if tied else weights["head"])
             return x, new_caches
         return fn

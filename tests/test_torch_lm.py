@@ -85,14 +85,32 @@ def close(got, want, atol=ATOL):
 
 # -- configs and registry -----------------------------------------------------
 
+# the port's own config fields, after the reference's (configs/base.py)
+PORT_FIELDS = ("layer_types", "embedding_multiplier", "residual_multiplier",
+               "logits_scaling", "attention_scale", "rope", "norm_eps")
+
+
+def reference_part(cfg):
+    """``cfg``'s fields that the reference's config has, after checking
+    that the port's own fields hold their defaults (today's behaviour)."""
+    d = dataclasses.asdict(cfg)
+    own = {k: d.pop(k) for k in PORT_FIELDS}
+    assert own == {f.name: f.default for f in dataclasses.fields(ModelConfig)
+                   if f.name in PORT_FIELDS}
+    return d
+
+
 @pytest.mark.parametrize("arch", jreg.ARCH_IDS)
 def test_configs_equal_reference(arch):
+    """The reference's configs equal, field for field; the port's fields
+    are the reference's followed by its own, at their defaults in every
+    one of the reference's configs."""
     assert registry.ARCH_IDS == jreg.ARCH_IDS
     got, want = registry.get_config(arch), jreg.get_config(arch)
     assert [f.name for f in dataclasses.fields(ModelConfig)] == [
-        f.name for f in dataclasses.fields(JModelConfig)]
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    assert dataclasses.asdict(got.reduced()) == dataclasses.asdict(
+        f.name for f in dataclasses.fields(JModelConfig)] + list(PORT_FIELDS)
+    assert reference_part(got) == dataclasses.asdict(want)
+    assert reference_part(got.reduced()) == dataclasses.asdict(
         want.reduced())
     for name in ("train_4k", "long_500k"):
         assert registry.supports_shape(got, registry.shape_config(name)) == \
