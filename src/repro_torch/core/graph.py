@@ -130,12 +130,30 @@ class LayerGraph:
         are not transmitted, so they are excluded here.
         """
         prefix = {l.name for l in schedule[: p + 1]}
-        live: List[str] = []
-        for name in prefix:
-            consumers = self.succs(name)
-            if any(c not in prefix for c in consumers):
-                live.append(name)
-        return sorted(live)
+        return sorted({u for u, v in self.edges
+                       if u in prefix and v not in prefix})
+
+    def live_sets(self, schedule: Sequence[LayerInfo]) -> List[List[str]]:
+        """:meth:`live_set` at every position ``0 .. L-2``, in one sweep.
+
+        A producer at (first) position ``i`` is live after ``p`` iff
+        ``i <= p < last``, where ``last`` is the largest position of its
+        consumers and a consumer missing from ``schedule`` counts as ``L``.
+        O(L + E + sum of the live sets' sizes).
+        """
+        L = len(schedule)
+        pos: Dict[str, int] = {}
+        for i, l in enumerate(schedule):
+            pos.setdefault(l.name, i)
+        last: Dict[str, int] = {}
+        for u, v in self.edges:
+            if u in pos:
+                last[u] = max(last.get(u, -1), pos.get(v, L))
+        out: List[List[str]] = [[] for _ in range(L - 1)]
+        for u in sorted(last):                  # each list comes out sorted
+            for p in range(pos[u], min(last[u], L - 1)):
+                out[p].append(u)
+        return out
 
     def clean_cuts(self, schedule: Sequence[LayerInfo]) -> List[int]:
         """Positions p where the live set is exactly {schedule[p].name}.
@@ -143,21 +161,14 @@ class LayerGraph:
         These are the paper's Definition-1 partitioning points: one tensor
         (f_p, the output of l_p) crosses the link.
         """
-        cuts: List[int] = []
-        for p in range(len(schedule) - 1):
-            if self.live_set(schedule, p) == [schedule[p].name]:
-                cuts.append(p)
-        return cuts
+        return [p for p, live in enumerate(self.live_sets(schedule))
+                if live == [schedule[p].name]]
 
     def all_cuts(self, schedule: Sequence[LayerInfo],
                  max_live: int = 4) -> List[Tuple[int, List[str]]]:
         """Beyond-paper: every position with |live set| <= max_live."""
-        out: List[Tuple[int, List[str]]] = []
-        for p in range(len(schedule) - 1):
-            live = self.live_set(schedule, p)
-            if 0 < len(live) <= max_live:
-                out.append((p, live))
-        return out
+        return [(p, live) for p, live in enumerate(self.live_sets(schedule))
+                if 0 < len(live) <= max_live]
 
     def cut_bytes(self, schedule: Sequence[LayerInfo], p: int,
                   bytes_per_elem: float) -> int:

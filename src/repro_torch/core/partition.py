@@ -16,6 +16,7 @@ optimal (Table II).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -178,10 +179,9 @@ class PartitionEvaluator:
         self.shared_groups = shared_groups
         self._tables: Dict[str, List[LayerCost]] = {}
         self._prefix: Dict[str, np.ndarray] = {}
-        self._cut_bytes_cache: Dict[Tuple[int, float], int] = {}
         self._memtable = (memtable if memtable is not None
                           else SegmentMemoryTable(self.schedule, shared_groups))
-        self._cut_elems: Optional[np.ndarray] = None  # lazy, O(L·E) to build
+        self._cut_elems: Optional[np.ndarray] = None  # lazy, one sweep
         self._torch_tables: Dict[str, object] = {}    # EvalTables per device
         cache = cost_cache if cost_cache is not None else {}
         for plat in system.platforms:
@@ -209,18 +209,17 @@ class PartitionEvaluator:
         return float(pre[0, b + 1] - pre[0, a]), float(pre[1, b + 1] - pre[1, a])
 
     def _cut_bytes(self, p: int, bpe: float) -> int:
-        key = (p, bpe)
-        if key not in self._cut_bytes_cache:
-            self._cut_bytes_cache[key] = self.graph.cut_bytes(
-                self.schedule, p, bpe)
-        return self._cut_bytes_cache[key]
+        """``graph.cut_bytes(schedule, p, bpe)`` for ``0 <= p < L-1``."""
+        return int(math.ceil(self._cut_elems_vec()[p] * bpe))
 
     def _cut_elems_vec(self) -> np.ndarray:
         """Elements crossing the link for every cut position p in [0, L-1)."""
         if self._cut_elems is None:
+            nodes = self.graph.nodes
             self._cut_elems = np.array(
-                [self.graph.cut_bytes(self.schedule, p, 1.0)
-                 for p in range(len(self.schedule) - 1)], dtype=np.int64)
+                [sum(nodes[n].fmap_out for n in live)
+                 for live in self.graph.live_sets(self.schedule)],
+                dtype=np.int64)
         return self._cut_elems
 
     def cut_elements(self) -> np.ndarray:
