@@ -23,13 +23,15 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
    words at n 16384 and 32768 with the feasible individuals alive and
    caps None and 16384, its bound the bytes its fronts cannot do without,
    beside the fronts times the cost of a front that reads next to nothing;
-2. checks the tiled ranking on the card against the dense ranking on the
-   CPU on a small population (exact ranks);
+2. checks the ranking on the card against the dense oracle on the CPU
+   (the whole domination matrix packed, every individual peeled) on a
+   small population (exact ranks);
 3. drives the search path once through ``repro_torch.explore.run_spec``:
    the full-size EfficientNet-B0 on a four-platform chain, searched by
    ``torch_nsga2`` at population 16384 for 10 generations, with each
-   kernel's launch count set to 0 just before and read just after (K6 once
-   a ranking: 11); checks the front against the exact NumPy evaluator;
+   kernel's launch count set to 0 just before and read just after (K1 and
+   K6 once a ranking: 11; K2 once, the final front); checks the front
+   against the exact NumPy evaluator;
 4. holds the sliding-window attention kernel against its plain version on
    the card at ragged sizes (head dims 32, 64, 128 and 160; groups 1, 3
    and 7) and at the two LM shapes that take it (smollm-360m: 2 prompts of
@@ -233,18 +235,15 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     campaign by fingerprint, every request served, the analyzer gate
     exiting 0, QAT keeping the 4-bit accuracy), and its output shows
     them; the quickstart's two tensor searches (step 4: ``torch_nsga2`` at
-    population 4096 x 40; step 5: 2048 x 12, two restarts, 512-row tiles)
-    set the Pareto kernels' counts to 0 just before and print them just
-    after, and each launched the domination kernel (K1); the
-    dominator-count kernel (K2) takes a front only past 8192 individuals
-    (``TorchNSGA2Search._DENSE_PARETO_MAX``, the reference's threshold),
-    so at these populations the host does, and its count is printed.
-    Then, in this process, the same two searches on the card with the
-    inputs and tiles of K1's last launch in each kept (8192 x 3 objectives
-    in 2048-row tiles; 4096 x 2 in 512-row tiles): K1 on them bit-exact
-    against its plain version, both timed, each front exact against the
-    NumPy evaluator, and step 4's front against the same spec's search on
-    the CPU at the Pareto-front level;
+    population 4096 x 40; step 5: 2048 x 12, two restarts) set the Pareto
+    kernels' counts to 0 just before and print them just after, and each
+    launched the domination kernel (K1) and, for its final front, the
+    dominator-count kernel (K2).  Then, in this process, the same two
+    searches on the card with the inputs of K1's last launch in each kept
+    (8192 x 3 objectives; 4096 x 2): K1 on them bit-exact against its
+    plain version, both timed, each front exact against the NumPy
+    evaluator, and step 4's front against the same spec's search on the
+    CPU at the Pareto-front level;
 22. runs granite-4.0-h-micro (the mixed family: 36 Mamba2 mixers, 4 GQA
     layers without RoPE) at full width on two 8192-token rows: the SSD
     scan kernel at its shape (phase 6's record, made here when the phase
@@ -301,8 +300,8 @@ PEAK_INT8_OPS_S = 1979e12
 PEAK_TF32_OPS_S = 495e12
 
 POP, N_GEN, SEED = 16384, 10, 0
-RANK_BLOCK = 2048            # the auto policy's tile rows at this population
-RAGGED = (33, 97, 130)
+REF_BLOCK = 2048             # the plain versions' working-memory tile rows
+RAGGED = (33, 97, 130, 2049)
 
 # the LM path: smollm-360m at full width, two prompts of 8192 tokens (the
 # window is 4096); the search runs at the search path's population so that
@@ -647,7 +646,7 @@ def print_pareto_sass(pairs):
 def check_kernels(dev):
     """Phase 1: each kernel against its plain version on the card; returns
     the per-kernel records (launches filled in after the main path)."""
-    from repro_torch.kernels import ops, pareto_rank, ref
+    from repro_torch.kernels import pareto_rank, ref
     from repro_torch.testing import edge_population
 
     cases = [(n, p, s) for n in RAGGED for p, s in ((0.3, n), (1.0, n + 1),
@@ -660,44 +659,40 @@ def check_kernels(dev):
         inputs += [edge_population(n, m, infeas, seed) for m in (3, 8)]
         for F, CV in inputs:
             F, CV = F.to(dev), CV.to(dev)
-            for block, bq in ((32, 32), (64, ops._COL_TILE)):
-                got = pareto_rank.packed_domination(
-                    F, CV, F, CV, bp=ops._row_tile(block), bq=bq)
-                want = ref.packed_domination(F, CV, F, CV, block)
-                assert torch.equal(got, want), ("packed_domination", n,
+            for r in (n, n // 3 + 1):
+                got = pareto_rank.packed_domination(F[:r], CV[:r], F, CV)
+                want = ref.packed_domination(F[:r], CV[:r], F, CV, 32)
+                assert torch.equal(got, want), ("packed_domination", n, r,
                                                  infeas)
             for mask in (torch.ones_like(alive), alive):
                 assert torch.equal(
                     pareto_rank.domination_counts(F, CV, mask),
                     ref.domination_counts(F, CV, mask)), (
                     "domination_counts", n, infeas)
-    print(f"ragged sizes {RAGGED} x infeasible share (0.3, 1.0, 0.0), the "
-          f"search's populations and the edge cases (NaN, -0.0, +inf, ties; "
-          f"m 3 and 8), all alive and under a mask: both kernels bit-exact")
+    print(f"ragged sizes {RAGGED} (K1 also on a third of the rows) x "
+          f"infeasible share (0.3, 1.0, 0.0), the search's populations and "
+          f"the edge cases (NaN, -0.0, +inf, ties; m 3 and 8), all alive and "
+          f"under a mask: both kernels bit-exact")
 
     records = []
     # K1 at the first ranking's shape (the initial population)
     Fh, CVh = population(POP, seed=5)
     F, CV = torch.from_numpy(Fh).to(dev), torch.from_numpy(CVh).to(dev)
-    tile = dict(bp=ops._row_tile(RANK_BLOCK), bq=ops._COL_TILE)
-    assert torch.equal(pareto_rank.packed_domination(F, CV, F, CV, **tile),
-                       ref.packed_domination(F, CV, F, CV, RANK_BLOCK))
-    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, F, CV, **tile),
-                 20)
+    assert torch.equal(pareto_rank.packed_domination(F, CV, F, CV),
+                       ref.packed_domination(F, CV, F, CV, REF_BLOCK))
+    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, F, CV), 20)
     print(f"packed_domination at the first ranking's shape (n {POP}, 1 "
           f"launch a search): kernel {ms:.4f} ms, bit-exact")
     # K1 at the main path's shape: the combined population of a generation
     n2 = 2 * POP
     Fh, CVh = population(n2, seed=1)
     F, CV = torch.from_numpy(Fh).to(dev), torch.from_numpy(CVh).to(dev)
-    tile = dict(bp=ops._row_tile(RANK_BLOCK), bq=ops._COL_TILE)
-    got = pareto_rank.packed_domination(F, CV, F, CV, **tile)
-    want = ref.packed_domination(F, CV, F, CV, RANK_BLOCK)
+    got = pareto_rank.packed_domination(F, CV, F, CV)
+    want = ref.packed_domination(F, CV, F, CV, REF_BLOCK)
     err = max_abs_err(got, want)
     assert err == 0 and torch.equal(got, want), "packed_domination differs"
-    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, F, CV, **tile),
-                 20)
-    plain = cuda_ms(lambda: ref.packed_domination(F, CV, F, CV, RANK_BLOCK),
+    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, F, CV), 20)
+    plain = cuda_ms(lambda: ref.packed_domination(F, CV, F, CV, REF_BLOCK),
                     3)
     m = Fh.shape[1]
     n_bytes = 2 * n2 * (m + 1) * 4 + got.numel() * 4
@@ -719,11 +714,11 @@ def check_kernels(dev):
     err = 0
     for mask in (ones, torch.from_numpy(mask_h).to(dev)):
         got = pareto_rank.domination_counts(F, CV, mask)
-        want = ref.domination_counts(F, CV, mask, RANK_BLOCK)
+        want = ref.domination_counts(F, CV, mask, REF_BLOCK)
         err = max(err, max_abs_err(got, want))
         assert torch.equal(got, want), "domination_counts differs"
     ms = cuda_ms(lambda: pareto_rank.domination_counts(F, CV, ones), 20)
-    plain = cuda_ms(lambda: ref.domination_counts(F, CV, ones, RANK_BLOCK), 3)
+    plain = cuda_ms(lambda: ref.domination_counts(F, CV, ones, REF_BLOCK), 3)
     n_bytes = POP * (m + 1) * 4 + POP * 4 + POP * 4
     b_ms, b_by = bound(n_bytes, pair_ops(Fh, CVh))
     records.append(dict(
@@ -772,13 +767,13 @@ def chain_words(n, length, dev):
 def check_peel(dev):
     """K6 against the plain loop on K1's words of the initial population
     (n POP) and of a generation's combined one (n 2 POP), the feasible
-    individuals alive as the tiled ranking has them, caps None and POP:
+    individuals alive as the ranking has them, caps None and POP:
     ranks and counts bit for bit.  Times kernel and plain loop at both
     shapes; the bound is ``peel_bytes`` of the run at 3.35 TB/s, and
     beside it the floor of its fronts' order: the fronts times the cost of
     a front that reads next to nothing (a chain of 256, one a front).
     Returns K6's record at the main path's shape (n 2 POP, cap POP)."""
-    from repro_torch.kernels import ops, pareto_rank, ref
+    from repro_torch.kernels import pareto_rank, ref
 
     def peel(words, alive, cap):
         got, info = pareto_rank.peel_fronts(words, alive, cap)
@@ -787,12 +782,11 @@ def check_peel(dev):
         assert info.tolist() == [fronts, done, entry], (info.tolist(), fronts)
         return want, fronts, done
 
-    tile = dict(bp=ops._row_tile(RANK_BLOCK), bq=ops._COL_TILE)
     chain_n = 256
     for n, seed in ((POP, 5), (2 * POP, 1)):
         Fh, CVh = population(n, seed=seed)
         F, CV = torch.from_numpy(Fh).to(dev), torch.from_numpy(CVh).to(dev)
-        words = pareto_rank.packed_domination(F, CV, F, CV, **tile)
+        words = pareto_rank.packed_domination(F, CV, F, CV)
         feas = CV <= 0
         runs = {cap: peel(words, feas, cap) for cap in (n, POP)}
         cap = min(n, POP)       # the search's: all first, then POP a ranking
@@ -825,19 +819,22 @@ def check_peel(dev):
 
 
 def check_ranking(dev):
-    """Phase 2: tiled ranking through the kernel on the card equals the
-    dense ranking on the CPU on a small population."""
-    from repro_torch.core.nsga2_torch import nondominated_rank
+    """Phase 2: the ranking through the kernels on the card equals the
+    dense oracle on the CPU (the whole domination matrix packed, every
+    individual peeled) on a small population."""
+    from repro_torch.core.nsga2_torch import domination_matrix, nondominated_rank
+    from repro_torch.kernels import ref
     n = 3000
-    Fh, CVh = population(n, seed=4)
-    cpu = [nondominated_rank(torch.from_numpy(Fh), torch.from_numpy(CVh), cap)
-           for cap in (None, n // 2)]
-    Fd, CVd = torch.from_numpy(Fh).to(dev), torch.from_numpy(CVh).to(dev)
-    for want, cap in zip(cpu, (None, n // 2)):
-        got = nondominated_rank(Fd, CVd, cap, rank_block=512).cpu()
+    F, CV = (torch.from_numpy(a) for a in population(n, seed=4))
+    words = ref.pack_bits(domination_matrix(F, CV))
+    ones = torch.ones(n, dtype=torch.bool)
+    Fd, CVd = F.to(dev), CV.to(dev)
+    for cap in (n, n // 2):
+        want = ref.peel_fronts(words, ones, cap)[0]
+        got = nondominated_rank(Fd, CVd, cap).cpu()
         assert torch.equal(got, want), ("rank", cap)
-    print(f"tiled ranking on the card == dense ranking on the CPU "
-          f"(n={n}, caps None and {n // 2})")
+    print(f"ranking on the card == dense oracle on the CPU "
+          f"(n={n}, caps {n} and {n // 2})")
 
 
 def main_spec():
@@ -913,7 +910,10 @@ def main_path(dev, records):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches(kernels)
-    assert launches["peel_fronts"] == N_GEN + 1, launches   # one a ranking
+    # K1 and K6 once a ranking, K2 once for the final front
+    assert launches == {"packed_domination": N_GEN + 1,
+                        "domination_counts": 1,
+                        "peel_fronts": N_GEN + 1}, launches
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     assert res.strategy_used == "torch_nsga2", res.strategy_used
@@ -3341,6 +3341,7 @@ def examples_phase(dev, card):
             assert sorted(launches) == [4, 5], launches
             for step, counts in launches.items():
                 assert counts["packed_domination"] > 0, (step, counts)
+                assert counts["domination_counts"] > 0, (step, counts)
             print(f"example quickstart: kernel launches in step 4 "
                   f"(torch_nsga2 pop 4096 x 40) {launches[4]}, step 5 "
                   f"(pop 2048 x 12, 2 restarts) {launches[5]}")
@@ -3354,18 +3355,16 @@ def examples_phase(dev, card):
 
 @contextlib.contextmanager
 def keep_pareto_inputs():
-    """Inside, clones of the inputs and tiles of K1's last launch go into
-    the yielded dict.  The dispatch's module handle is swapped, not the
+    """Inside, clones of the inputs of K1's last launch go into the
+    yielded dict.  The dispatch's module handle is swapped, not the
     wrapper, whose count is its own attribute."""
     from repro_torch.kernels import ops
     module, kept = ops._kern, {}
 
-    def keeping(f_rows, cv_rows, f_cols, cv_cols, *, bp, bq):
+    def keeping(f_rows, cv_rows, f_cols, cv_cols):
         kept.update(args=tuple(a.clone() for a in
-                               (f_rows, cv_rows, f_cols, cv_cols)),
-                    bp=bp, bq=bq)
-        return module.packed_domination(f_rows, cv_rows, f_cols, cv_cols,
-                                        bp=bp, bq=bq)
+                               (f_rows, cv_rows, f_cols, cv_cols)))
+        return module.packed_domination(f_rows, cv_rows, f_cols, cv_cols)
     ops._kern = types.SimpleNamespace(
         packed_domination=keeping,
         domination_counts=module.domination_counts,
@@ -3378,25 +3377,24 @@ def keep_pareto_inputs():
 
 
 def check_pareto_kept(kept, what, card):
-    """K1 on inputs a search gave it, with that search's tiles, bit-exact
-    against its plain version; both timed, beside the bound."""
+    """K1 on inputs a search gave it bit-exact against its plain version;
+    both timed, beside the bound."""
     from repro_torch.kernels import pareto_rank, ref
     F, CV, Fc, CVc = kept["args"]
-    bp, bq = kept["bp"], kept["bq"]
     assert torch.equal(F, Fc) and torch.equal(CV, CVc), \
         "a search ranks its population against itself"
-    got = pareto_rank.packed_domination(F, CV, Fc, CVc, bp=bp, bq=bq)
-    want = ref.packed_domination(F, CV, Fc, CVc, bp)
+    got = pareto_rank.packed_domination(F, CV, Fc, CVc)
+    want = ref.packed_domination(F, CV, Fc, CVc, REF_BLOCK)
     err = max_abs_err(got, want)
     assert err == 0 and torch.equal(got, want), ("packed_domination", what)
-    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, Fc, CVc,
-                                                       bp=bp, bq=bq), 20)
-    plain = cuda_ms(lambda: ref.packed_domination(F, CV, Fc, CVc, bp), 3)
+    ms = cuda_ms(lambda: pareto_rank.packed_domination(F, CV, Fc, CVc), 20)
+    plain = cuda_ms(lambda: ref.packed_domination(F, CV, Fc, CVc, REF_BLOCK),
+                    3)
     n, m = F.shape
     n_bytes = 2 * n * (m + 1) * 4 + got.numel() * 4
     b_ms, b_by = bound(n_bytes, pair_ops(F.cpu().numpy(), CV.cpu().numpy()))
     print(f"packed_domination on {what}'s last ranking: F ({n}, {m}), "
-          f"infeasible {int((CV > 0).sum())}, bp {bp}, bq {bq}: "
+          f"infeasible {int((CV > 0).sum())}: "
           f"max_abs_err {err} against the plain version (bit-exact); kernel "
           f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
           f"({b_by}) [{card}]")
@@ -3404,7 +3402,7 @@ def check_pareto_kept(kept, what, card):
 
 def quickstart_kernel_check(dev, card):
     """The quickstart's step 4 (``torch_nsga2`` 4096 x 40) and step 5 (2048
-    x 12, two restarts, 512-row tiles) in this process on the card, with
+    x 12, two restarts) in this process on the card, with
     K1's last launch in each kept and held against its plain version; each
     front exact against the NumPy evaluator; step 4's front against the
     same spec's search on the CPU at the Pareto-front level (they differ

@@ -30,8 +30,8 @@ The Pareto kernels (K1 ``packed_domination``, K2 ``domination_counts``,
 ``pareto_rank.cu``) come first: each build's K1 time at the search's shape
 (n 32768) and K2's at the final front's (n 16384), both held bit-exact to
 the plain versions, for the word rows a warp holds (R), K2's row splits
-and columns a block, and K2's splits summed by a second launch instead of
-``atomicAdd``; then the shipped K1 at other row and column tiles.
+and columns a block, K2's splits summed by a second launch instead of
+``atomicAdd``, and K1's rows and columns a block.
 ``python3 chip_variants.py --pareto`` stops there.  ``--k5`` instead
 prints ``ptxas -v``'s registers and spills of the shipped K5 and then, in
 two rounds, each K5 build's time and error at the LM path's shape and at
@@ -85,6 +85,8 @@ SPLIT = ("  hi = to_tf32_non_nan(x);\n"
 ROWS_PER_LANE = "constexpr int kRowsPerLane = 4;"
 COUNT_ROWS = "constexpr int kCountRows = 1024;"
 COUNT_COLS = "constexpr int kCountCols = 256;"
+PACKED_ROWS = "constexpr int kPackedRows = 2048;"
+PACKED_COLS = "constexpr int kPackedCols = 256;"
 # K2's second-launch combine: each split's sums go to a (splits, n) device
 # array, and a second kernel adds them up per column.
 COUNT_SCRATCH = "constexpr unsigned kAll = 0xffffffffu;"
@@ -253,6 +255,14 @@ VARIANTS = (
         "pareto_rank.cu": [(ROWS_PER_LANE, ROWS_PER_LANE.replace("4", "2"))]}),
     ("K1/K2 R = 8 word rows a warp", "pareto_rank.cu", {
         "pareto_rank.cu": [(ROWS_PER_LANE, ROWS_PER_LANE.replace("4", "8"))]}),
+    ("K1 1024 rows a block", "pareto_rank.cu", {
+        "pareto_rank.cu": [(PACKED_ROWS, PACKED_ROWS.replace("2048", "1024"))]}),
+    ("K1 4096 rows a block", "pareto_rank.cu", {
+        "pareto_rank.cu": [(PACKED_ROWS, PACKED_ROWS.replace("2048", "4096"))]}),
+    ("K1 64 columns a block", "pareto_rank.cu", {
+        "pareto_rank.cu": [(PACKED_COLS, PACKED_COLS.replace("256", "64"))]}),
+    ("K1 1024 columns a block", "pareto_rank.cu", {
+        "pareto_rank.cu": [(PACKED_COLS, PACKED_COLS.replace("256", "1024"))]}),
     ("K2 4 row splits (4096 rows each)", "pareto_rank.cu", {
         "pareto_rank.cu": [(COUNT_ROWS, COUNT_ROWS.replace("1024", "4096"))]}),
     ("K2 64 columns a block", "pareto_rank.cu", {
@@ -611,37 +621,29 @@ def ssd_scan_builds(dev, builds):
 
 def pareto_builds(dev, builds):
     """K1 at the search's shape (n 32768) and K2 at the final front's (n
-    16384) through each build, bit-exact against the plain versions; then
-    the shipped K1 at other row and column tiles."""
-    from repro_torch.kernels import ops, pareto_rank, ref
+    16384) through each build, bit-exact against the plain versions."""
+    from repro_torch.kernels import pareto_rank, ref
     pop = chip_smoke.POP
     F, CV = (torch.from_numpy(a).to(dev)
              for a in chip_smoke.population(2 * pop, seed=1))
     F2, CV2 = (torch.from_numpy(a).to(dev)
                for a in chip_smoke.population(pop, seed=2))
     ones = torch.ones(pop, dtype=torch.bool, device=dev)
-    words = ref.packed_domination(F, CV, F, CV, chip_smoke.RANK_BLOCK)
-    counts = ref.domination_counts(F2, CV2, ones, chip_smoke.RANK_BLOCK)
-    tile = dict(bp=ops._row_tile(chip_smoke.RANK_BLOCK), bq=ops._COL_TILE)
-    print(f"K1 packed_domination at F ({2 * pop}, 3), tiles {tile}; "
+    words = ref.packed_domination(F, CV, F, CV, chip_smoke.REF_BLOCK)
+    counts = ref.domination_counts(F2, CV2, ones, chip_smoke.REF_BLOCK)
+    print(f"K1 packed_domination at F ({2 * pop}, 3); "
           f"K2 domination_counts at F ({pop}, 3):")
     for name, so in builds:
         with using(pareto_rank, so) if so else contextlib.nullcontext():
             assert torch.equal(pareto_rank.packed_domination(
-                F, CV, F, CV, **tile), words), name
+                F, CV, F, CV), words), name
             assert torch.equal(pareto_rank.domination_counts(F2, CV2, ones),
                                counts), name
             k1 = chip_smoke.cuda_ms(
-                lambda: pareto_rank.packed_domination(F, CV, F, CV, **tile),
-                20)
+                lambda: pareto_rank.packed_domination(F, CV, F, CV), 20)
             k2 = chip_smoke.cuda_ms(
                 lambda: pareto_rank.domination_counts(F2, CV2, ones), 20)
         print(f"  {name}: K1 {k1:.4f} ms, K2 {k2:.4f} ms, both bit-exact")
-    for bp, bq in ((1024, 256), (4096, 256), (2048, 64), (2048, 128),
-                   (2048, 512), (2048, 1024)):
-        ms = chip_smoke.cuda_ms(lambda: pareto_rank.packed_domination(
-            F, CV, F, CV, bp=bp, bq=bq), 20)
-        print(f"  shipped K1 at bp {bp}, bq {bq}: {ms:.4f} ms")
 
 
 def forwards(dev, arch, module, builds):

@@ -108,11 +108,10 @@ def tensor_search(spec, device, pop_size=4096, n_gen=40):
     # 4. big populations: strategy="torch_nsga2" runs the whole NSGA-II
     #    generation loop (ranking, crowding, variation, metric evaluation
     #    over the precomputed cost tables) as tensor code on the device —
-    #    pick it when pop_size climbs into the thousands.  Above a combined
-    #    population of 4096 the ranking builds its packed domination words
-    #    tile by tile in the Pareto kernel (K1); the front of a final
-    #    population above 8192 comes from the dominator-count kernel (K2),
-    #    below it from the host, as in the reference's jit search.
+    #    pick it when pop_size climbs into the thousands.  The ranking
+    #    builds its packed domination words tile by tile in the Pareto
+    #    kernel (K1), and the final population's front comes from the
+    #    dominator-count kernel (K2).
     tspec = dataclasses.replace(
         spec, search=SearchSettings(strategy="torch_nsga2",
                                     pop_size=pop_size, n_gen=n_gen))
@@ -125,11 +124,6 @@ def scale_spec(pop_size=2048, n_gen=12) -> ExplorationSpec:
     # 5. scaling the tensor search to very large populations — the knobs
     #    (worked example: EfficientNet-B0 across a 4-node chain, 3 cuts)
     #
-    #    * rank_block   — row-tile size of the tiled Pareto ranking
-    #      (repro_torch.kernels.pareto_rank).  None auto-selects: dense
-    #      ranking for combined populations <= 4096, 2048-row tiles
-    #      beyond, so peak memory is O(pop * rank_block) instead of the
-    #      dense O(pop^2).
     #    * rank_impl    — 'auto' (the CUDA kernels on a card, their plain
     #      PyTorch versions on the CPU), 'ref', or 'cuda' to pin a branch.
     #    * n_restarts   — >1 runs that many independently seeded searches
@@ -147,7 +141,6 @@ def scale_spec(pop_size=2048, n_gen=12) -> ExplorationSpec:
         objectives=("latency", "energy"),
         search=SearchSettings(strategy="torch_nsga2", pop_size=pop_size,
                               n_gen=n_gen,
-                              rank_block=512,      # force the tiled ranking
                               rank_impl="auto",
                               n_restarts=2))       # 2 seeds, merged
 

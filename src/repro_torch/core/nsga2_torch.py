@@ -26,23 +26,21 @@ the plain loop reads one count a front to decide whether to go on.
 With an :class:`~repro_torch.obs.Obs` handle switched on (``obs=``), the
 loop records spans on the ``search`` track (``search.generation`` and its
 children ``search.evaluate``, ``search.offspring``, ``search.rank`` →
-``search.k1`` or ``search.dominance``, ``search.peel`` (→ one
-``search.front`` a front on the plain loop only), ``search.infeasible_tail``;
-``search.crowding``, ``search.survivors``) and counts every device-to-host
-read in ``search_host_reads``.  Off (the
+``search.k1``, ``search.peel`` (→ one ``search.front`` a front on the
+plain loop only), ``search.infeasible_tail``; ``search.crowding``,
+``search.survivors``) and counts every device-to-host read in
+``search_host_reads``.  Off (the
 default :data:`~repro_torch.obs.NOOP_OBS`), each site costs one attribute
 or local read and takes no clock read.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.ref import pack_bits as _pack_bits
 from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.obs.trace import Laps
 
@@ -67,7 +65,8 @@ def constrained_dominates(Fa: Tensor, cva: Tensor,
 
 
 def domination_matrix(F: Tensor, CV: Tensor) -> Tensor:
-    """D[p, q] = p constraint-dominates q, diagonal cleared."""
+    """D[p, q] = p constraint-dominates q, diagonal cleared: the dense
+    form of the words :func:`nondominated_rank` builds tile by tile."""
     n = F.shape[0]
     D = constrained_dominates(F[:, None, :], CV[:, None],
                               F[None, :, :], CV[None, :])
@@ -113,76 +112,47 @@ def _peel(Dp: Tensor, alive: Tensor, cap: int, impl: str = "auto",
 
 def nondominated_rank(F: Tensor, CV: Tensor,
                       cap: Optional[int] = None, *,
-                      rank_block: Optional[int] = None,
                       rank_impl: str = "auto",
                       obs: Optional[Obs] = None) -> Tensor:
     """Front index per individual (0 = first front), peeled until at least
     ``cap`` individuals are ranked (default: all).  The unpeeled tail keeps
     rank ``n`` — environmental selection never reaches it.
 
-    With ``rank_block`` unset/0 the dense path runs: the full domination
-    matrix is built in one broadcast and bit-packed (32 individuals per
-    word), and the fronts are peeled off the (n/32, n) words by
-    ``kernels.ops.peel_fronts`` with ``rank_impl`` (on a CUDA tensor the
-    peel kernel, one launch a ranking).
-
-    ``rank_block > 0`` switches to the tiled primitive
-    (``repro_torch.kernels.ops.packed_domination``): the packed words are
-    built (rank_block, n)-tile by tile so the dense (n, n[, m]) booleans
-    never exist, and only *feasible* Pareto layers are peeled — Deb
-    domination totally orders infeasible individuals by violation, so their
-    ranks (the equal-CV groups, appended after the feasible layers) come in
-    closed form.  Ranks are bit-identical to the dense path.
+    The packed domination words (32 dominators a word, the
+    ``kernels.ref.pack_bits`` layout of :func:`domination_matrix`) are
+    built tile by tile by ``kernels.ops.packed_domination`` with
+    ``rank_impl`` (on a CUDA tensor the domination kernel), so the dense
+    (n, n[, m]) booleans never exist.  Only the *feasible* Pareto layers
+    are peeled (``kernels.ops.peel_fronts``: on a CUDA tensor the peel
+    kernel, one launch a ranking): Deb domination totally orders
+    infeasible individuals by violation, so their ranks (the equal-CV
+    groups, appended after the feasible layers) come in closed form.
+    Ranks are bit-identical to peeling the dense matrix.
 
     With ``obs`` on, records a ``search.rank`` span (``n``, ``m``,
-    ``feasible``: the feasible count the tiled path's peel reads anyway,
-    None on the dense path; ``impl``: ``dense`` or the tiled primitive's
-    resolved impl; ``block``) around ``search.k1`` (the tiled primitive) or
-    ``search.dominance`` (the dense matrix and its packing), ``search.peel``
-    (its ``impl`` the peel's) and, tiled, ``search.infeasible_tail``.
+    ``feasible``: the feasible count the peel reads anyway; ``impl``: the
+    packed words' resolved impl) around ``search.k1`` (the packed words),
+    ``search.peel`` (its ``impl`` the peel's) and
+    ``search.infeasible_tail``.
     """
+    from repro_torch.kernels import ops
     n = F.shape[0]
     cap = n if cap is None else min(cap, n)
     obs = NOOP_OBS if obs is None else obs
+    dev = F.device
     on = obs.enabled
     if on:
         laps = Laps(obs.tracer, "search.rank", TRACK,
                     {"n": n, "m": F.shape[1], "feasible": None,
-                     "impl": "dense", "block": rank_block or 0})
-    if rank_block:
-        rank = _rank_blocked(F, CV, cap, rank_block, rank_impl, obs,
-                             laps.args if on else None)
-    else:
-        Dp = _pack_bits(domination_matrix(F, CV))
-        if on:
-            laps.lap("search.dominance")
-        rank = _peel(Dp, torch.ones(n, dtype=torch.bool, device=F.device),
-                     cap, rank_impl, obs)[0]
+                     "impl": ops.resolve_impl(rank_impl, F)})
+    Dp = ops.packed_domination(F, CV, impl=rank_impl)
+    if on:
+        laps.lap("search.k1")
+    feas = CV <= 0
+    rank, n_feas_fronts, done = _peel(Dp, feas, cap, rank_impl, obs,
+                                      laps.args if on else None)
     if on:
         laps.lap()
-        laps.close()
-    return rank
-
-
-def _rank_blocked(F: Tensor, CV: Tensor, cap: int, block: int,
-                  impl: str, obs: Obs = NOOP_OBS,
-                  rank_args: Optional[dict] = None) -> Tensor:
-    """Tiled non-dominated ranking; see :func:`nondominated_rank`."""
-    from repro_torch.kernels import ops
-    n = F.shape[0]
-    dev = F.device
-    on = obs.enabled
-    if on:
-        t0 = time.perf_counter()
-    Dp = ops.packed_domination(F, CV, block=block, impl=impl)
-    if on:
-        t1 = time.perf_counter()
-        obs.tracer.complete("search.k1", track=TRACK, start=t0, end=t1)
-        rank_args["impl"] = ops.resolve_impl(impl, F)
-    feas = CV <= 0
-    rank, n_feas_fronts, done = _peel(Dp, feas, cap, impl, obs, rank_args)
-    if on:
-        t2 = time.perf_counter()
     # infeasible tail: every feasible individual dominates every infeasible
     # one and infeasible pairs compare by violation alone, so the remaining
     # fronts are the equal-CV groups in ascending order.  A group is peeled
@@ -203,8 +173,8 @@ def _rank_blocked(F: Tensor, CV: Tensor, cap: int, block: int,
     include = ~feas & (before < cap)
     rank = torch.where(include, n_feas_fronts + grp, rank)
     if on:
-        obs.tracer.complete("search.infeasible_tail", track=TRACK, start=t2,
-                            end=time.perf_counter())
+        laps.lap("search.infeasible_tail")
+        laps.close()
     return rank
 
 
@@ -314,32 +284,16 @@ def make_offspring(gen: torch.Generator, X: Tensor, F: Tensor, CV: Tensor,
 
 # -- the generation loop ----------------------------------------------------------
 
-# auto rank_block policy: combined (2·pop) populations at/below the
-# threshold keep the dense packed path (fastest there, memory irrelevant);
-# beyond it the tiled path runs with the default tile rows
-_AUTO_DENSE_MAX = 4096
-_AUTO_RANK_BLOCK = 2048
-
-
-def _resolve_rank_block(rank_block: Optional[int], pop_size: int) -> int:
-    """None → auto (dense ≤ ``_AUTO_DENSE_MAX`` combined, else 2048-row
-    tiles); 0 forces dense; a positive int is the tile row count."""
-    if rank_block is None:
-        return 0 if 2 * pop_size <= _AUTO_DENSE_MAX else _AUTO_RANK_BLOCK
-    return rank_block
-
-
 def _run(eval_fn: EvalFn, gen: torch.Generator, X0: Tensor, n_gen: int,
-         lo: int, hi: int, pop_size: int, rank_block: int, rank_impl: str,
-         eval_args: Tuple, obs: Obs = NOOP_OBS
+         lo: int, hi: int, pop_size: int, rank_impl: str, eval_args: Tuple,
+         obs: Obs = NOOP_OBS
          ) -> Tuple[Tensor, Tensor, Tensor]:
     """The whole search on X0's device; ``eval_args`` are forwarded to
     every ``eval_fn(X, *eval_args)`` call.  With ``obs`` on, one
     ``search.generation`` span a generation (``gen``; 0 the initial
     population's evaluation, ranking and crowding)."""
     def rank_of(F, CV, cap=None):
-        return nondominated_rank(F, CV, cap, rank_block=rank_block,
-                                 rank_impl=rank_impl, obs=obs)
+        return nondominated_rank(F, CV, cap, rank_impl=rank_impl, obs=obs)
 
     on = obs.enabled
     if on:
@@ -436,8 +390,8 @@ def torch_nsga2(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
                 pop_size: int, n_gen: int, seed: int = 0,
                 candidates: Optional[Sequence[Sequence[int]]] = None,
                 X0: Optional[np.ndarray] = None, eval_args: Tuple = (),
-                rank_block: Optional[int] = None, rank_impl: str = "auto",
-                device="cuda", obs: Optional[Obs] = None
+                rank_impl: str = "auto", device="cuda",
+                obs: Optional[Obs] = None
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Run the NSGA-II loop on ``device``; returns host (X, F, CV) arrays.
 
@@ -447,9 +401,8 @@ def torch_nsga2(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
     explicit ``X0`` (pop_size, n_var) to override the uniform init (warm
     starts — see :func:`warm_population`) and ``eval_args`` to forward
     runtime table values to ``eval_fn(X, *eval_args)``.
-    ``rank_block``/``rank_impl`` select the ranking primitive (see
-    :func:`nondominated_rank`): the auto policy keeps the dense packed
-    matrix for combined populations ≤ 4096 and tiles beyond.  ``obs``
+    ``rank_impl`` selects the ranking kernels or their plain versions (see
+    :func:`nondominated_rank`).  ``obs``
     (default :data:`~repro_torch.obs.NOOP_OBS`, off): an
     :class:`~repro_torch.obs.Obs` handle that records the loop's spans
     (module docstring) and counts its device-to-host reads.
@@ -464,9 +417,7 @@ def torch_nsga2(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
     X, F, CV = _run(eval_fn, gen,
                     torch.as_tensor(np.asarray(X0), dtype=torch.int64,
                                     device=device),
-                    n_gen, lower, upper, pop_size,
-                    _resolve_rank_block(rank_block, pop_size), rank_impl,
-                    eval_args, obs)
+                    n_gen, lower, upper, pop_size, rank_impl, eval_args, obs)
     if obs.enabled:                       # host reads: X, F and CV below
         obs.metrics.counter(HOST_READS).inc(3)
     return (X.cpu().numpy().astype(np.int64),
@@ -479,9 +430,8 @@ def torch_nsga2_restarts(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
                          seed: int = 0,
                          candidates: Optional[Sequence[Sequence[int]]] = None,
                          X0s: Optional[np.ndarray] = None,
-                         eval_args: Tuple = (),
-                         rank_block: Optional[int] = None,
-                         rank_impl: str = "auto", device="cuda",
+                         eval_args: Tuple = (), rank_impl: str = "auto",
+                         device="cuda",
                          obs: Optional[Obs] = None
                          ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Multi-restart search: ``n_restarts`` independently seeded runs, one
@@ -498,15 +448,15 @@ def torch_nsga2_restarts(eval_fn: EvalFn, n_var: int, lower: int, upper: int,
     outs = [torch_nsga2(eval_fn, n_var, lower, upper, pop_size, n_gen,
                         seed=seed + i, candidates=candidates,
                         X0=None if X0s is None else X0s[i],
-                        eval_args=eval_args, rank_block=rank_block,
-                        rank_impl=rank_impl, device=device, obs=obs)
+                        eval_args=eval_args, rank_impl=rank_impl,
+                        device=device, obs=obs)
             for i in range(n_restarts)]
     return tuple(np.concatenate(parts) for parts in zip(*outs))
 
 
 def pareto_indices_blocked(X: np.ndarray, F: np.ndarray, CV: np.ndarray,
-                           block: int = 2048, impl: str = "auto",
-                           device="cuda", obs: Optional[Obs] = None
+                           impl: str = "auto", device="cuda",
+                           obs: Optional[Obs] = None
                            ) -> np.ndarray:
     """Memory-bounded twin of :func:`repro_torch.core.nsga2.pareto_indices`:
     the first-front mask comes from the tiled dominator-count primitive on
@@ -517,7 +467,7 @@ def pareto_indices_blocked(X: np.ndarray, F: np.ndarray, CV: np.ndarray,
     counts = ops.domination_counts(
         torch.as_tensor(F, dtype=torch.float32, device=device),
         torch.as_tensor(CV, dtype=torch.float32, device=device),
-        block=block, impl=impl).cpu().numpy()  # host read: the counts
+        impl=impl).cpu().numpy()               # host read: the counts
     if obs is not None and obs.enabled:
         obs.metrics.counter(HOST_READS).inc()
     first = np.flatnonzero(counts == 0)

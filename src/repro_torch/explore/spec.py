@@ -229,10 +229,10 @@ class SearchSettings:
 
     The ``torch_nsga2`` scaling knobs (ignored by the other strategies):
 
-    * ``rank_block`` — row-tile size of the blocked Pareto-ranking
-      primitive.  ``None`` auto-selects (dense packed ranking for combined
-      populations ≤ 4096, 2048-row tiles beyond — what keeps pop 32768+
-      inside O(pop · rank_block) working memory); ``0`` forces dense.
+    * ``rank_block`` — inert: any value, ``0`` included, gives the same
+      ranks, because the port always ranks in fixed tiles.  It stays a
+      field so that the reference's specs load and ``to_dict``, a spec's
+      ``spec_hash`` and a fleet manifest keep their content.
     * ``rank_impl`` — ``'auto' | 'ref' | 'cuda'`` kernel dispatch for the
       ranking primitive (``'auto'``: the CUDA kernel for a search on a CUDA
       device, the plain PyTorch version on the CPU).

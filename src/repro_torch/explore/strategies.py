@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Protocol, Tuple, Type, runtime_checkabl
 import numpy as np
 
 from repro_torch.core.nsga2 import (NSGA2Result, dominates_matrix,
-                              non_dominated_mask, nsga2, pareto_indices)
+                              non_dominated_mask, nsga2)
 from repro_torch.core.partition import (Constraints, PartitionEval,
                                   PartitionEvaluator)
 from repro_torch.explore.filters import feasible_cut_rows
@@ -324,12 +324,15 @@ class TorchNSGA2Search:
     :class:`NSGA2Search` with a warning rather than silently dropping the
     accuracy term.
 
+    The ranking builds the packed domination words in fixed tiles
+    (``repro_torch.kernels.pareto_rank``), so 10k–100k+ populations stay in
+    O(pop²/32) words, and the final front's mask comes from the tiled
+    dominator counts (``pareto_indices_blocked``) at every population.
     Scaling knobs from :class:`~repro_torch.explore.spec.SearchSettings`:
-    ``rank_block``/``rank_impl`` select the tiled Pareto-ranking primitive
-    (``repro_torch.kernels.pareto_rank``) that keeps 10k–100k+ populations
-    inside O(pop · rank_block) working memory, ``n_restarts`` runs that many
-    independently seeded searches and merges their fronts, and
-    ``rank_devices`` > 1 is clamped to the one search device.
+    ``rank_impl`` picks the kernels or their plain versions, ``n_restarts``
+    runs that many independently seeded searches and merges their fronts,
+    and ``rank_devices`` > 1 is clamped to the one search device;
+    ``rank_block`` is not read.
 
     Each search records, in :func:`repro_torch.obs.metrics.default_registry`,
     its wall (histogram ``search_wall_s``, from the evaluation set-up until
@@ -347,10 +350,6 @@ class TorchNSGA2Search:
     """
 
     name = "torch_nsga2"
-
-    # above this population the final front mask comes from the tiled
-    # dominator-count kernel instead of the dense host-side sort
-    _DENSE_PARETO_MAX = 8192
 
     def search(self, ctx: SearchContext) -> StrategyOutput:
         """Tensor NSGA-II on ``ctx.device``: gene table + EvalTables as
@@ -405,8 +404,7 @@ class TorchNSGA2Search:
             n_gen=n_gen, candidates=_gene_seeds(cands, table, n_cuts),
             eval_args=(torch.as_tensor(table, dtype=torch.int64,
                                        device=ctx.device), tables),
-            rank_block=settings.rank_block, rank_impl=settings.rank_impl,
-            device=ctx.device, obs=obs)
+            rank_impl=settings.rank_impl, device=ctx.device, obs=obs)
         warm = _warm_genes(ctx, table)
         if warm is not None:
             reg.counter("search_warm_starts").inc()
@@ -433,13 +431,8 @@ class TorchNSGA2Search:
         if obs.enabled:
             obs.tracer.complete("search.run", track=TRACK, start=t_search,
                                 end=t_end)
-        if len(X) > self._DENSE_PARETO_MAX:
-            p_idx = pareto_indices_blocked(X, F, CV,
-                                           block=settings.rank_block or 2048,
-                                           impl=settings.rank_impl,
-                                           device=ctx.device, obs=obs)
-        else:
-            p_idx = pareto_indices(X, F, CV)
+        p_idx = pareto_indices_blocked(X, F, CV, impl=settings.rank_impl,
+                                       device=ctx.device, obs=obs)
         res = NSGA2Result(X=X, F=F, CV=CV, pareto_idx=p_idx, history=[])
         evals: List[PartitionEval] = []
         if len(res.pareto_X):

@@ -35,7 +35,7 @@
 //     records (f0, f1, f2, key) for m <= 3, three records up to m = 8, read
 //     by all lanes at once (a broadcast LDS.128 per column per word row set);
 //   * __ballot_sync of the 32 lanes' tests *is* word (w, q): bit j is lane j,
-//     the nsga2_torch._pack_bits layout with no shift-or per pair.  Lane
+//     the kernels/ref.py::pack_bits layout with no shift-or per pair.  Lane
 //     q mod 32 keeps it, and after 32 columns each word row goes out as one
 //     coalesced 128-byte store;
 //   * domination_counts takes __popc of the same vote, a dead row folded in
@@ -57,7 +57,8 @@ namespace {
 constexpr int kMaxObjectives = 8;
 constexpr int kWarps = 8;              // warps per block
 constexpr int kRowsPerLane = 4;        // word rows each warp holds at once
-constexpr int kMaxCols = 1024;         // columns a block stages
+constexpr int kPackedRows = 2048;      // packed_domination: rows a block
+constexpr int kPackedCols = 256;       // packed_domination: columns a block
 constexpr int kCountRows = 1024;       // domination_counts: rows per split
 constexpr int kCountCols = 256;        // domination_counts: columns per block
 constexpr unsigned kAll = 0xffffffffu;
@@ -200,17 +201,18 @@ __device__ __forceinline__ void domination_tile(
   }
 }
 
-// Grid (ceil(n / cols), ceil(r / rows_per_block)), kWarps warps a block;
-// at most 64 registers a thread, so that 4 blocks (8 warps a scheduler)
-// stay resident.
+// Grid (ceil(n / kPackedCols), ceil(r / kPackedRows)), kWarps warps a
+// block; at most 64 registers a thread, so that 4 blocks (8 warps a
+// scheduler) stay resident.  The time is flat over 1024-4096 rows and
+// 64-1024 columns a block at the search's shape (chip_variants.py).
 template <int M>
 __global__ void __launch_bounds__(kWarps * 32, 4) packed_domination_kernel(
     const float* __restrict__ f_rows, const float* __restrict__ cv_rows,
     int r, const float* __restrict__ f_cols,
-    const float* __restrict__ cv_cols, int n, int m, int rows_per_block,
-    int cols, uint32_t* __restrict__ out) {
-  domination_tile<M, false>(f_rows, cv_rows, nullptr, r, rows_per_block,
-                            f_cols, cv_cols, n, m, cols, out, nullptr);
+    const float* __restrict__ cv_cols, int n, int m,
+    uint32_t* __restrict__ out) {
+  domination_tile<M, false>(f_rows, cv_rows, nullptr, r, kPackedRows,
+                            f_cols, cv_cols, n, m, kPackedCols, out, nullptr);
 }
 
 // Grid (ceil(n / kCountCols), ceil(r / kCountRows)): the row splits' sums
@@ -229,13 +231,12 @@ __global__ void __launch_bounds__(kWarps * 32, 4) domination_counts_kernel(
 template <int M>
 int launch_packed(const float* f_rows, const float* cv_rows, int r,
                   const float* f_cols, const float* cv_cols, int n, int m,
-                  int rows_per_block, int cols, uint32_t* out,
-                  cudaStream_t s) {
-  const dim3 grid((n + cols - 1) / cols,
-                  (r + rows_per_block - 1) / rows_per_block);
-  const size_t bytes = (size_t)cols * Point<M>::kVec * 16;
+                  uint32_t* out, cudaStream_t s) {
+  const dim3 grid((n + kPackedCols - 1) / kPackedCols,
+                  (r + kPackedRows - 1) / kPackedRows);
+  const size_t bytes = (size_t)kPackedCols * Point<M>::kVec * 16;
   packed_domination_kernel<M><<<grid, kWarps * 32, bytes, s>>>(
-      f_rows, cv_rows, r, f_cols, cv_cols, n, m, rows_per_block, cols, out);
+      f_rows, cv_rows, r, f_cols, cv_cols, n, m, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -258,7 +259,7 @@ int launch_counts(const float* f_rows, const float* cv_rows,
 //
 // It replaces no Pallas kernel.  The JAX package peels its fronts inside a
 // compiled lax.while_loop (repro/core/nsga2_jax.py, nondominated_rank and
-// _rank_blocked), one XLA program with no host decision in it.  The port's
+// its tiled twin), one XLA program with no host decision in it.  The port's
 // loop was plain PyTorch (kernels/ref.py::peel_fronts): about ten
 // elementwise passes over the (W, n) words and one host read a front.  This
 // kernel runs that loop on the device, with the plain loop's ranks, stop
@@ -468,19 +469,15 @@ int pareto_rows_per_lane() { return kRowsPerLane; }
 int packed_domination_launch(const float* f_rows, const float* cv_rows,
                              int r, const float* f_cols,
                              const float* cv_cols, int n, int m,
-                             int rows_per_block, int cols_per_block,
                              int32_t* out, void* stream) {
   if (r <= 0 || n <= 0) return cudaSuccess;
-  if (m < 0 || m > kMaxObjectives || rows_per_block <= 0 ||
-      rows_per_block % 32 || cols_per_block <= 0 || cols_per_block % 32 ||
-      cols_per_block > kMaxCols)
-    return cudaErrorInvalidValue;
+  if (m < 0 || m > kMaxObjectives) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   uint32_t* words = reinterpret_cast<uint32_t*>(out);
   return m <= 3 ? launch_packed<3>(f_rows, cv_rows, r, f_cols, cv_cols, n, m,
-                                   rows_per_block, cols_per_block, words, s)
+                                   words, s)
                 : launch_packed<8>(f_rows, cv_rows, r, f_cols, cv_cols, n, m,
-                                   rows_per_block, cols_per_block, words, s);
+                                   words, s);
 }
 
 // ``out`` must hold zeros.

@@ -37,38 +37,35 @@ def resolve_impl(impl: str, x: torch.Tensor) -> str:
 
 # -- pareto_rank ----------------------------------------------------------------
 
-# columns a packed-domination block stages in shared memory; its rows follow
-# the caller's block.  The kernel's time is flat over 64-1024 columns and
-# 1024-4096 rows at the search's shape (chip_variants.py --pareto)
-_COL_TILE = 256
+# the plain versions' working-memory tile (rows of dominators at a time);
+# the kernels fix their own tiles in csrc/pareto_rank.cu
+_REF_BLOCK = 2048
 
 
-def _row_tile(block: int) -> int:
-    return max(32, block // 32 * 32)
-
-
-def packed_domination(F, CV, *, block: int = 1024,
+def packed_domination(F, CV, *, block: int = _REF_BLOCK,
                       impl: str = "auto") -> torch.Tensor:
     """Bit-packed constrained-domination matrix, built tile by tile.
 
     Returns (ceil(n/32), n) int32 words carrying the uint32 bit pattern of
-    the ``nsga2_torch._pack_bits`` layout — bit-identical to packing the
+    the ``kernels.ref.pack_bits`` layout — bit-identical to packing the
     dense ``domination_matrix``, but the dense (n, n[, m]) temporaries never
-    exist.
+    exist.  ``block`` is the plain version's row tile; the kernel's tiles
+    are fixed.
     """
     F = torch.as_tensor(F, dtype=torch.float32).contiguous()
     CV = torch.as_tensor(CV, dtype=torch.float32,
                          device=F.device).contiguous()
     if resolve_impl(impl, F) == "ref":
         return _ref.packed_domination(F, CV, F, CV, block)
-    return _kern.packed_domination(F, CV, F, CV, bp=_row_tile(block),
-                                   bq=_COL_TILE)
+    return _kern.packed_domination(F, CV, F, CV)
 
 
 def domination_counts(F, CV, alive: Optional[torch.Tensor] = None, *,
-                      block: int = 1024, impl: str = "auto") -> torch.Tensor:
+                      block: int = _REF_BLOCK,
+                      impl: str = "auto") -> torch.Tensor:
     """(n,) int32 count of alive constrained dominators per individual.
-    ``counts == 0`` is the first constrained front."""
+    ``counts == 0`` is the first constrained front.  ``block`` is the plain
+    version's row tile; the kernel's tiles are fixed."""
     F = torch.as_tensor(F, dtype=torch.float32).contiguous()
     CV = torch.as_tensor(CV, dtype=torch.float32,
                          device=F.device).contiguous()

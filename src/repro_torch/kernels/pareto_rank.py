@@ -7,7 +7,7 @@ warp and test them against one column at a time with the branch-free Deb
 test:
 
 * :func:`packed_domination` — the warp's vote (``__ballot_sync``) is the
-  packed word (32 dominators per 32-bit word, ``nsga2_torch._pack_bits``
+  packed word (32 dominators per 32-bit word, ``kernels.ref.pack_bits``
   layout);
 * :func:`domination_counts` — the vote's popcount, summed over row splits
   of the grid by integer ``atomicAdd`` (exact, independent of order).
@@ -43,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
     lib = _build.load(_SOURCE)
     lib.packed_domination_launch.argtypes = [
-        _p, _p, _i, _p, _p, _i, _i, _i, _i, _p, _p]
+        _p, _p, _i, _p, _p, _i, _i, _p, _p]
     lib.packed_domination_launch.restype = _i
     lib.domination_counts_launch.argtypes = [
         _p, _p, _p, _i, _p, _p, _i, _i, _p, _p]
@@ -80,19 +80,18 @@ def _validate(name: str, F: torch.Tensor, cv: torch.Tensor,
 
 
 def packed_domination(f_rows: torch.Tensor, cv_rows: torch.Tensor,
-                      f_cols: torch.Tensor, cv_cols: torch.Tensor, *,
-                      bp: int = 1024, bq: int = 256) -> torch.Tensor:
+                      f_cols: torch.Tensor, cv_cols: torch.Tensor
+                      ) -> torch.Tensor:
     """Bit-packed domination rows: word (w, q) bit j = row 32w+j of
     (f_rows, cv_rows) Deb-dominates column q of (f_cols, cv_cols).
 
-    f_rows (r, m), f_cols (n, m) float32; a thread block covers ``bp``
-    dominator rows (a multiple of 32; its 8 warps walk them 4 words at a
-    time) by ``bq`` columns (staged in shared memory, a multiple of 32 up
-    to 1024).  Returns (ceil(r/32), n) int32 words carrying the uint32 bit
-    pattern.
+    f_rows (r, m), f_cols (n, m) float32; a thread block covers 2048
+    dominator rows (its 8 warps walk them 4 words at a time) by 256
+    columns (staged in shared memory).  Returns (ceil(r/32), n) int32
+    words carrying the uint32 bit pattern.
     """
     if f_rows.device.type == "cpu":
-        return _ref.packed_domination(f_rows, cv_rows, f_cols, cv_cols, bp)
+        return _ref.packed_domination(f_rows, cv_rows, f_cols, cv_cols)
     if f_rows.device.type != "cuda":
         raise ValueError(f"packed_domination: no kernel for device "
                          f"{f_rows.device}")
@@ -104,9 +103,6 @@ def packed_domination(f_rows: torch.Tensor, cv_rows: torch.Tensor,
     if f_cols.shape[1] != m:
         raise ValueError("packed_domination: rows and columns differ in "
                          "objective count")
-    if bp <= 0 or bp % 32 or bq <= 0 or bq % 32 or bq > 1024:
-        raise ValueError(f"packed_domination: tile bp={bp}, bq={bq} is not "
-                         f"a multiple of 32 (bq at most 1024)")
     lib = _lib()
     if m > lib.pareto_max_objectives():
         raise ValueError(f"packed_domination: {m} objectives exceed the "
@@ -116,8 +112,7 @@ def packed_domination(f_rows: torch.Tensor, cv_rows: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.packed_domination_launch(
             f_rows.data_ptr(), cv_rows.data_ptr(), r, f_cols.data_ptr(),
-            cv_cols.data_ptr(), n, m, bp, bq, out.data_ptr(),
-            stream)
+            cv_cols.data_ptr(), n, m, out.data_ptr(), stream)
     _check(lib, code, "packed_domination")
     packed_domination.launches += 1
     return out
@@ -170,7 +165,7 @@ def peel_fronts(words: torch.Tensor, alive: torch.Tensor,
     none are left, the plain loop's rules bit for bit
     (``kernels.ref.peel_fronts``).
 
-    ``words`` (ceil(n/32), n) int32 in the ``nsga2_torch._pack_bits``
+    ``words`` (ceil(n/32), n) int32 in the ``kernels.ref.pack_bits``
     layout (K1's output), ``alive`` (n,) bool.  Returns (rank (n,) int64,
     unranked ones n; info (3,) int64: fronts peeled, individuals ranked,
     alive count at entry), both on the device, with nothing read back: one

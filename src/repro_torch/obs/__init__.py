@@ -25,10 +25,10 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   ``search.prepare``, ``search.tables``, ``search.run`` holding one
   ``search.generation`` a generation (``gen``) with ``search.evaluate``,
   ``search.offspring``, ``search.rank`` (``n``, ``m``, ``feasible``,
-  ``impl``, ``block``) → ``search.k1`` or ``search.dominance``,
-  ``search.peel`` (``fronts``, ``ranked``, ``impl``) → on the plain loop
-  (``impl`` ``ref``) one ``search.front`` a front (``k``, ``alive``), none
-  on the peel kernel's one launch, ``search.infeasible_tail``;
+  ``impl``) → ``search.k1``, ``search.peel`` (``fronts``, ``ranked``,
+  ``impl``) → on the plain loop (``impl`` ``ref``) one ``search.front`` a
+  front (``k``, ``alive``), none on the peel kernel's one launch,
+  ``search.infeasible_tail``;
   ``search.crowding``, ``search.survivors``; then ``search.final_front``;
   and the counter ``search_host_reads``, every device-to-host read (one a
   ranking on the kernel, one a front and one at entry on the plain loop);

@@ -427,9 +427,8 @@ MUTATIONS = [
                        s),
      {"RPT204": 1}),
     ("ref-impl-hardcoded-search", "core/nsga2_torch.py", None,
-     lambda s: replace("ops.packed_domination(F, CV, block=block, impl=impl)",
-                       'ops.packed_domination(F, CV, block=block, '
-                       'impl="ref")', s),
+     lambda s: replace("ops.packed_domination(F, CV, impl=rank_impl)",
+                       'ops.packed_domination(F, CV, impl="ref")', s),
      {"RPT204": 1}),
 ]
 

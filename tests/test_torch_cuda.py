@@ -14,7 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.nsga2_torch import nondominated_rank  # noqa: E402
+from repro_torch.core.nsga2_torch import (domination_matrix,  # noqa: E402
+                                          nondominated_rank)
 from repro_torch.kernels import (ops, pareto_rank,  # noqa: E402
                                  quant_matmul, ref, ssd_scan, window_attn)
 from repro_torch import testing  # noqa: E402
@@ -23,7 +24,7 @@ from repro_torch.models.cnn.zoo import reduced_cnn  # noqa: E402
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
 from repro_torch.serving import PartitionedCNNRunner  # noqa: E402
 
-SIZES = (33, 97, 130, 4096, 4099)
+SIZES = (33, 97, 130, 2049, 4096, 4099)
 
 
 def population(n, m=3, infeas=0.3, seed=0):
@@ -48,8 +49,9 @@ def cuda_device():
 def test_kernels_match_plain_versions(cuda_device, n, infeas):
     """The search's populations and the edge cases of
     ``testing.edge_population`` (NaN objectives and violations, -0.0, +inf,
-    equal violations, duplicates) at m = 1, 3 and 8, over row and column
-    tiles."""
+    equal violations, duplicates) at m = 1, 3 and 8; K1 on ragged shapes
+    at its fixed tiles (2048 rows by 256 columns a block): one past a row
+    tile, ragged column tiles, fewer rows than columns."""
     alive = torch.from_numpy(np.random.default_rng(n).random(n) < 0.5).to(
         cuda_device)
     inputs = [tuple(torch.from_numpy(a) for a in population(
@@ -58,11 +60,10 @@ def test_kernels_match_plain_versions(cuda_device, n, infeas):
                for m in (1, 3, 8)]
     for F, CV in inputs:
         F, CV = F.to(cuda_device), CV.to(cuda_device)
-        for block, bq in ((32, 256), (64, 32), (2048, 256), (2048, 1024)):
-            got = pareto_rank.packed_domination(F, CV, F, CV, bq=bq,
-                                                bp=ops._row_tile(block))
-            assert torch.equal(got,
-                               ref.packed_domination(F, CV, F, CV, block))
+        for r in (n, n // 3 + 1):
+            got = pareto_rank.packed_domination(F[:r], CV[:r], F, CV)
+            assert torch.equal(got, ref.packed_domination(F[:r], CV[:r], F,
+                                                          CV, 32))
         for mask in (torch.ones_like(alive), alive):
             assert torch.equal(pareto_rank.domination_counts(F, CV, mask),
                                ref.domination_counts(F, CV, mask))
@@ -72,16 +73,12 @@ def test_kernels_match_plain_versions(cuda_device, n, infeas):
 def test_kernels_count_launches_and_reject_bad_inputs(cuda_device):
     F, CV = (torch.from_numpy(a).to(cuda_device) for a in population(64))
     before = pareto_rank.packed_domination.launches
-    pareto_rank.packed_domination(F, CV, F, CV, bp=32)
+    pareto_rank.packed_domination(F, CV, F, CV)
     assert pareto_rank.packed_domination.launches == before + 1
     with pytest.raises(TypeError, match="float32"):
         pareto_rank.packed_domination(F.double(), CV, F, CV)
     with pytest.raises(ValueError, match="contiguous"):
         pareto_rank.packed_domination(F.t().contiguous().t(), CV, F, CV)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        pareto_rank.packed_domination(F, CV, F, CV, bp=48)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        pareto_rank.packed_domination(F, CV, F, CV, bq=2048)
     with pytest.raises(ValueError, match="objectives exceed"):
         G = torch.zeros((64, 9), device=cuda_device)
         pareto_rank.packed_domination(G, CV, G, CV)
@@ -105,11 +102,13 @@ def test_pareto_kernels_pack_and_count_by_warp_vote(cuda_device):
 
 @pytest.mark.cuda
 def test_tiled_rank_on_card_equals_dense_rank_on_cpu(cuda_device):
-    F, CV = population(1500, seed=7)
-    want = nondominated_rank(torch.from_numpy(F), torch.from_numpy(CV), 700)
-    got = nondominated_rank(torch.from_numpy(F).to(cuda_device),
-                            torch.from_numpy(CV).to(cuda_device), 700,
-                            rank_block=256).cpu()
+    """The ranking on the card against the dense oracle on the CPU: the
+    whole domination matrix packed and every individual peeled."""
+    F, CV = (torch.from_numpy(a) for a in population(1500, seed=7))
+    want = ref.peel_fronts(ref.pack_bits(domination_matrix(F, CV)),
+                           torch.ones(1500, dtype=torch.bool), 700)[0]
+    got = nondominated_rank(F.to(cuda_device), CV.to(cuda_device),
+                            700).cpu()
     assert torch.equal(got, want)
 
 

@@ -131,21 +131,14 @@ def test_kernel_wrappers_run_plain_version_on_cpu():
     Ft, CVt = torch.from_numpy(F), torch.from_numpy(CV)
     before = (pareto_rank.packed_domination.launches,
               pareto_rank.domination_counts.launches)
-    words = pareto_rank.packed_domination(Ft, CVt, Ft, CVt, bp=64)
+    words = pareto_rank.packed_domination(Ft, CVt, Ft, CVt)
     counts = pareto_rank.domination_counts(Ft, CVt,
                                            torch.ones(70, dtype=torch.int32))
     assert (words_u32(words) == words_u32(ref.packed_domination(
-        Ft, CVt, Ft, CVt, 64))).all()
+        Ft, CVt, Ft, CVt, 32))).all()
     assert (counts == ref.domination_counts(Ft, CVt)).all()
     assert (pareto_rank.packed_domination.launches,
             pareto_rank.domination_counts.launches) == before
-
-
-def test_row_tile_legalization():
-    assert ops._row_tile(1) == 32
-    assert ops._row_tile(100) == 96
-    assert ops._row_tile(2048) == 2048
-    assert ops._COL_TILE == 256
 
 
 # -- window_attn --------------------------------------------------------------

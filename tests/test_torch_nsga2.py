@@ -1,10 +1,12 @@
 """The port's NSGA-II operators (``repro_torch.core.nsga2_torch``) against
-the JAX package's ``nsga2_jax``: dense and blocked ranking (exact, with
-caps, ragged sizes, infeasible shares and duplicate-CV groups), crowding
-(to float32 tolerance, same inf pattern), repair and the survivor lexsort
-(exact), plus the loop-level properties the reference holds itself to:
-blocked ranking leaves the whole run unchanged, restart i equals seed+i,
-and the blocked final-front mask equals the dense one."""
+the JAX package's ``nsga2_jax``: the tiled ranking against the dense
+oracle (the packed dense matrix, every individual peeled) and the JAX
+ranks (exact, with caps, ragged sizes, infeasible shares and duplicate-CV
+groups), crowding (to float32 tolerance, same inf pattern), repair and
+the survivor lexsort (exact), plus the loop-level properties the
+reference holds itself to: the dense oracle in the ranking's place leaves
+the whole run unchanged, restart i equals seed+i, and the tiled
+final-front mask equals the dense one."""
 
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import nsga2_jax  # noqa: E402
 from repro.core.nsga2 import _repair_batch, pareto_indices  # noqa: E402
 from repro_torch.core import nsga2_torch as T  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -31,6 +34,16 @@ def population(n, m=3, infeas=0.3, dup=False, seed=0):
     CV = np.where(rng.random(n) < infeas, (rng.random(n) * 3).round(1),
                   0.0).astype(np.float32)
     return F, CV
+
+
+def dense_rank(F, CV, cap=None, **_):
+    """The dense oracle: the whole domination matrix packed and every
+    individual peeled, infeasible ones too."""
+    n = F.shape[0]
+    words = ref.pack_bits(T.domination_matrix(F, CV))
+    alive = torch.ones(n, dtype=torch.bool, device=F.device)
+    return ref.peel_fronts(words, alive, n if cap is None
+                           else min(cap, n))[0]
 
 
 def jax_ranks(Fs, CVs, cap):
@@ -50,11 +63,10 @@ def test_rank_dense_and_blocked_match_jax(n):
         want = jax_ranks(Fs, CVs, cap)
         for i, (F, CV) in enumerate(pops):
             Ft, CVt = torch.from_numpy(F), torch.from_numpy(CV)
-            dense = T.nondominated_rank(Ft, CVt, cap).numpy()
-            blocked = T.nondominated_rank(Ft, CVt, cap, rank_block=64,
-                                          rank_impl="ref").numpy()
+            dense = dense_rank(Ft, CVt, cap).numpy()
+            tiled = T.nondominated_rank(Ft, CVt, cap, rank_impl="ref").numpy()
             assert (dense == want[i]).all(), (n, INFEAS[i], cap)
-            assert (blocked == want[i]).all(), (n, INFEAS[i], cap)
+            assert (tiled == want[i]).all(), (n, INFEAS[i], cap)
 
 
 def test_blocked_rank_duplicate_cv_groups():
@@ -62,8 +74,8 @@ def test_blocked_rank_duplicate_cv_groups():
     CV = np.tile([0.0, 0.5, 0.5, 1.5], 10).astype(np.float32)
     want = np.asarray(nsga2_jax.nondominated_rank(jnp.asarray(F),
                                                   jnp.asarray(CV)))
-    got = T.nondominated_rank(torch.from_numpy(F), torch.from_numpy(CV),
-                              rank_block=32).numpy()
+    got = T.nondominated_rank(torch.from_numpy(F),
+                              torch.from_numpy(CV)).numpy()
     assert (got == want).all()
 
 
@@ -108,7 +120,7 @@ def test_repair_matches_jax_and_numpy():
 def test_pack_bits_matches_jax():
     B = np.random.default_rng(1).random((70, 9)) < 0.5
     want = np.asarray(nsga2_jax._pack_bits(jnp.asarray(B)))
-    got = T._pack_bits(torch.from_numpy(B)).numpy().view(np.uint32)
+    got = ref.pack_bits(torch.from_numpy(B)).numpy().view(np.uint32)
     assert (got == want).all()
 
 
@@ -121,11 +133,18 @@ def toy_eval(X):
     return torch.stack([f1, f2], dim=1), cv
 
 
-def test_blocked_run_equals_dense_run():
+def test_blocked_run_equals_dense_run(monkeypatch):
     args = dict(n_var=3, lower=0, upper=40, pop_size=48, n_gen=8, seed=3,
                 device="cpu")
-    dense = T.torch_nsga2(toy_eval, rank_block=0, **args)
-    blocked = T.torch_nsga2(toy_eval, rank_block=64, **args)
+    blocked = T.torch_nsga2(toy_eval, **args)
+    caps = []
+
+    def oracle(F, CV, cap=None, **kw):
+        caps.append(cap)
+        return dense_rank(F, CV, cap)
+    monkeypatch.setattr(T, "nondominated_rank", oracle)
+    dense = T.torch_nsga2(toy_eval, **args)
+    assert caps == [None] + [48] * 8
     for a, b in zip(dense, blocked):
         assert (a == b).all()
 
@@ -165,5 +184,5 @@ def test_pareto_indices_blocked_matches_dense():
     F[50:100] = F[:50]                       # duplicate decision ties
     CV = np.where(rng.random(200) < 0.4, rng.random(200), 0.0)
     want = pareto_indices(X, F, CV)
-    got = T.pareto_indices_blocked(X, F, CV, block=64, device="cpu")
+    got = T.pareto_indices_blocked(X, F, CV, device="cpu")
     assert (got == want).all()

@@ -19,7 +19,7 @@ from repro_torch.core.quant import QuantSpec  # noqa: E402
 from repro_torch.data.synthetic import SyntheticImages  # noqa: E402
 from repro_torch.explore import (ExplorationSpec, ModelRef,  # noqa: E402
                                  PlatformSpec, SearchSettings, SystemSpec,
-                                 TorchNSGA2Search, run_spec)
+                                 run_spec)
 from repro_torch.models.cnn.zoo import reduced_cnn  # noqa: E402
 from repro_torch.obs import NOOP_OBS, Laps, Obs, Tracer  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -27,21 +27,32 @@ from repro_torch.quantize.evaluate import cnn_measured_accuracy  # noqa: E402
 
 torch.set_num_threads(2)
 
-BLOCKS = {"dense": 0, "tiled": 64}
 # every Tensor method that copies a value to the host
 READS = ("__int__", "__float__", "__bool__", "item", "cpu", "tolist")
 
 
 def toy_eval(X):
+    """Infeasible individuals among the feasible ones, their violations
+    whole numbers, so that equal-violation groups form."""
     f1 = X.sum(dim=1).to(torch.float32)
     f2 = ((X - 20) ** 2).sum(dim=1).to(torch.float32)
     cv = torch.clamp(15.0 - X[:, 0].to(torch.float32), min=0.0)
     return torch.stack([f1, f2], dim=1), cv
 
 
-def search(rank_block, obs=None, pop=48, n_gen=4):
-    return T.torch_nsga2(toy_eval, 3, 0, 40, pop, n_gen, seed=3,
-                         rank_block=rank_block, device="cpu", obs=obs)
+def feasible_eval(X):
+    F, cv = toy_eval(X)
+    return F, torch.zeros_like(cv)
+
+
+# the axis the ranking's work follows: a population that is all feasible
+# (the infeasible tail has nothing to rank) and one that is not
+EVALS = {"feasible": feasible_eval, "infeasible": toy_eval}
+
+
+def search(path, obs=None, pop=48, n_gen=4):
+    return T.torch_nsga2(EVALS[path], 3, 0, 40, pop, n_gen, seed=3,
+                         device="cpu", obs=obs)
 
 
 def count_reads(monkeypatch):
@@ -84,19 +95,17 @@ def names(spans):
 
 # -- the generation loop ------------------------------------------------------------
 
-@pytest.mark.parametrize("path", BLOCKS)
+@pytest.mark.parametrize("path", EVALS)
 def test_loop_spans_nest(path):
     obs = Obs.on()
-    search(BLOCKS[path], obs)
+    search(path, obs)
     sp = obs.tracer.spans()
     n_gen = 4
     got = names(sp)
     assert got["search.generation"] == got["search.rank"] == n_gen + 1
     assert got["search.evaluate"] == got["search.crowding"] == n_gen + 1
     assert got["search.offspring"] == got["search.survivors"] == n_gen
-    first = "search.k1" if BLOCKS[path] else "search.dominance"
-    assert got[first] == n_gen + 1
-    assert got["search.infeasible_tail"] == (n_gen + 1 if BLOCKS[path] else 0)
+    assert got["search.k1"] == got["search.infeasible_tail"] == n_gen + 1
     assert {s.track for s in sp} == {T.TRACK} and obs.tracer.dropped == 0
     for s in sp:
         up = parent(sp, s)
@@ -104,7 +113,7 @@ def test_loop_spans_nest(path):
             assert up.name == "search.peel"
             assert parent(sp, up).name == "search.rank"
             assert parent(sp, parent(sp, up)).name == "search.generation"
-        elif s.name in ("search.k1", "search.dominance", "search.peel",
+        elif s.name in ("search.k1", "search.peel",
                         "search.infeasible_tail"):
             assert up.name == "search.rank"
         elif s.name == "search.generation":
@@ -115,10 +124,10 @@ def test_loop_spans_nest(path):
     assert gens == list(range(n_gen + 1))
 
 
-@pytest.mark.parametrize("path", BLOCKS)
+@pytest.mark.parametrize("path", EVALS)
 def test_peel_fronts_equal_its_front_spans(path):
     obs = Obs.on()
-    search(BLOCKS[path], obs)
+    search(path, obs)
     sp = obs.tracer.spans()
     peels = [s for s in sp if s.name == "search.peel"]
     assert peels
@@ -129,20 +138,23 @@ def test_peel_fronts_equal_its_front_spans(path):
         assert p.args["ranked"] == sum(f.args["k"] for f in fronts)
         alive = [f.args["alive"] for f in fronts]
         assert alive == sorted(alive, reverse=True)
-    for r in (s for s in sp if s.name == "search.rank"):
-        assert r.args["m"] == 2 and r.args["block"] == BLOCKS[path]
-        if BLOCKS[path]:
-            assert r.args["impl"] == "ref"
-            assert 0 <= r.args["feasible"] <= r.args["n"]
-        else:
-            assert r.args["impl"] == "dense" and r.args["feasible"] is None
+    ranks = [s.args for s in sp if s.name == "search.rank"]
+    for r in ranks:
+        assert set(r) == {"n", "m", "feasible", "impl"}
+        assert r["m"] == 2 and r["impl"] == "ref"
+        assert 0 <= r["feasible"] <= r["n"]
+    infeasible = [r["n"] - r["feasible"] for r in ranks]
+    if path == "feasible":
+        assert not any(infeasible)
+    else:
+        assert all(infeasible)
 
 
-@pytest.mark.parametrize("path", BLOCKS)
+@pytest.mark.parametrize("path", EVALS)
 def test_host_reads_equal_the_reads_counted_at_the_tensors(path, monkeypatch):
     obs = Obs.on()
     n = count_reads(monkeypatch)
-    search(BLOCKS[path], obs)
+    search(path, obs)
     monkeypatch.undo()
     assert set(n) <= {"__int__", "cpu"}
     sp = obs.tracer.spans()
@@ -152,21 +164,19 @@ def test_host_reads_equal_the_reads_counted_at_the_tensors(path, monkeypatch):
     assert obs.metrics.snapshot()[T.HOST_READS] == by_hand
 
 
-@pytest.mark.parametrize("path", BLOCKS)
+@pytest.mark.parametrize("path", EVALS)
 def test_outputs_identical_with_the_handle_on_and_off(path):
-    on, off = search(BLOCKS[path], Obs.on()), search(BLOCKS[path])
+    on, off = search(path, Obs.on()), search(path)
     for a, b in zip(on, off):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    F, CV = toy_eval(torch.randint(0, 41, (97, 3),
-                                   generator=torch.Generator().manual_seed(1)))
+    F, CV = EVALS[path](torch.randint(
+        0, 41, (97, 3), generator=torch.Generator().manual_seed(1)))
     for cap in (None, 40):
-        assert torch.equal(
-            T.nondominated_rank(F, CV, cap, rank_block=BLOCKS[path],
-                                obs=Obs.on()),
-            T.nondominated_rank(F, CV, cap, rank_block=BLOCKS[path]))
+        assert torch.equal(T.nondominated_rank(F, CV, cap, obs=Obs.on()),
+                           T.nondominated_rank(F, CV, cap))
 
 
-@pytest.mark.parametrize("path", BLOCKS)
+@pytest.mark.parametrize("path", EVALS)
 def test_default_handle_records_nothing_and_reads_no_clock(path,
                                                           monkeypatch):
     def refused(*a, **k):
@@ -174,8 +184,8 @@ def test_default_handle_records_nothing_and_reads_no_clock(path,
     monkeypatch.setattr(T, "Laps", refused)
     monkeypatch.setattr(obs_trace.NullTracer, "complete", refused)
     clock = count_clock(monkeypatch)
-    search(BLOCKS[path])
-    search(BLOCKS[path], NOOP_OBS)
+    search(path)
+    search(path, NOOP_OBS)
     assert clock[0] == 0
     assert NOOP_OBS.metrics.snapshot() == {}
 
@@ -191,12 +201,10 @@ def spec(pop=48):
                           links=("gige", "gige")),
         objectives=("latency", "energy", "throughput"),
         search=SearchSettings(strategy="torch_nsga2", seed=0, pop_size=pop,
-                              n_gen=2, rank_block=32, rank_impl="ref"))
+                              n_gen=2, rank_impl="ref"))
 
 
-def test_run_spec_spans_cover_the_search(monkeypatch):
-    # the tiled final-front mask (K2's path) at this small population
-    monkeypatch.setattr(TorchNSGA2Search, "_DENSE_PARETO_MAX", 16)
+def test_run_spec_spans_cover_the_search():
     obs = Obs.on()
     run_spec(spec(), device="cpu", obs=obs)
     sp = obs.tracer.spans()

@@ -39,7 +39,7 @@ def frozen_peel(Dp, alive, cap):
     n_alive = int(alive.sum())
     r = done = 0
     while n_alive and done < cap:
-        alive_p = T._pack_bits(alive[:, None])[:, 0]
+        alive_p = ref.pack_bits(alive[:, None])[:, 0]
         n_dom = ref.popcount32(Dp & alive_p[:, None]).sum(dim=0)
         front = alive & (n_dom == 0)
         k = int(front.sum())
@@ -267,17 +267,28 @@ def test_k6_design_stops_a_column_at_its_first_alive_dominator():
 # -- the kernel path's spans and reads, on the CPU -------------------------------------
 
 def toy_eval(X):
+    """Infeasible individuals among the feasible ones, their violations
+    whole numbers, so that equal-violation groups form."""
     f1 = X.sum(dim=1).to(torch.float32)
     f2 = ((X - 20) ** 2).sum(dim=1).to(torch.float32)
     cv = torch.clamp(15.0 - X[:, 0].to(torch.float32), min=0.0)
     return torch.stack([f1, f2], dim=1), cv
 
 
-def search(rank_block, obs=None, pop=48, n_gen=4, device="cpu",
+def feasible_eval(X):
+    F, cv = toy_eval(X)
+    return F, torch.zeros_like(cv)
+
+
+# a population that is all feasible (the peel ranks everyone) and one
+# with an infeasible tail ranked in closed form
+EVALS = {"feasible": feasible_eval, "infeasible": toy_eval}
+
+
+def search(path, obs=None, pop=48, n_gen=4, device="cpu",
            rank_impl="auto"):
-    return T.torch_nsga2(toy_eval, 3, 0, 40, pop, n_gen, seed=3,
-                         rank_block=rank_block, rank_impl=rank_impl,
-                         device=device, obs=obs)
+    return T.torch_nsga2(EVALS[path], 3, 0, 40, pop, n_gen, seed=3,
+                         rank_impl=rank_impl, device=device, obs=obs)
 
 
 def kernel_path_checks(obs, n_gen, impl):
@@ -294,18 +305,18 @@ def kernel_path_checks(obs, n_gen, impl):
     assert obs.metrics.snapshot()[T.HOST_READS] == len(peels) + 3
 
 
-@pytest.mark.parametrize("rank_block", (0, 64))
-def test_kernel_path_spans_and_reads_on_the_cpu(rank_block, monkeypatch):
+@pytest.mark.parametrize("path", EVALS)
+def test_kernel_path_spans_and_reads_on_the_cpu(path, monkeypatch):
     """``impl`` resolved to ``cuda`` on CPU tensors: the wrapper takes its
     plain version, and the peel is accounted as the kernel's (no front
     spans, one read a ranking), with the same population as ``ref``."""
-    want = search(rank_block, rank_impl="ref")
+    want = search(path, rank_impl="ref")
     resolve = ops.resolve_impl
     monkeypatch.setattr(ops, "resolve_impl",
                         lambda impl, x: "cuda" if impl != "ref"
                         else resolve(impl, x))
     obs = Obs.on()
-    got = search(rank_block, obs)
+    got = search(path, obs)
     kernel_path_checks(obs, 4, "cuda")
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
@@ -351,10 +362,10 @@ def test_kernel_matches_plain_loop(cuda_device, n, m, mask):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,cap", [(32768, 16384), (16384, None)])
 def test_kernel_matches_plain_loop_at_the_search_shape(cuda_device, n, cap):
-    """The tiled path's words (K1) of a search-sized population, the
+    """The ranking's words (K1) of a search-sized population, the
     feasible individuals alive."""
     F, CV = (a.to(cuda_device) for a in population(n, seed=n))
-    words = ops.packed_domination(F, CV, block=2048)
+    words = ops.packed_domination(F, CV)
     fronts = kernel_equals_plain(words, CV <= 0, cap)[1]
     assert fronts > 10
 
@@ -363,37 +374,35 @@ def test_kernel_matches_plain_loop_at_the_search_shape(cuda_device, n, cap):
 @pytest.mark.parametrize("cap", (None, 2048))
 def test_kernel_matches_plain_loop_on_the_dense_path(cuda_device, cap):
     F, CV = (a.to(cuda_device) for a in population(4096, seed=5))
-    words = T._pack_bits(T.domination_matrix(F, CV))
+    words = ref.pack_bits(T.domination_matrix(F, CV))
     kernel_equals_plain(words, torch.ones(4096, dtype=torch.bool,
                                           device=cuda_device), cap)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rank_block", (None, 256))
+@pytest.mark.parametrize("path", EVALS)
 def test_search_on_card_is_the_same_with_the_kernel_and_the_plain_loop(
-        cuda_device, rank_block):
-    """pop 1024 x 5: dense (2048 combined) and tiled; the GA draws the
-    same numbers in the same order, so X, F and CV are identical, and the
-    kernel launches once a ranking."""
+        cuda_device, path):
+    """pop 1024 x 5, all feasible and with an infeasible tail; the GA
+    draws the same numbers in the same order, so X, F and CV are
+    identical, and the kernel launches once a ranking."""
     before = pareto_rank.peel_fronts.launches
-    got = search(rank_block, pop=1024, n_gen=5, device="cuda",
-                 rank_impl="cuda")
+    got = search(path, pop=1024, n_gen=5, device="cuda", rank_impl="cuda")
     assert pareto_rank.peel_fronts.launches == before + 6
-    want = search(rank_block, pop=1024, n_gen=5, device="cuda",
-                  rank_impl="ref")
+    want = search(path, pop=1024, n_gen=5, device="cuda", rank_impl="ref")
     assert pareto_rank.peel_fronts.launches == before + 6
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rank_block", (0, 256))
-def test_kernel_path_spans_and_reads_on_card(cuda_device, rank_block,
+@pytest.mark.parametrize("path", EVALS)
+def test_kernel_path_spans_and_reads_on_card(cuda_device, path,
                                              monkeypatch):
     """``search.peel`` carries ``impl="cuda"``, ``fronts`` and ``ranked``
     and holds no ``search.front``; the reads counted at the tensors are
     one a ranking and X, F and CV; the outputs equal the handle off."""
-    off = search(rank_block, pop=1024, n_gen=4, device="cuda")
+    off = search(path, pop=1024, n_gen=4, device="cuda")
     n = collections.Counter()
     for name in ("__int__", "__float__", "__bool__", "item", "cpu",
                  "tolist"):
@@ -404,7 +413,7 @@ def test_kernel_path_spans_and_reads_on_card(cuda_device, rank_block,
             return _orig(self, *a, **k)
         monkeypatch.setattr(torch.Tensor, name, counted)
     obs = Obs.on()
-    on = search(rank_block, obs, pop=1024, n_gen=4, device="cuda")
+    on = search(path, obs, pop=1024, n_gen=4, device="cuda")
     monkeypatch.undo()
     kernel_path_checks(obs, 4, "cuda")
     assert sum(n.values()) == obs.metrics.snapshot()[T.HOST_READS]

@@ -1,7 +1,7 @@
 """The port's search slice end to end on the CPU: ``torch_nsga2`` against
 the JAX package's ``jit_nsga2`` at the Pareto-front level on the
-EfficientNet-B0 four-platform setup, blocked vs dense ranking inside the
-strategy, merged restarts, exact re-scoring of the front, the
+EfficientNet-B0 four-platform setup, the tiled ranking against a dense
+oracle inside the strategy, ``rank_block`` inert, merged restarts, exact re-scoring of the front, the
 measured-accuracy fallback, the spec plumbing, and the default ``cuda``
 device refusing to run without a card."""
 
@@ -23,6 +23,7 @@ from repro.explore import SearchSettings as JSettings  # noqa: E402
 from repro.explore import SystemSpec as JSystemSpec  # noqa: E402
 from repro.explore import run_search as jrun_search  # noqa: E402
 from repro.models.cnn.zoo import build_cnn as jbuild  # noqa: E402
+from repro_torch.core import nsga2_torch as T  # noqa: E402
 from repro_torch.core.accuracy import MeasuredAccuracy, ProxyAccuracy  # noqa: E402
 from repro_torch.core.graph import linearize  # noqa: E402
 from repro_torch.core.partition import PartitionEvaluator  # noqa: E402
@@ -31,6 +32,7 @@ from repro_torch.explore import (ExplorationSpec, ModelRef,  # noqa: E402
                                  SystemSpec, TorchNSGA2Search, run_search,
                                  run_spec)
 from repro_torch.explore.strategies import STRATEGIES  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models.cnn.zoo import build_cnn  # noqa: E402
 
 torch.set_num_threads(2)
@@ -96,12 +98,46 @@ def test_front_equivalent_to_jax_jit_nsga2():
     assert (np.abs(Ft.min(axis=0) - Fj.min(axis=0)) <= 0.08 * scale).all()
 
 
-def test_blocked_ranking_leaves_search_unchanged(evaluator):
-    dense = search(evaluator, seed=2, pop_size=64, n_gen=6, rank_block=0)
-    blocked = search(evaluator, seed=2, pop_size=64, n_gen=6, rank_block=64)
+def test_blocked_ranking_leaves_search_unchanged(evaluator, monkeypatch):
+    """The dense oracle (the whole domination matrix packed, every
+    individual peeled) in the ranking's place gives the same search."""
+    blocked = search(evaluator, seed=2, pop_size=64, n_gen=6)
+    caps = []
+
+    def dense_rank(F, CV, cap=None, **kw):
+        caps.append(cap)
+        n = F.shape[0]
+        words = ref.pack_bits(T.domination_matrix(F, CV))
+        alive = torch.ones(n, dtype=torch.bool)
+        return ref.peel_fronts(words, alive, n if cap is None
+                               else min(cap, n))[0]
+    monkeypatch.setattr(T, "nondominated_rank", dense_rank)
+    dense = search(evaluator, seed=2, pop_size=64, n_gen=6)
+    assert caps == [None] + [64] * 6
     for a, b in ((dense.nsga.X, blocked.nsga.X), (dense.nsga.F, blocked.nsga.F),
                  (dense.nsga.CV, blocked.nsga.CV)):
         assert (a == b).all()
+
+
+@pytest.mark.parametrize("rank_block", (None, 0, 128))
+def test_rank_block_is_inert(evaluator, rank_block):
+    """Any ``rank_block`` gives the same search, and the field still
+    round-trips through a spec's plain-dict form."""
+    want = search(evaluator, seed=3, pop_size=48, n_gen=3)
+    got = search(evaluator, seed=3, pop_size=48, n_gen=3,
+                 rank_block=rank_block)
+    assert [p.cuts for p in got.pareto] == [p.cuts for p in want.pareto]
+    for a, b in ((got.nsga.X, want.nsga.X), (got.nsga.F, want.nsga.F),
+                 (got.nsga.CV, want.nsga.CV)):
+        assert (a == b).all()
+    spec = ExplorationSpec(
+        model=ModelRef("cnn", "squeezenet11", {"in_hw": 64}),
+        system=FOUR_PLATFORM,
+        search=SearchSettings(strategy="torch_nsga2", rank_block=rank_block))
+    d = spec.to_dict()
+    assert d["search"]["rank_block"] == rank_block
+    assert ExplorationSpec.from_dict(d) == spec
+    assert ExplorationSpec.from_dict(d).to_dict() == d
 
 
 def test_restarts_merge_seed_runs(evaluator):

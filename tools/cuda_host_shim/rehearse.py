@@ -115,14 +115,15 @@ def ssd_scan(lib, b, t, h, p, n, chunk, seed):
     return ok
 
 
-def pareto_rank(lib, n, m, infeas, seed, bp=2048, bq=256, alive=True):
-    """Both Pareto kernels against their plain versions, bit for bit."""
+def pareto_rank(lib, n, m, infeas, seed, alive=True):
+    """Both Pareto kernels against their plain versions, bit for bit, at
+    the kernels' fixed tiles."""
     F, CV = edge_population(n, m, infeas, seed)
     mask = torch.from_numpy(np.random.default_rng(seed).random(n) < 0.5)
     words = torch.full(((n + 31) // 32, n), -1, dtype=torch.int32)
     code = lib.packed_domination_launch(
         F.data_ptr(), CV.data_ptr(), n, F.data_ptr(), CV.data_ptr(), n, m,
-        bp, bq, words.data_ptr(), None)
+        words.data_ptr(), None)
     ok = code == 0 and torch.equal(words, ref.packed_domination(F, CV, F, CV))
     for rows in ((torch.ones(n, dtype=torch.bool), mask) if alive
                  else (torch.ones(n, dtype=torch.bool),)):
@@ -133,7 +134,7 @@ def pareto_rank(lib, n, m, infeas, seed, bp=2048, bq=256, alive=True):
             CV.data_ptr(), n, m, counts.data_ptr(), None)
         ok &= code == 0 and torch.equal(
             counts, ref.domination_counts(F, CV, rows))
-    print(f"pareto_rank n {n} m {m} infeasible {infeas} bp {bp} bq {bq}: "
+    print(f"pareto_rank n {n} m {m} infeasible {infeas}: "
           f"{'bit-exact' if ok else 'FAILED'}", flush=True)
     return ok
 
@@ -223,8 +224,8 @@ def main() -> int:
     ssd = build(CSRC / "ssd_scan.cu", out / "ssd_scan.so")
     ssd.ssd_scan_launch.argtypes = [p_] * 10 + [i_] * 6 + [p_]
     pr = build(CSRC / "pareto_rank.cu", out / "pareto_rank.so")
-    pr.packed_domination_launch.argtypes = [p_, p_, i_, p_, p_] + [i_] * 4 + [
-        p_, p_]
+    pr.packed_domination_launch.argtypes = [p_, p_, i_, p_, p_, i_, i_, p_,
+                                            p_]
     pr.domination_counts_launch.argtypes = [p_, p_, p_, i_, p_, p_, i_, i_,
                                             p_, p_]
     pr.peel_fronts_launch.argtypes = [p_, p_, i_, i_, p_, p_, p_, p_]
@@ -241,10 +242,8 @@ def main() -> int:
            quant_matmul(qm, 5, 96, 64, 2, seed=10, w_offset=8, x_offset=1)]
     ok += [pareto_rank(pr, n, 3, infeas, seed=n)
           for n in (33, 97, 130) for infeas in (0.0, 0.3, 1.0)]
-    ok += [pareto_rank(pr, n, m, 0.3, seed=m, bp=bp, bq=bq)
-           for n, m, bp, bq in ((100, 1, 32, 32), (130, 2, 64, 96),
-                                (70, 5, 96, 1024), (97, 8, 128, 64),
-                                (1100, 3, 1024, 256))]
+    ok += [pareto_rank(pr, n, m, 0.3, seed=m)
+           for n, m in ((100, 1), (130, 2), (70, 5), (97, 8), (1100, 3))]
     ok += [pareto_rank(pr, 4099, 3, 0.3, seed=1, alive=False)]
     ok += [peel_fronts(pr, n, m, 0.3, seed=n + m, mask=mask, cap=cap)
            for n, m in ((33, 3), (97, 1), (130, 8), (300, 3))
