@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22), and prints the
+those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22, 23), and prints the
 kernels line of the records they make (their launches 0 unless a listed
 phase counts them: phase 3 for phase 1's).
 
@@ -254,10 +254,21 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     against the model's forward through the plain scan; then the same
     cut with its stages fake-quantized at the benchmark cell's 16/16/8/8
     bits and the links at theirs (36 launches again, finite logits, the
-    top-1's agreement with the float forward printed).
+    top-1's agreement with the float forward printed), the fake-quant
+    kernel pair's launches counted (two a quantized stage and two a link);
+23. holds the per-tensor fake-quantization kernel pair (K7) against the
+    chain of ATen ops it replaces, bit for bit, on all 82 weight tensors
+    of the full-size EfficientNet-B0 at 16 and 8 bits, symmetric and
+    affine, and on one of granite-4.0-h-micro's stacked leaves (the 20
+    MLPs' up-projections of a stage, 1.3 GB), and times kernel, plain
+    chain and bytes bound at the CNN oracle's four stages of one cut
+    vector, at the whole model and at the stacked leaf; then scores one
+    cut vector of the oracle (256 images at 224, stages at 16/16/8/8 bits)
+    with K7's launches read: two a stage and two a link, every tensor
+    through K7.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 22),
+card's name and power limit (also beside every time of phases 6 to 23),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -1812,15 +1823,16 @@ def campaign_path(dev, card, main_res):
 
 
 def all_kernels():
-    """The six kernels' wrappers by name."""
-    from repro_torch.kernels import (pareto_rank, quant_matmul, ssd_scan,
-                                     window_attn)
+    """The seven kernels' wrappers by name."""
+    from repro_torch.kernels import (fake_quant, pareto_rank, quant_matmul,
+                                     ssd_scan, window_attn)
     return {"packed_domination": pareto_rank.packed_domination,
             "domination_counts": pareto_rank.domination_counts,
             "peel_fronts": pareto_rank.peel_fronts,
             "quant_matmul": quant_matmul.quant_matmul,
             "ssd_scan": ssd_scan.ssd_scan,
-            "window_attn": window_attn.window_attn}
+            "window_attn": window_attn.window_attn,
+            "fake_quant_tensors": fake_quant.fake_quant_tensors}
 
 
 def first_vs_rest(times, first):
@@ -2191,14 +2203,18 @@ def fakequant_path(dev, card, kernels):
     assert acc_qat >= acc_q - 0.02, (acc_qat, acc_q)
     assert acc_qat >= 0.9 * acc_q, (acc_qat, acc_q)
     launches = {name: k.launches for name, k in kernels.items()}
-    assert all(v == 0 for v in launches.values()), launches
-    print(f"cnn_fakequant training, scoring and QAT: launches {launches}")
+    fq = launches.pop("fake_quant_tensors")
+    assert fq > 0 and all(v == 0 for v in launches.values()), (fq, launches)
+    print(f"cnn_fakequant training, scoring and QAT: launches {launches}, "
+          f"fake_quant_tensors (K7: stage weights, links, QAT's forwards) "
+          f"{fq}")
 
 
 def train_phase(dev, card):
     """Phase 13: the training side at full width, every kernel's launches
     counted over the phase (0 in every train step; K1/K2 only in the
-    search that picks the oracle's cut vectors)."""
+    search that picks the oracle's cut vectors; K7 in the oracle's
+    scoring and QAT's fake-quantized forwards)."""
     kernels = all_kernels()
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -2325,6 +2341,9 @@ def quant_lm_path(dev, card, cuts):
           f"max_abs_err {step_err:.3e} (bound {LOGIT_TOL}); launches "
           f"{launches}; peak device memory {peak:.2f} GiB [{card}]")
     assert step_err <= LOGIT_TOL, step_err
+    # K7: one launch pair a quantized stage (its stacked leaves) and a link
+    fq = launches.pop("fake_quant_tensors")
+    assert fq == 2 * (2 * q.n_stages - 1), (fq, q.n_stages)
     assert all(v == 0 for v in launches.values()), launches
 
 
@@ -3470,7 +3489,7 @@ def granite_phase(dev, card, records):
     float and fake-quantized, with the scan kernel's launches read; fills
     in (or makes) the scan kernel's record at its shape."""
     from repro_torch.core.quant import QuantSpec
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import fake_quant, ssd_scan
     from repro_torch.models.registry import build_model, get_config
     from repro_torch.serving import PartitionedLMRunner
 
@@ -3509,25 +3528,194 @@ def granite_phase(dev, card, records):
         assert launches == mamba, launches
         assert err <= GRANITE_TOL, err
         ssd_scan.ssd_scan.launches = 0
+        fake_quant.fake_quant_tensors.launches = 0
         (logits, rep), q_s = timed(lambda: PartitionedLMRunner(
             model, GRANITE_CUTS, specs, link_quant=True,
             impl="cuda").forward(batch))
         q_launches = ssd_scan.ssd_scan.launches
+        fq = fake_quant.fake_quant_tensors.launches
         agree = float((logits.argmax(-1) == top1).double().mean())
         finite = bool(torch.isfinite(logits).all())
         del logits, top1
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     print(f"granite fake-quantized: stages at {GRANITE_BITS} bits, links "
           f"fake-quantized ({len(rep.link_bytes)} links), quantized and run "
-          f"in {q_s:.3f} s ({q_launches} launches); top-1 agreement with "
-          f"the float forward {agree:.4f}; peak device memory {peak:.2f} "
-          f"GiB [{card}]")
+          f"in {q_s:.3f} s ({q_launches} launches, K7 {fq}: two a stage "
+          f"and two a link); top-1 agreement with the float forward "
+          f"{agree:.4f}; peak device memory {peak:.2f} GiB [{card}]")
     assert q_launches == mamba and finite, (q_launches, finite)
+    n_stages = len(rep.latency_s)
+    assert fq == 2 * (2 * n_stages - 1), (fq, n_stages)
     rec["launches"] = launches
     rec["launches_in"] = (
         f"phase 22's partitioned forward ({launches}, one a Mamba2 mixer) "
         f"and its fake-quantized forward ({q_launches})")
     del model
+    torch.cuda.empty_cache()
+
+
+# phase 23: K7 at the CNN oracle's stage shapes, the four stages of the
+# EfficientNet-B0 cut after blocks FQ_BLOCK_CUTS, and at one granite
+# stage's stacked leaf, its 20 MLPs' up-projections; then one scored cut
+# vector of the oracle (the cell's 256 images at 224) at the schedule's
+# positions FQ_CUTS
+FQ_BLOCK_CUTS = (3, 9, 14)
+FQ_GRANITE_LEAF = (20, 2048, 8192)
+FQ_IMAGES = 256
+FQ_CUTS = (20, 90, 150)
+
+
+def fake_quant_bytes(xs):
+    """K7's bytes bound of a call: each input read once and each output
+    written once (the kernel reads its inputs twice)."""
+    return 8 * sum(x.numel() for x in xs)
+
+
+def kernel_device_ms(fn, per_call, test):
+    """Device milliseconds a call of ``fn()`` spends in the kernels whose
+    names pass ``test`` (``per_call`` launches of them a call), and the
+    device milliseconds of all its kernels, from a ``torch.profiler`` trace
+    of a few calls after one warm-up: ``(None, None)`` when the trace holds
+    no such kernel (it then prints the kernels it holds).  Calls are
+    counted by the launches the trace holds (it may miss the first)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    mine = [e for e in kernels if test(e.key)]
+    if not mine:
+        print(f"  no such kernel in the trace; it holds "
+              f"{[(e.key[:60], e.count) for e in kernels[:8]]}")
+        return None, None
+    calls = sum(e.count for e in mine) / per_call
+    return (sum(e.self_device_time_total for e in mine) / 1e3 / calls,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / calls)
+
+
+def is_k7(name):
+    return "fake_quant_range_kernel" in name or \
+        "fake_quant_apply_kernel" in name
+
+
+def fake_quant_phase(dev, card, records):
+    """Phase 23: the fake-quant kernel pair (K7) bit for bit against the
+    ATen chain, timed beside the plain chain and its bytes bound at the
+    CNN oracle's stages and at a granite stacked leaf; one scored oracle
+    vector with K7's launches read.  Appends K7's record."""
+    from repro_torch.core.graph import linearize
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import fake_quant, ops
+    from repro_torch.models.cnn.zoo import build_cnn
+    from repro_torch.obs import Obs
+    from repro_torch.quantize.evaluate import (cnn_measured_accuracy,
+                                               partition_plan)
+
+    model = build_cnn("efficientnet_b0").init_weights(
+        torch.Generator(device=dev).manual_seed(SEED), dev).eval()
+    ws = [p.detach() for p in model.parameters() if p.dim() > 1]
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    leaf = torch.randn(FQ_GRANITE_LEAF, generator=g, device=dev) * 0.02
+    specs = (QuantSpec(16), QuantSpec(8), QuantSpec(8, symmetric=False))
+    for xs, what in ((ws, "EfficientNet-B0's 82 weight tensors"),
+                     ([leaf], f"a stacked leaf {FQ_GRANITE_LEAF}")):
+        for spec in specs:
+            got = ops.fake_quant_tensors(xs, spec, impl="cuda")
+            want = ops.fake_quant_tensors(xs, spec, impl="ref")
+            assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want)), (what, spec)
+            del got, want
+        print(f"fake_quant: {what} bit for bit the ATen chain at (bits, "
+              f"symmetric) {[(s.bits, s.symmetric) for s in specs]}")
+
+    bounds = [0] + [c + 1 for c in FQ_BLOCK_CUTS] + [len(model.blocks)]
+    stages = [[p.detach() for _, b in model.blocks[a:z]
+               for p in b.parameters() if p.dim() > 1]
+              for a, z in zip(bounds, bounds[1:])]
+    spec = QuantSpec(8)
+    rows = []
+    for what, xs in ([(f"stage {i} ({len(xs)} tensors, "
+                       f"{sum(x.numel() for x in xs)} floats)", xs)
+                      for i, xs in enumerate(stages)]
+                     + [("the whole model (82 tensors)", ws),
+                        (f"granite stacked leaf {FQ_GRANITE_LEAF}",
+                         [leaf])]):
+        ms = cuda_ms(lambda: ops.fake_quant_tensors(xs, spec, impl="cuda"),
+                     20)
+        plain = cuda_ms(lambda: ops.fake_quant_tensors(xs, spec,
+                                                       impl="ref"), 5)
+        b_ms, b_by = bound(fake_quant_bytes(xs), 0)
+        dev_ms, _ = kernel_device_ms(
+            lambda: ops.fake_quant_tensors(xs, spec, impl="cuda"),
+            2 * -(-len(xs) // fake_quant.MAX_TENSORS), is_k7)
+        rows.append((ms, plain, b_ms, dev_ms))
+        share = ("not measured" if dev_ms is None
+                 else f"{100 * b_ms / dev_ms:.1f} %")
+        print(f"  fake_quant {what}: kernel {ms:.4f} ms a call (host "
+              f"included), its kernels' device time "
+              f"{dev_ms if dev_ms is None else round(dev_ms, 4)} ms, plain "
+              f"chain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), roofline "
+              f"share (bound / device time) {share} [{card}]")
+    del leaf
+
+    # one scored vector of the oracle, every stage quantized
+    schedule = linearize(model.to_graph(), "min_memory")
+    qspecs = [QuantSpec(b) for b in (16, 16, 8, 8)]
+    x = torch.randn((FQ_IMAGES, 3, 224, 224), generator=g, device=dev)
+    y = torch.zeros(FQ_IMAGES, dtype=torch.int64, device=dev)
+    obs = Obs.on()
+    measure = cnn_measured_accuracy(model, schedule, x, y, qspecs, obs=obs)
+    n_stages = len(partition_plan(model, schedule, FQ_CUTS, qspecs)[1])
+    fake_quant.fake_quant_tensors.launches = 0
+    _, vec_s = timed(lambda: measure(FQ_CUTS))
+    launches = fake_quant.fake_quant_tensors.launches
+    counts = obs.metrics.snapshot()
+    print(f"fake_quant: one oracle vector at cuts {FQ_CUTS} ({n_stages} "
+          f"stages, {FQ_IMAGES} images) in {vec_s:.3f} s: K7 launches "
+          f"{launches}, tensors fake_quant_tensors.cuda "
+          f"{counts.get('fake_quant_tensors.cuda')}, .ref "
+          f"{counts.get('fake_quant_tensors.ref', 0)} [{card}]")
+    assert launches == 2 * (2 * n_stages - 1), (launches, n_stages)
+    assert counts["fake_quant_tensors.cuda"] == 82 + n_stages - 1, counts
+    assert "fake_quant_tensors.ref" not in counts, counts
+    # the same vector under the profiler, each call a new measure (a cut
+    # vector is scored once a measure): K7's device time beside the rest
+    vec_k7, vec_all = kernel_device_ms(
+        lambda: cnn_measured_accuracy(model, schedule, x, y, qspecs)(FQ_CUTS),
+        launches, is_k7)
+    print(f"fake_quant: the oracle vector's device time: K7 "
+          f"{vec_k7 if vec_k7 is None else round(vec_k7, 4)} ms of "
+          f"{vec_all if vec_all is None else round(vec_all, 4)} ms, the "
+          f"bytes bound of its weights {rows[-2][2]:.4f}"
+          f" ms [{card}]")
+    n_stage = len(stages)
+    records.append(dict(
+        name="fake_quant_tensors", route="cuda",
+        source="src/repro_torch/kernels/csrc/fake_quant.cu",
+        replaces="none (src/repro/core/quant.py's chain, fused by XLA)",
+        shape=f"EfficientNet-B0's 82 weight tensors (5,236,192 floats) at "
+              f"8 bits; its stages after blocks {FQ_BLOCK_CUTS}: kernel "
+              f"{[round(r[0], 4) for r in rows[:n_stage]]} ms (device "
+              f"{[r[3] and round(r[3], 4) for r in rows[:n_stage]]}), plain "
+              f"{[round(r[1], 4) for r in rows[:n_stage]]} ms; granite "
+              f"leaf {FQ_GRANITE_LEAF}: kernel {rows[-1][0]:.4f} ms (device "
+              f"{rows[-1][3] and round(rows[-1][3], 4)}), plain "
+              f"{rows[-1][1]:.4f} ms, bound {rows[-1][2]:.4f} ms; one "
+              f"oracle vector: K7 {vec_k7 and round(vec_k7, 4)} ms of the "
+              f"device's {vec_all and round(vec_all, 4)} ms",
+        launches=launches,
+        launches_in=f"one oracle vector ({launches}: two a stage and two "
+                    f"a link, {n_stages} stages)",
+        max_abs_err=0.0, ms=rows[n_stage][0], plain_ms=rows[n_stage][1],
+        bound_ms=rows[n_stage][2], bound_by="bytes", library_ms=None,
+        device_ms=rows[n_stage][3]))
+    del model, ws, stages, x
     torch.cuda.empty_cache()
 
 
@@ -3542,6 +3730,7 @@ ALONE = {
     "20": lambda dev, card, records: analyzer_phase(card),
     "21": lambda dev, card, records: examples_phase(dev, card),
     "22": granite_phase,
+    "23": fake_quant_phase,
 }
 
 
@@ -3583,7 +3772,7 @@ def main(argv=None) -> int:
 
 
 def all_phases(dev, card):
-    """Phases 1-22; the kernels' records."""
+    """Phases 1-23; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
@@ -3613,6 +3802,7 @@ def all_phases(dev, card):
     analyzer_phase(card)
     examples_phase(dev, card)
     granite_phase(dev, card, records)
+    fake_quant_phase(dev, card, records)
     return records
 
 
@@ -3629,13 +3819,16 @@ def report(records):
                f"; float32 CUDA-core bound {r['bound_f32_ms']:.4f} ms")
         if r.get("front_floor_ms") is not None:
             f32 += (f"; the fronts' order {r['front_floor_ms']:.4f} ms")
+        if r.get("device_ms") is not None:
+            f32 += f"; the kernels' device time {r['device_ms']:.4f} ms"
         print(f"{r['name']}: {r['shape']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}{f32}), library {lib}, launches {launches}, "
               f"max_abs_err {r['max_abs_err']}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "bound_f32_ms",
-            "front_floor_ms", "library_ms", "launches_in", "design")
+            "front_floor_ms", "library_ms", "launches_in", "design",
+            "device_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in records]}))
 

@@ -11,15 +11,30 @@ The partitioner reads only :class:`QuantSpec`'s bit width (bytes per
 parameter, bytes per link element, proxy-accuracy noise); the functions
 below run the partitioned, fake-quantized model (``serving.pipeline``,
 ``quantize.evaluate``).
+
+The route of a fake quantization depends on the spec alone
+(:func:`quantize_tensors`): per tensor by min/max, a whole list of
+tensors goes to ``kernels.ops.fake_quant_tensors``, on the card one
+hand-written kernel pair (K7, float32 tensors) bit for bit the chain
+below, on the CPU the chain itself; per channel or by percentile, the
+chain on every device.  The chain's ops are ``kernels.ref``'s
+(:func:`compute_scale_zp`, :func:`fake_quant`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from repro_torch.kernels import ops as _kops
+from repro_torch.kernels import ref as _kref
+from repro_torch.obs import NOOP_OBS, Obs
+
+# counters .cuda / .ref: tensors fake-quantized, by route (K7, the chain)
+FAKE_QUANT_TENSORS = "fake_quant_tensors"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,26 +59,17 @@ class QuantSpec:
 
 def compute_scale_zp(lo: torch.Tensor, hi: torch.Tensor,
                      spec: QuantSpec) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scale and zero-point from calibrated ranges."""
-    if spec.symmetric:
-        amax = torch.maximum(lo.abs(), hi.abs())
-        scale = torch.clamp_min(amax / spec.qmax, 1e-12)
-        zp = torch.zeros_like(scale)
-    else:
-        lo = torch.clamp_max(lo, 0.0)
-        hi = torch.clamp_min(hi, 0.0)
-        scale = torch.clamp_min((hi - lo) / (spec.qmax - spec.qmin), 1e-12)
-        zp = torch.round(spec.qmin - lo / scale)
-    return scale, zp
+    """Scale and zero-point from calibrated ranges
+    (``kernels.ref.scale_zp``)."""
+    return _kref.scale_zp(lo, hi, spec)
 
 
 def fake_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
                spec: QuantSpec) -> torch.Tensor:
     """Quantize→dequantize with straight-through gradients (QAT-ready):
-    the value is the dequantized one, the gradient the identity."""
-    q = torch.clamp(torch.round(x / scale + zp), spec.qmin, spec.qmax)
-    dq = (q - zp) * scale
-    return x + (dq - x).detach()
+    the value is the dequantized one, the gradient the identity
+    (``kernels.ref.fake_quant``)."""
+    return _kref.fake_quant(x, scale, zp, spec)
 
 
 def _percentile(x: torch.Tensor, q: float, dim: Optional[int] = None
@@ -114,12 +120,41 @@ def calibrate(x: torch.Tensor, spec: QuantSpec,
     return _percentile(x, 100 - percentile), _percentile(x, percentile)
 
 
+def quantize_tensors(xs: Sequence[torch.Tensor], spec: QuantSpec,
+                     percentile: Optional[float] = None,
+                     channel_axes: Optional[Sequence[int]] = None,
+                     obs: Obs = NOOP_OBS) -> List[torch.Tensor]:
+    """Calibrate + fake-quant each of ``xs`` on its own range: the one
+    place that picks the route, by ``spec`` and ``percentile`` alone.  Per
+    tensor by min/max, all of ``xs`` in one ``kernels.ops.fake_quant_tensors``
+    call (on the card the kernel pair K7, which takes float32 tensors or
+    raises; on the CPU the chain); per channel (along ``channel_axes[i]``,
+    ``spec.channel_axis`` when None) or by percentile, the chain on each,
+    on every device.  With ``obs`` on, the tensors are counted by the route
+    they took, ``fake_quant_tensors.cuda`` (K7) or ``.ref`` (the chain)."""
+    if not xs:
+        return []
+    if spec.per_channel or percentile is not None:
+        route, out = "ref", []
+        for i, x in enumerate(xs):
+            s = (spec if channel_axes is None or not spec.per_channel else
+                 dataclasses.replace(spec, channel_axis=channel_axes[i]))
+            scale, zp = compute_scale_zp(*calibrate(x, s, percentile), s)
+            out.append(fake_quant(x, scale, zp, s))
+    else:
+        route = _kops.resolve_impl("auto", xs[0])
+        out = _kops.fake_quant_tensors(xs, spec, impl=route)
+    if obs.enabled:
+        obs.metrics.counter(f"{FAKE_QUANT_TENSORS}.{route}").inc(len(xs))
+    return out
+
+
 def quantize_tensor(x: torch.Tensor, spec: QuantSpec,
-                    percentile: Optional[float] = None) -> torch.Tensor:
-    """One-shot calibrate + fake-quant (weights, and link activations)."""
-    lo, hi = calibrate(x, spec, percentile)
-    scale, zp = compute_scale_zp(lo, hi, spec)
-    return fake_quant(x, scale, zp, spec)
+                    percentile: Optional[float] = None,
+                    obs: Obs = NOOP_OBS) -> torch.Tensor:
+    """One-shot calibrate + fake-quant (weights, and link activations):
+    :func:`quantize_tensors` of ``x`` alone."""
+    return quantize_tensors([x], spec, percentile, obs=obs)[0]
 
 
 class ActObserver:
@@ -159,13 +194,49 @@ def quantize_leaf(t: torch.Tensor, spec: QuantSpec,
     """The reference's ``quantize_pytree`` rule on one leaf: a float leaf
     of two or more dimensions is fake-quantized (per channel along
     ``channel_axis``, its last axis when None), any other is kept."""
-    if t.dim() <= 1 or not t.is_floating_point():
-        return t
-    if spec.per_channel:
-        spec = dataclasses.replace(
-            spec, channel_axis=t.dim() - 1 if channel_axis is None
-            else channel_axis)
-    return quantize_tensor(t, spec, percentile)
+    return quantize_leaves([t], spec, percentile, [channel_axis])[0]
+
+
+def quantize_leaves(ts: Sequence[torch.Tensor], spec: QuantSpec,
+                    percentile: Optional[float] = None,
+                    channel_axes: Optional[Sequence[Optional[int]]] = None,
+                    obs: Obs = NOOP_OBS) -> List[torch.Tensor]:
+    """:func:`quantize_leaf` of each of ``ts`` (``channel_axes[i]`` the
+    channel axis of ``ts[i]``), the leaves it quantizes in one
+    :func:`quantize_tensors` call: per tensor by min/max on the card, one
+    launch pair of K7 for all of them."""
+    axes = channel_axes or [None] * len(ts)
+    idx = [i for i, t in enumerate(ts)
+           if t.dim() > 1 and t.is_floating_point()]
+    out = list(ts)
+    for i, q in zip(idx, quantize_tensors(
+            [ts[i] for i in idx], spec, percentile,
+            [ts[i].dim() - 1 if axes[i] is None else axes[i] for i in idx],
+            obs)):
+        out[i] = q
+    return out
+
+
+def quantize_modules(modules: Sequence[nn.Module], spec: QuantSpec,
+                     percentile: Optional[float] = None, obs: Obs = NOOP_OBS
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """:func:`quantize_pytree` of each of ``modules`` (a stage's blocks),
+    their leaves in one :func:`quantize_leaves` call (``obs`` counts them,
+    :func:`quantize_tensors`)."""
+    owners, names, leaves, axes = [], [], [], []
+    for k, module in enumerate(modules):
+        for mname, mod in module.named_modules():
+            for pname, p in mod.named_parameters(recurse=False):
+                owners.append(k)
+                names.append(f"{mname}.{pname}" if mname else pname)
+                leaves.append(p)
+                axes.append(reference_channel_axis(mod, p))
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in modules]
+    for k, name, q in zip(owners, names,
+                          quantize_leaves(leaves, spec, percentile, axes,
+                                          obs)):
+        out[k][name] = q
+    return out
 
 
 def quantize_pytree(module: nn.Module, spec: QuantSpec,
@@ -178,15 +249,10 @@ def quantize_pytree(module: nn.Module, spec: QuantSpec,
     standard practice and what integer accelerators do (bias is accumulated
     at full precision); buffers (BatchNorm running statistics) are state,
     not parameters, and are not returned.  Per channel, each parameter is
-    quantized along :func:`reference_channel_axis`.
+    quantized along :func:`reference_channel_axis`.  Per tensor by
+    min/max, all of them in one :func:`quantize_tensors` call.
     """
-    out: Dict[str, torch.Tensor] = {}
-    for mname, mod in module.named_modules():
-        for pname, p in mod.named_parameters(recurse=False):
-            name = f"{mname}.{pname}" if mname else pname
-            out[name] = quantize_leaf(p, spec, percentile,
-                                      reference_channel_axis(mod, p))
-    return out
+    return quantize_modules([module], spec, percentile)[0]
 
 
 def quantization_error(x: torch.Tensor, spec: QuantSpec) -> float:

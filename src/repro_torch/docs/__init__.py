@@ -49,7 +49,7 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     )),
     ("repro_torch.kernels.ops", (
         "packed_domination", "domination_counts", "window_attn", "ssd_scan",
-        "quant_matmul",
+        "quant_matmul", "fake_quant_tensors",
     )),
     ("repro_torch.serve", (
         "SlotScheduler", "PipelineServeEngine", "ReplicaRouter", "Request",

@@ -1,5 +1,5 @@
-"""Kernel dispatch for the Pareto-ranking, attention, SSD-scan and
-fake-quant product primitives.
+"""Kernel dispatch for the Pareto-ranking, attention, SSD-scan,
+fake-quant product and per-tensor fake-quantization primitives.
 
 ``impl`` resolution: ``'cuda'`` launches the hand-written kernel (the
 tensors must lie on a CUDA device, else it raises), ``'ref'`` runs the
@@ -9,10 +9,11 @@ picks the kernel for a CUDA tensor and ``ref`` for a CPU tensor.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import pareto_rank as _kern
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref as _ref
@@ -146,3 +147,23 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if resolve_impl(impl, x) == "ref":
         return _ref.quant_matmul(x, w_q, w_scale, x_scale)
     return _qm.quant_matmul(x, w_q, w_scale, x_scale)
+
+
+# -- fake_quant -------------------------------------------------------------------
+
+def fake_quant_tensors(xs: Sequence[torch.Tensor], spec, *,
+                       impl: str = "auto") -> List[torch.Tensor]:
+    """Each of ``xs`` (float32, one device) fake-quantized per tensor by
+    its own min/max range under ``spec`` (a ``QuantSpec``, not per
+    channel), bit for bit ``core.quant``'s chain.  The kernel pair takes
+    the whole list in two launches a batch of ``fake_quant.MAX_TENSORS``;
+    with grad enabled on an input that requires it, under
+    ``fake_quant.StraightThrough`` (identity gradient).  ``ref`` keeps
+    the straight-through form of the chain itself."""
+    if not xs:
+        return []
+    if resolve_impl(impl, xs[0]) == "ref":
+        return _ref.fake_quant_tensors(xs, spec)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return list(_fq.StraightThrough.apply(spec, *xs))
+    return _fq.fake_quant_tensors(xs, spec)

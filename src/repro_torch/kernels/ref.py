@@ -18,7 +18,11 @@ SSD half: :func:`ssd_scan`, the Mamba2 chunked scan that
 without the D skip.
 
 Quantized half: :func:`quant_matmul`, the fake-quant int8 product that
-``kernels/csrc/quant_matmul.cu`` computes in integers, here in float32.
+``kernels/csrc/quant_matmul.cu`` computes in integers, here in float32;
+:func:`fake_quant_tensors`, the per-tensor fake quantization that
+``kernels/csrc/fake_quant.cu`` computes for many tensors in two launches,
+here the chain of ATen ops on each tensor (:func:`scale_zp` and
+:func:`fake_quant`, which ``core.quant`` calls on every route).
 """
 
 from __future__ import annotations
@@ -230,3 +234,43 @@ def quant_matmul(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     xq = torch.clamp(torch.round(x / x_scale), -128, 127)
     acc = xq @ w_q.to(torch.float32)
     return acc * x_scale * w_scale[None, :]
+
+
+# -- fake_quant -------------------------------------------------------------------
+
+def scale_zp(lo: torch.Tensor, hi: torch.Tensor, spec
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scale and zero-point from calibrated ranges under ``spec`` (a
+    ``core.quant.QuantSpec``), the reference's ops in its order; ``lo`` and
+    ``hi`` scalars, or per channel of any shape."""
+    if spec.symmetric:
+        amax = torch.maximum(lo.abs(), hi.abs())
+        scale = torch.clamp_min(amax / spec.qmax, 1e-12)
+        zp = torch.zeros_like(scale)
+    else:
+        lo = torch.clamp_max(lo, 0.0)
+        hi = torch.clamp_min(hi, 0.0)
+        scale = torch.clamp_min((hi - lo) / (spec.qmax - spec.qmin), 1e-12)
+        zp = torch.round(spec.qmin - lo / scale)
+    return scale, zp
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
+               spec) -> torch.Tensor:
+    """Quantize→dequantize with straight-through gradients: the value is
+    the dequantized one, the gradient the identity."""
+    q = torch.clamp(torch.round(x / scale + zp), spec.qmin, spec.qmax)
+    dq = (q - zp) * scale
+    return x + (dq - x).detach()
+
+
+def fake_quant_tensors(xs, spec) -> list:
+    """Each of ``xs`` fake-quantized per tensor by its own min/max range
+    under ``spec`` (not per channel): min, max, :func:`scale_zp` and
+    :func:`fake_quant` on each, the ATen ops that K7 reproduces bit for
+    bit on the card."""
+    if spec.per_channel:
+        raise ValueError("fake_quant_tensors quantizes per tensor, not per "
+                         "channel")
+    return [fake_quant(x, *scale_zp(x.min(), x.max(), spec), spec)
+            for x in xs]

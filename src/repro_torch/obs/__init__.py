@@ -36,14 +36,20 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   ``PartitionedCNNRunner``; track ``oracle``): one ``oracle.measure`` a cut
   vector (``cuts``, ``cached``) holding one ``oracle.quantize`` a stage
   (``stage``, ``bits``, ``tensors``), one ``oracle.stage`` a stage, one
-  ``oracle.link`` a link fake-quant (``bytes``) and ``oracle.read``;
+  ``oracle.link`` a link fake-quant (``bytes``) and ``oracle.read``; the
+  counters ``fake_quant_tensors.cuda`` and ``fake_quant_tensors.ref`` (each
+  tensor the runner fake-quantizes, a stage's weights and each link's
+  activation, by the path it takes: the fake-quant kernel pair K7 or the
+  plain chain of ATen ops);
 * the LM oracle (``obs=`` of ``lm_measured_accuracy`` and, for the mixed
   family, ``PartitionedLMRunner``; track ``oracle``): the same spans, each
   ``oracle.stage`` with ``stage``, ``mamba`` and ``attention`` (the mixers
   it holds) and ``tokens``, the head in the last; the counters
   ``ssm_scan_calls.cuda`` and ``ssm_scan_calls.ref`` (each Mamba2 mixer's
   scan, by the path it takes: the SSD scan kernel or the plain chunked
-  scan) and ``oracle_positions`` (next-token positions scored);
+  scan), ``fake_quant_tensors.cuda`` and ``fake_quant_tensors.ref`` (each
+  stage's stacked leaves and each link, as the CNN runner counts them)
+  and ``oracle_positions`` (next-token positions scored);
 * ``OnlineRepartitioner``: its decisions (instants and counters).
 """
 

@@ -30,8 +30,8 @@ from torch.func import functional_call
 
 import torch.nn.functional as F
 
-from repro_torch.core.quant import (QuantSpec, quantize_leaf,
-                                    quantize_pytree, quantize_tensor)
+from repro_torch.core.quant import (QuantSpec, quantize_leaves,
+                                    quantize_modules, quantize_tensor)
 from repro_torch.models.decoder import (run_blocks, stacked_caches,
                                         step_positions)
 from repro_torch.nn.layers import rms_norm
@@ -41,7 +41,6 @@ from repro_torch.serving.engine import sync
 
 TRACK = "oracle"     # the partitioned runners' spans' track
 SSM_SCAN_CALLS = "ssm_scan_calls"   # counters .cuda / .ref: Mamba2 scans
-
 
 def def4_throughput(stage_latencies: Sequence[float],
                     link_latencies: Sequence[float] = ()) -> float:
@@ -83,18 +82,22 @@ class PartitionedCNNRunner:
 
     ``cuts=[b]`` puts a stage boundary after block ``b``.  A stage with a
     ``QuantSpec`` runs on fake-quantized copies of its blocks' parameters
-    (``quantize_pytree``; the model's own weights stay float), a stage
-    without one on the model's weights; BatchNorm statistics are the
-    model's buffers either way.  The activation leaving a quantized stage
-    is fake-quantized to its width (``quantize_tensor``, per tensor), as
-    it would cross the link.
+    (``quantize_modules``, one call a stage: on the card one launch pair
+    of K7 for all its blocks' leaves; the model's own weights stay float),
+    a stage without one on the model's weights; BatchNorm statistics are
+    the model's buffers either way.  The activation leaving a quantized
+    stage is fake-quantized to its width (``quantize_tensor``, per tensor:
+    K7 as a one-tensor call), as it would cross the link.
 
     ``obs`` (default off, :data:`~repro_torch.obs.NOOP_OBS`): switched on,
     the runner records on the ``oracle`` track one ``oracle.quantize`` a
     stage as it is built (``stage``, ``bits``: None for the model's own
     weights, ``tensors`` quantized), and in :meth:`run` one
     ``oracle.stage`` a stage (on the two clock reads that time it) and one
-    ``oracle.link`` a link fake-quant (``bytes``).
+    ``oracle.link`` a link fake-quant (``bytes``), and counts the tensors
+    it fake-quantizes, weights and links, in ``fake_quant_tensors.cuda``
+    (K7) or ``fake_quant_tensors.ref`` (the chain), by the route
+    :func:`~repro_torch.core.quant.quantize_tensors` takes.
     """
 
     def __init__(self, model, cuts: Sequence[int],
@@ -120,8 +123,9 @@ class PartitionedCNNRunner:
                                                    self.quant_specs)):
                 if obs.enabled:
                     t0 = time.perf_counter()
-                params = [None if spec is None else quantize_pytree(b, spec)
-                          for _, b in blocks]
+                params = ([None] * len(blocks) if spec is None
+                          else quantize_modules([b for _, b in blocks], spec,
+                                                obs=obs))
                 self.stage_params.append(params)
                 if obs.enabled:
                     obs.tracer.complete(
@@ -164,7 +168,7 @@ class PartitionedCNNRunner:
                 spec = self.quant_specs[i]
                 link_bytes.append(link_transfer_bytes(x.numel(), spec))
                 if spec is not None:
-                    x = quantize_tensor(x, spec)    # fake-quant over the link
+                    x = quantize_tensor(x, spec, obs=obs)   # over the link
                     if obs.enabled:
                         obs.tracer.complete(
                             "oracle.link", track=TRACK, start=t1,
@@ -185,24 +189,32 @@ class QuantizedBlock:
         return functional_call(self.block, self.params, (x,), kw)
 
 
-def quantized_units(units: Sequence[torch.nn.Module], spec: QuantSpec
-                    ) -> List[QuantizedBlock]:
+def quantized_units(units: Sequence[torch.nn.Module], spec: QuantSpec,
+                    obs: Obs = NOOP_OBS) -> List[QuantizedBlock]:
     """``units`` (blocks, or a mixed model's mixer and MLP units) on
     fake-quantized copies of their parameters, calibrated as the reference
     calibrates a stage: each parameter stacked over the units of its kind
     (their ``kind``) and quantized whole, so a per-tensor range spans all
     of them, and the stacked one-dimensional leaves (norm scales, now
-    (L, d)) are quantized too."""
+    (L, d)) are quantized too.  The stage's stacked leaves are quantized
+    in one :func:`~repro_torch.core.quant.quantize_leaves` call (one
+    launch pair of K7 on the card; ``obs`` counts them), so during it the
+    stage's stacks and the one buffer of their results are alive together,
+    twice the bytes of the stage's weights beside the model's own."""
     params: List[Dict[str, torch.Tensor]] = [{} for _ in units]
     by_kind: Dict[object, List[int]] = {}
     for i, u in enumerate(units):
         by_kind.setdefault(getattr(u, "kind", None), []).append(i)
+    slots, stacked = [], []
     for idx in by_kind.values():
         named = [dict(units[i].named_parameters()) for i in idx]
         for name in named[0]:
-            q = quantize_leaf(torch.stack([p[name] for p in named]), spec)
-            for i, t in zip(idx, q.unbind(0)):
-                params[i][name] = t
+            slots.append((idx, name))
+            stacked.append(torch.stack([p[name] for p in named]))
+    for (idx, name), q in zip(slots, quantize_leaves(stacked, spec,
+                                                     obs=obs)):
+        for i, t in zip(idx, q.unbind(0)):
+            params[i][name] = t
     return [QuantizedBlock(u, p) for u, p in zip(units, params)]
 
 
@@ -248,7 +260,9 @@ class PartitionedLMRunner:
     ``oracle.stage`` a stage (``stage``, ``mamba``, ``attention``: the
     mixers it holds, ``tokens``) and one ``oracle.link`` a link fake-quant
     (``bytes``), and counts each Mamba2 mixer's scan in
-    ``ssm_scan_calls.cuda`` (the kernel) or ``ssm_scan_calls.ref``.
+    ``ssm_scan_calls.cuda`` (the kernel) or ``ssm_scan_calls.ref`` and the
+    tensors it fake-quantizes, stacked leaves and links, in
+    ``fake_quant_tensors.cuda`` (K7) or ``fake_quant_tensors.ref``.
     """
 
     def __init__(self, model, cuts: Sequence[int],
@@ -278,7 +292,7 @@ class PartitionedLMRunner:
         with torch.no_grad():
             self._blocks = [
                 model.blocks[a:b] if spec is None
-                else quantized_units(model.blocks[a:b], spec)
+                else quantized_units(model.blocks[a:b], spec, self.obs)
                 for (a, b), spec in zip(self.ranges, self.quant_specs)]
 
     def _init_chain(self, quant_specs) -> None:
@@ -311,7 +325,7 @@ class PartitionedLMRunner:
                 if obs.enabled:
                     t0 = time.perf_counter()
                 blocks = (units[a:b] if spec is None
-                          else quantized_units(units[a:b], spec))
+                          else quantized_units(units[a:b], spec, obs))
                 self._blocks.append(blocks)
                 if obs.enabled:
                     obs.tracer.complete(
@@ -350,7 +364,7 @@ class PartitionedLMRunner:
                 spec = self.quant_specs[si]
                 link_bytes.append(link_transfer_bytes(x.numel(), spec))
                 if self.link_quant and spec is not None:
-                    x = quantize_tensor(x, spec)    # fake-quant over the link
+                    x = quantize_tensor(x, spec, obs=self.obs)  # the link
         return m.head_logits(x), StageReport(lat, link_bytes)
 
     def _forward_chain(self, batch) -> Tuple[torch.Tensor, StageReport]:
@@ -384,7 +398,7 @@ class PartitionedLMRunner:
                 spec = self.quant_specs[si]
                 link_bytes.append(link_transfer_bytes(x.numel(), spec))
                 if self.link_quant and spec is not None:
-                    x = quantize_tensor(x, spec)    # fake-quant over the link
+                    x = quantize_tensor(x, spec, obs=obs)   # over the link
                     if obs.enabled:
                         obs.tracer.complete(
                             "oracle.link", track=TRACK, start=t1,

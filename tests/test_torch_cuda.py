@@ -16,13 +16,18 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.nsga2_torch import (domination_matrix,  # noqa: E402
                                           nondominated_rank)
-from repro_torch.kernels import (ops, pareto_rank,  # noqa: E402
+from repro_torch.core.quant import (QuantSpec, calibrate,  # noqa: E402
+                                    compute_scale_zp, quantize_tensor,
+                                    quantize_tensors)
+from repro_torch.core.quant import fake_quant as fake_quant_chain  # noqa: E402
+from repro_torch.kernels import (fake_quant, ops, pareto_rank,  # noqa: E402
                                  quant_matmul, ref, ssd_scan, window_attn)
 from repro_torch import testing  # noqa: E402
 from repro_torch.models.decoder import DecoderLM  # noqa: E402
-from repro_torch.models.cnn.zoo import reduced_cnn  # noqa: E402
+from repro_torch.models.cnn.zoo import build_cnn, reduced_cnn  # noqa: E402
 from repro_torch.models.registry import build_model, get_config  # noqa: E402
 from repro_torch.serving import PartitionedCNNRunner  # noqa: E402
+from repro_torch.serving.pipeline import quantized_units  # noqa: E402
 
 SIZES = (33, 97, 130, 2049, 4096, 4099)
 
@@ -472,6 +477,191 @@ def test_quant_matmul_counts_launches_and_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="scalar"):
         quant_matmul.quant_matmul(x, w_q, w_scale, x_scale.repeat(2))
     assert quant_matmul.quant_matmul.launches == before + 1
+
+
+# -- fake_quant (K7) ----------------------------------------------------------------
+
+FQ_SPECS = [QuantSpec(16), QuantSpec(8), QuantSpec(8, symmetric=False)]
+FQ_IDS = ["sym16", "sym8", "affine8"]
+
+
+def effnet_b0(device):
+    """Full-size EfficientNet-B0 on weights drawn on the card."""
+    return build_cnn("efficientnet_b0").init_weights(
+        torch.Generator(device=device).manual_seed(0), device).eval()
+
+
+def assert_chain_bits(got, xs, spec):
+    """Each of ``got`` bit for bit (signed zeros too) what the ATen chain
+    gives on the card (``kernels.ref``, the kernel's plain version)."""
+    want = ref.fake_quant_tensors(xs, spec)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", FQ_SPECS, ids=FQ_IDS)
+def test_fake_quant_kernel_equals_aten_chain_on_effnet_b0(cuda_device, spec):
+    """All 82 weight tensors of EfficientNet-B0 in one call (one launch
+    pair), each on its own range, bit for bit the chain."""
+    ws = [p for p in effnet_b0(cuda_device).parameters() if p.dim() > 1]
+    assert len(ws) == 82
+    before = fake_quant.fake_quant_tensors.launches
+    got = fake_quant.fake_quant_tensors(ws, spec)
+    assert fake_quant.fake_quant_tensors.launches == before + 2
+    assert_chain_bits(got, ws, spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", FQ_SPECS, ids=FQ_IDS)
+def test_fake_quant_kernel_on_granite_stacked_leaves(cuda_device, spec):
+    """``quantized_units`` at granite's reduced size: each leaf stacked
+    over the units of its kind, quantized in one call a stage, bit for
+    bit the chain on the stacked leaf."""
+    cfg = get_config("granite-4.0-h-micro").reduced()
+    model = build_model(cfg, device=cuda_device, generator=torch.Generator(
+        device=cuda_device).manual_seed(0))
+    units = model.units()
+    before = fake_quant.fake_quant_tensors.launches
+    blocks = quantized_units(units, spec)
+    assert fake_quant.fake_quant_tensors.launches == before + 2
+    for kind in {u.kind for u in units}:
+        idx = [i for i, u in enumerate(units) if u.kind == kind]
+        named = [dict(units[i].named_parameters()) for i in idx]
+        for name in named[0]:
+            stacked = torch.stack([p[name] for p in named])
+            got = torch.stack([blocks[i].params[name] for i in idx])
+            assert_chain_bits([got], [stacked], spec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", FQ_SPECS, ids=FQ_IDS)
+def test_fake_quant_kernel_on_a_link_and_edge_tensors(cuda_device, spec):
+    """A link activation (one-tensor calls, as the runners make them), a
+    tensor past the kernel's 1024 blocks both aligned and starting off 16
+    bytes, all zeros, all -0.0, halves on the rounding edge, one element;
+    each alone and all in one call."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    dev = dict(device=cuda_device)
+    act = torch.relu(torch.randn((256, 40, 28, 28), generator=g, **dev))
+    big = torch.randn((3 << 22) + 5, generator=g, **dev)
+    xs = [act, big[1:].view(4, -1), big[:(3 << 22) + 4].view(-1, 4),
+          torch.zeros((32, 3, 3, 3), **dev),
+          torch.full((16, 8), -0.0, **dev),
+          (torch.arange(-1000, 1000, **dev) * 0.5 + 0.25).view(40, 50),
+          torch.full((1, 1), 0.3, **dev)]
+    before = fake_quant.fake_quant_tensors.launches
+    assert_chain_bits([quantize_tensor(x, spec) for x in xs], xs, spec)
+    assert fake_quant.fake_quant_tensors.launches == before + 2 * len(xs)
+    assert_chain_bits(fake_quant.fake_quant_tensors(xs, spec), xs, spec)
+
+
+@pytest.mark.cuda
+def test_fake_quant_kernel_chunks_long_lists(cuda_device):
+    """200 tensors: three launch pairs (96 tensors a pair)."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    xs = [torch.randn((3, 1 + i % 9), generator=g, device=cuda_device)
+          for i in range(200)]
+    before = fake_quant.fake_quant_tensors.launches
+    got = fake_quant.fake_quant_tensors(xs, QuantSpec(8))
+    assert fake_quant.fake_quant_tensors.launches == before + 6
+    assert_chain_bits(got, xs, QuantSpec(8))
+
+
+@pytest.mark.cuda
+def test_fake_quant_kernel_gradient_is_identity(cuda_device):
+    """Under ``torch.enable_grad()`` the kernel's outputs pass their
+    gradients to the inputs unchanged, as ``x + (dq - x).detach()``."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn((64, 32), generator=g, device=cuda_device,
+                    requires_grad=True)
+    b = torch.randn((7, 5), generator=g, device=cuda_device)
+    w = torch.randn((64, 32), generator=g, device=cuda_device)
+    x_ref = x.detach().clone().requires_grad_()
+    spec = QuantSpec(8)
+    before = fake_quant.fake_quant_tensors.launches
+    with torch.enable_grad():
+        y, z = ops.fake_quant_tensors([x, b], spec)
+        (y * w).sum().backward()
+        (ref.fake_quant_tensors([x_ref], spec)[0] * w).sum().backward()
+    assert fake_quant.fake_quant_tensors.launches == before + 2
+    assert y.requires_grad and not z.requires_grad
+    assert torch.equal(x.grad, w) and torch.equal(x_ref.grad, w)
+    assert_chain_bits([y.detach(), z], [x.detach(), b], spec)
+
+
+@pytest.mark.cuda
+def test_fake_quant_kernel_rejects_bad_inputs(cuda_device):
+    x = torch.randn((4, 4), device=cuda_device)
+    before = fake_quant.fake_quant_tensors.launches
+    with pytest.raises(TypeError, match="float32"):
+        fake_quant.fake_quant_tensors([x, x.double()], QuantSpec(8))
+    with pytest.raises(ValueError, match="per channel"):
+        fake_quant.fake_quant_tensors([x], QuantSpec(8, per_channel=True))
+    with pytest.raises(ValueError, match="empty"):
+        fake_quant.fake_quant_tensors([x, x[:0]], QuantSpec(8))
+    with pytest.raises(ValueError, match="is on"):
+        fake_quant.fake_quant_tensors([x, x.cpu()], QuantSpec(8))
+    assert fake_quant.fake_quant_tensors.launches == before
+    assert fake_quant.fake_quant_tensors([], QuantSpec(8)) == []
+
+
+@pytest.mark.cuda
+def test_quantize_tensor_refuses_non_float32_on_the_card(cuda_device):
+    """The route depends on the spec alone: a float64 CUDA tensor under a
+    per-tensor min/max spec goes to K7, which refuses it before any launch
+    (no fall back to the chain), alone or beside a float32 one; per
+    channel or by percentile the chain takes it as before."""
+    x = torch.randn((6, 5), device=cuda_device, dtype=torch.float64)
+    before = fake_quant.fake_quant_tensors.launches
+    with pytest.raises(TypeError, match="float32"):
+        quantize_tensor(x, QuantSpec(8))
+    with pytest.raises(TypeError, match="float32"):
+        quantize_tensors([x.float(), x], QuantSpec(8))
+    assert fake_quant.fake_quant_tensors.launches == before
+    per_channel = QuantSpec(8, per_channel=True)
+    lo, hi = calibrate(x, per_channel)
+    assert torch.equal(quantize_tensor(x, per_channel),
+                       fake_quant_chain(x, *compute_scale_zp(lo, hi,
+                                                             per_channel),
+                                        per_channel))
+    lo, hi = calibrate(x, QuantSpec(8), 99.0)
+    assert torch.equal(quantize_tensor(x, QuantSpec(8), 99.0),
+                       fake_quant_chain(x, *compute_scale_zp(lo, hi,
+                                                             QuantSpec(8)),
+                                        QuantSpec(8)))
+
+
+@pytest.mark.cuda
+def test_oracle_vector_runs_k7_twice_a_stage_and_a_link(cuda_device):
+    """One scored cut vector of the CNN oracle at full size, every stage
+    quantized: K7 launches 2 x (stages + links), and every tensor takes
+    it (``fake_quant_tensors.cuda``; no ``.ref``)."""
+    from repro_torch.core.graph import linearize
+    from repro_torch.obs import Obs
+    from repro_torch.quantize.evaluate import (cnn_measured_accuracy,
+                                               partition_plan)
+    torch.backends.cudnn.allow_tf32 = False
+    model = effnet_b0(cuda_device)
+    schedule = linearize(model.to_graph(), "min_memory")
+    specs = [QuantSpec(b) for b in (16, 16, 8, 8)]
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn((8, 3, 224, 224), generator=g, device=cuda_device)
+    y = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    obs = Obs.on()
+    measure = cnn_measured_accuracy(model, schedule, x, y, specs, obs=obs)
+    cuts = (20, 90, 150)
+    block_cuts, stage_specs = partition_plan(model, schedule, cuts, specs)
+    stages = len(stage_specs)
+    before = fake_quant.fake_quant_tensors.launches
+    measure(cuts)
+    assert fake_quant.fake_quant_tensors.launches == \
+        before + 2 * (stages + stages - 1)
+    snap = obs.metrics.snapshot()
+    assert snap["fake_quant_tensors.cuda"] == 82 + stages - 1
+    assert "fake_quant_tensors.ref" not in snap
 
 
 @pytest.mark.cuda

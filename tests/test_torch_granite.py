@@ -346,6 +346,26 @@ def test_runner_spans_and_counters(lm):
             if s.name == "oracle.measure"] == [False, True]
 
 
+def test_runner_counts_stacked_leaves_and_links_fake_quantized(lm):
+    """The mixed runner counts each stage's stacked leaves (one a
+    parameter of each unit kind it holds) and each link it fake-quantizes,
+    by route: on the CPU all take the chain (``fake_quant_tensors.ref``)."""
+    model, _, _ = lm
+    obs = Obs.on()
+    runner = PartitionedLMRunner(model, (0, 3, 4), SPECS, link_quant=True,
+                                 obs=obs)
+    runner.forward({"tokens": tokens(model.cfg)})
+    units = model.units()
+    leaves = sum(len(dict(next(units[i] for i in range(a, b)
+                               if units[i].kind == kind).named_parameters()))
+                 for a, b in runner.ranges
+                 for kind in {u.kind for u in units[a:b]})
+    assert leaves == 9 + 4 + 5 + 4 + 9 + 4
+    snap = obs.metrics.snapshot()
+    assert snap["fake_quant_tensors.ref"] == leaves + 3
+    assert "fake_quant_tensors.cuda" not in snap
+
+
 def test_runner_records_nothing_off(lm):
     model, _, _ = lm
     runner = PartitionedLMRunner(model, (0, 3, 4), SPECS, link_quant=True)

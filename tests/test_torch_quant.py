@@ -14,6 +14,7 @@ held to the reference's own ``rtol = atol = 1e-5``
 (``tests/test_kernels.py``)."""
 
 import dataclasses
+import collections
 
 import numpy as np
 import pytest
@@ -286,3 +287,172 @@ def test_quant_spec_fields_match_reference():
     for bits, sym in SPECS:
         js, ts = specs(bits, sym)
         assert (ts.qmin, ts.qmax) == (js.qmin, js.qmax)
+
+
+# -- the stage-wide entry and K7's plain version ------------------------------------
+
+FQ_SPECS = [tq.QuantSpec(16), tq.QuantSpec(8), tq.QuantSpec(8, symmetric=False),
+            tq.QuantSpec(8, per_channel=True)]
+FQ_IDS = ["sym16", "sym8", "affine8", "per_channel8"]
+
+
+@pytest.fixture(scope="module")
+def effnet_b0():
+    """Full-size EfficientNet-B0 on weights drawn on the CPU."""
+    from repro_torch.models.cnn.zoo import build_cnn
+    return build_cnn("efficientnet_b0").init_weights(
+        torch.Generator().manual_seed(0), torch.device("cpu")).eval()
+
+
+@pytest.mark.parametrize("spec", FQ_SPECS, ids=FQ_IDS)
+def test_quantize_modules_equals_quantize_leaf_on_effnet_b0(effnet_b0, spec):
+    """The stage-wide entry on all 19 blocks at once gives each block's
+    parameters exactly as ``quantize_leaf`` gives them one by one."""
+    blocks = [b for _, b in effnet_b0.blocks]
+    got = tq.quantize_modules(blocks, spec)
+    assert len(got) == len(blocks) == 19
+    for block, params in zip(blocks, got):
+        want = {}
+        for mname, mod in block.named_modules():
+            for pname, p in mod.named_parameters(recurse=False):
+                want[f"{mname}.{pname}" if mname else pname] = tq.quantize_leaf(
+                    p, spec, None, tq.reference_channel_axis(mod, p))
+        assert list(params) == list(want)
+        for name, w in want.items():
+            assert torch.equal(params[name], w), name
+            assert (params[name] is w) == (w.dim() <= 1)
+    assert sum(t.dim() > 1 for p in got for t in p.values()) == 82
+
+
+class _Spy:
+    """Counts the calls of ``kernels.ops.fake_quant_tensors`` (and the
+    tensors each takes), passing them on."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        self.real = ops.fake_quant_tensors
+        monkeypatch.setattr(tq._kops, "fake_quant_tensors", self)
+
+    def __call__(self, xs, spec, **kw):
+        self.calls.append(len(xs))
+        return self.real(xs, spec, **kw)
+
+
+def test_a_stage_is_one_call_and_per_channel_percentile_take_the_chain(
+        monkeypatch, effnet_b0):
+    """Per tensor by min/max a stage's leaves go to the kernel's dispatch
+    in one call (a link in a call of one); per channel and by percentile
+    they never reach it, on any device."""
+    spy = _Spy(monkeypatch)
+    blocks = [b for _, b in effnet_b0.blocks[:5]]
+    tq.quantize_modules(blocks, tq.QuantSpec(8))
+    x = torch.from_numpy(spread((6, 40), seed=3))
+    tq.quantize_tensor(x, tq.QuantSpec(8))
+    assert spy.calls == [sum(p.dim() > 1 for b in blocks
+                             for p in b.parameters()), 1]
+    spy.calls.clear()
+    tq.quantize_modules(blocks, tq.QuantSpec(8, per_channel=True))
+    tq.quantize_modules(blocks, tq.QuantSpec(8), percentile=99.9)
+    tq.quantize_tensor(x, tq.QuantSpec(8), percentile=99.0)
+    tq.quantize_tensor(x, tq.QuantSpec(8, per_channel=True))
+    assert spy.calls == []
+
+
+@pytest.mark.parametrize("route", ["cuda", "ref"])
+def test_the_route_and_its_count_depend_on_the_spec_alone(monkeypatch, route):
+    """``quantize_tensors`` picks the route from the spec alone: per tensor
+    by min/max, a list of any dtype goes to the kernel's dispatch in one
+    call with the impl the device resolves to, and is counted under that
+    impl; per channel or by percentile it takes the chain and is counted
+    ``.ref``, whatever the device."""
+    from repro_torch.kernels import ref
+    from repro_torch.obs import Obs
+    calls = []
+
+    def dispatch(xs, spec, *, impl):
+        calls.append((len(xs), impl))
+        return ref.fake_quant_tensors(xs, spec)
+
+    monkeypatch.setattr(tq._kops, "resolve_impl", lambda impl, x: route)
+    monkeypatch.setattr(tq._kops, "fake_quant_tensors", dispatch)
+    obs = Obs.on()
+    xs = [torch.from_numpy(spread((6, 40), seed=3)),
+          torch.from_numpy(spread((3, 5), seed=4)).double()]
+    tq.quantize_tensors(xs, tq.QuantSpec(8), obs=obs)
+    tq.quantize_tensor(xs[1], tq.QuantSpec(4, symmetric=False), obs=obs)
+    assert calls == [(2, route), (1, route)]
+    tq.quantize_tensors(xs, tq.QuantSpec(8, per_channel=True), obs=obs)
+    tq.quantize_tensor(xs[0], tq.QuantSpec(8), percentile=99.0, obs=obs)
+    assert len(calls) == 2
+    want = collections.Counter({f"{tq.FAKE_QUANT_TENSORS}.{route}": 3})
+    want[f"{tq.FAKE_QUANT_TENSORS}.ref"] += 3
+    assert obs.metrics.snapshot() == dict(want)
+
+
+@pytest.mark.parametrize("spec", FQ_SPECS[:3], ids=FQ_IDS[:3])
+def test_fake_quant_plain_version_is_the_chain(spec):
+    """``kernels.ref.fake_quant_tensors`` (K7's plain version, which
+    ``ops`` takes on the CPU) is ``core.quant``'s chain on each tensor, each
+    on its own range; per channel it refuses, and ``impl="cuda"`` needs a
+    CUDA tensor."""
+    from repro_torch.kernels import ref
+    xs = [torch.from_numpy(spread(s, seed=i)) for i, s in
+          enumerate(((3, 5), (7, 2, 3), (1, 1), (40, 30)))]
+    xs.append(torch.full((4, 4), -0.0))
+    for got in (ref.fake_quant_tensors(xs, spec),
+                ops.fake_quant_tensors(xs, spec),
+                tq.quantize_tensors(xs, spec)):
+        for g, x in zip(got, xs):
+            lo, hi = tq.calibrate(x, spec)
+            scale, zp = tq.compute_scale_zp(lo, hi, spec)
+            assert torch.equal(g.view(torch.int32),
+                               tq.fake_quant(x, scale, zp, spec).view(
+                                   torch.int32))
+    assert ops.fake_quant_tensors([], spec) == []
+    with pytest.raises(ValueError, match="per channel"):
+        ref.fake_quant_tensors(xs, tq.QuantSpec(8, per_channel=True))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.fake_quant_tensors(xs, spec, impl="cuda")
+
+
+def test_straight_through_function_gradient_is_identity():
+    """``fake_quant.StraightThrough`` (K7 under autograd; on the CPU its
+    forward is the plain version): the chain's values, the identity
+    gradient to the inputs that require one, none for the others."""
+    from repro_torch.kernels import fake_quant
+    spec = tq.QuantSpec(8)
+    x = torch.from_numpy(spread((6, 9), seed=4)).requires_grad_()
+    b = torch.from_numpy(spread((3, 3), seed=5))
+    w = torch.from_numpy(spread((6, 9), seed=6))
+    y, z = fake_quant.StraightThrough.apply(spec, x, b)
+    assert y.requires_grad and not z.requires_grad
+    (y * w).sum().backward()
+    assert torch.equal(x.grad, w)
+    assert torch.equal(y.detach(), tq.quantize_tensor(x.detach(), spec))
+    assert torch.equal(z, tq.quantize_tensor(b, spec))
+
+
+def test_runner_counts_fake_quant_tensors_under_the_documented_names(
+        effnet_b0):
+    """``PartitionedCNNRunner`` counts the weight tensors and the link
+    activations it fake-quantizes by route; on the CPU all take the chain
+    (``fake_quant_tensors.ref``).  The names are the ones ``repro_torch.obs``
+    lists."""
+    import repro_torch.obs as obs_mod
+    from repro_torch.obs import Obs
+    from repro_torch.serving import PartitionedCNNRunner
+    from repro_torch.core.quant import FAKE_QUANT_TENSORS
+    for route in ("cuda", "ref"):
+        assert f"``{FAKE_QUANT_TENSORS}.{route}``" in obs_mod.__doc__
+    obs = Obs.on()
+    cuts = [3, 9, 14]
+    specs = [tq.QuantSpec(16), tq.QuantSpec(16), None, tq.QuantSpec(8)]
+    runner = PartitionedCNNRunner(effnet_b0, cuts, specs, obs=obs)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 3, 64, 64)).astype(np.float32))
+    runner.run(x)
+    weights = sum(p.dim() > 1 for (a, b), s in zip(
+        [(0, 4), (4, 10), (10, 15), (15, 19)], specs) if s is not None
+        for _, blk in effnet_b0.blocks[a:b] for p in blk.parameters())
+    assert obs.metrics.snapshot() == {f"{FAKE_QUANT_TENSORS}.ref":
+                                      weights + 2}

@@ -21,6 +21,7 @@
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define __shared__ static
 #define __align__(n) alignas(n)
 

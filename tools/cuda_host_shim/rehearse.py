@@ -13,14 +13,16 @@ all its blocks at once, ``cooperative_groups::this_grid().sync()`` as a
 barrier of all their threads, ``__shfl_sync``, ``__all_sync``,
 ``atomicOr``, ``__ldcg`` and the occupancy queries of a card of three
 multiprocessors) and what ``quant_matmul.cu`` uses (``__byte_perm``,
-``__ldg``, ``cudaGetDevice``).  The library is
+``__ldg``, ``cudaGetDevice``); ``fake_quant.cu`` (K7) needs only
+``__grid_constant__`` besides.  The library is
 built with AddressSanitizer, so a read past a buffer stops the run.  The
 kernels are then held against their plain PyTorch versions at small
 shapes, the int8 product bit for bit against
 ``repro_torch.testing.quant_matmul_exact``: a rehearsal before a first chip
 call, not a measurement (the shim sums each TF32 ``mma`` in double and
 rounds to nearest; the card does not; its int8 ``mma`` is exact, as the
-card's).
+card's).  K7 is held bit for bit against the ATen chain as the card runs
+it (:func:`card_chain`).
 
     LD_PRELOAD=$(g++ -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0 \\
         PYTHONPATH=src python3 tools/cuda_host_shim/rehearse.py [out_dir]
@@ -42,6 +44,7 @@ HERE = Path(__file__).resolve().parent
 ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.testing import (edge_population,  # noqa: E402
                                  quant_matmul_exact)
@@ -215,6 +218,77 @@ def quant_matmul(lib, m, k, n, splits, seed, w_offset=0, x_offset=0):
     return ok
 
 
+def card_chain(x, spec):
+    """``core.quant``'s per-tensor chain as ATen runs it on a CUDA tensor:
+    the ops on the CPU, but the division by a Python number taken as a
+    multiply by its float reciprocal, as ATen's CUDA division by a CPU
+    scalar takes it."""
+    f32 = dict(dtype=torch.float32)
+    one = torch.tensor(1.0, **f32)
+    lo, hi = x.min(), x.max()
+    if spec.symmetric:
+        amax = torch.maximum(lo.abs(), hi.abs())
+        scale = torch.clamp_min(amax * (one / torch.tensor(
+            float(spec.qmax), **f32)), 1e-12)
+        zp = torch.zeros_like(scale)
+    else:
+        lo, hi = torch.clamp_max(lo, 0.0), torch.clamp_min(hi, 0.0)
+        scale = torch.clamp_min((hi - lo) * (one / torch.tensor(
+            float(spec.qmax - spec.qmin), **f32)), 1e-12)
+        zp = torch.round(spec.qmin - lo / scale)
+    return quant.fake_quant(x, scale, zp, spec)
+
+
+def same_bits(a, b):
+    """Equal bit for bit, NaN where NaN (whatever its payload)."""
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def fake_quant(lib, sizes, spec, seed, skew=0, special=None):
+    """K7 over tensors of ``sizes`` (each ``skew`` floats into its buffer,
+    so its start is off 16 bytes when skew % 4), both launches on one
+    scratch, each output against :func:`card_chain` bit for bit.
+    ``special``: tensor 0 all zeros, all -0.0, or holding a NaN."""
+    rng = np.random.default_rng(seed)
+    xs = []
+    for i, n in enumerate(sizes):
+        buf = rng.standard_normal(n + skew).astype(np.float32)
+        buf *= float(rng.choice([1e-3, 1.0, 50.0]))
+        if i == 0 and special == "zero":
+            buf[:] = 0.0
+        elif i == 0 and special == "negzero":
+            buf[:] = -0.0
+        elif i == 0 and special == "nan":
+            buf[skew + n // 2] = np.nan
+        xs.append(torch.from_numpy(buf)[skew:])
+    k = len(xs)
+    offs, total = [], 0
+    for n in sizes:
+        offs.append(total)
+        total += -(-n // 4) * 4
+    out = torch.full((total,), float("nan"))
+    ll = ctypes.c_longlong
+    ins = (ctypes.c_void_p * k)(*(x.data_ptr() for x in xs))
+    ns = (ll * k)(*sizes)
+    os_ = (ll * k)(*offs)
+    scratch = torch.full((lib.fake_quant_scratch_floats(ns, k),), 7.0)
+    rng_ = spec.qmax if spec.symmetric else spec.qmax - spec.qmin
+    codes = [lib.fake_quant_launch(phase, ins, ns, os_, k, out.data_ptr(),
+                                   scratch.data_ptr(), rng_, spec.qmin,
+                                   spec.qmax, int(spec.symmetric), None)
+             for phase in (0, 1)]
+    ok = codes == [0, 0] and all(
+        same_bits(out[o:o + x.numel()], card_chain(x, spec))
+        for x, o in zip(xs, offs))
+    print(f"fake_quant {k} tensors of {min(sizes)}-{max(sizes)} skew {skew} "
+          f"bits {spec.bits} {'symmetric' if spec.symmetric else 'affine'}"
+          f"{'' if special is None else f' {special}'}: "
+          f"{'bit-exact' if ok else 'FAILED'}", flush=True)
+    return ok
+
+
 def main() -> int:
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
     out.mkdir(parents=True, exist_ok=True)
@@ -234,7 +308,25 @@ def main() -> int:
     qm.quant_matmul_scratch_bytes.argtypes = [i_] * 4
     qm.quant_matmul_scratch_bytes.restype = ctypes.c_size_t
     qm.quant_matmul_copy_width.argtypes = [p_, i_]
-    ok = [quant_matmul(qm, *case, seed=i) for i, case in enumerate((
+    fq = build(CSRC / "fake_quant.cu", out / "fake_quant.so")
+    fq.fake_quant_launch.argtypes = ([i_] + [p_] * 3 + [i_] + [p_] * 2
+                                     + [i_] * 4 + [p_])
+    fq.fake_quant_scratch_floats.argtypes = [p_, i_]
+    fq.fake_quant_scratch_floats.restype = ctypes.c_longlong
+    Q = quant.QuantSpec
+    ok = [fake_quant(fq, sizes, spec, seed=i, skew=skew, special=special)
+          for i, (sizes, spec, skew, special) in enumerate((
+              ((1, 3, 4, 5, 100, 1000, 8193, 20000), Q(8), 0, None),
+              ((7, 64, 8192, 16385), Q(16), 1, None),
+              ((33, 4096, 999), Q(8, symmetric=False), 0, None),
+              ((33, 4096, 999), Q(4, symmetric=False), 3, None),
+              ((1000, 50), Q(8), 0, "zero"),
+              ((1000, 50), Q(8), 2, "negzero"),
+              ((1000, 50), Q(8, symmetric=False), 0, "negzero"),
+              ((1000, 50), Q(8, symmetric=False), 0, "zero"),
+              ((1000, 50), Q(16), 0, "nan"),
+              ((5,) * 96, Q(8), 0, None)))]
+    ok += [quant_matmul(qm, *case, seed=i) for i, case in enumerate((
         (1, 1, 1, 1), (3, 5, 7, 1), (65, 130, 67, 2), (100, 96, 50, 1),
         (3, 150, 1000, 2), (20, 443, 40, 3), (4, 64, 16, 3),
         (130, 256, 256, 2)))]
