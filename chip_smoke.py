@@ -5,9 +5,9 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22, 23), and prints the
-kernels line of the records they make (their launches 0 unless a listed
-phase counts them: phase 3 for phase 1's).
+those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22, 23, 24), and
+prints the kernels line of the records they make (their launches 0 unless
+a listed phase counts them: phase 3 for phase 1's).
 
 It imports the port (``src/repro_torch``) and nothing of the JAX package,
 builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
@@ -265,10 +265,23 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     vector, at the whole model and at the stacked leaf; then scores one
     cut vector of the oracle (256 images at 224, stages at 16/16/8/8 bits)
     with K7's launches read: two a stage and two a link, every tensor
-    through K7.
+    through K7;
+24. runs granite-4.0-h-small as the benchmark cell cuts it (20 of its 40
+    layers: 18 Mamba2 mixers, 2 GQA layers, 20 dropless expert layers
+    holding 9 of 72 experts, top 10) at full width on two 8192-token
+    rows: the SSD scan kernel at its shape (128 heads; phase 6's record,
+    made here when the phase runs alone), then
+    ``PartitionedLMRunner(..., impl="cuda")`` over a cut vector with one
+    boundary between a mixer and its expert layer, float, against the
+    model's own forward through the kernel (the same operations) and
+    through the plain scan (the median position's error: a router near
+    tie that the scans' rounding tips moves a few tokens' expert choices),
+    with exactly 18 launches of the scan kernel; then the same cut
+    fake-quantized at 16/16/8/8 bits (18 launches again, K7 two a stage
+    and two a link), and the peak device memory.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 23),
+card's name and power limit (also beside every time of phases 6 to 24),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -346,7 +359,9 @@ PART_TOL = 1e-6
 SSM_ARCH = "mamba2-370m"
 GRANITE_ARCH = "granite-4.0-h-micro"
 GRANITE_K4 = f"ssd_scan[{GRANITE_ARCH}]"
-SSD_MODELS = ("mamba2-370m", "zamba2-2.7b", GRANITE_ARCH)
+SMALL_ARCH = "granite-4.0-h-small"
+SMALL_K4 = f"ssd_scan[{SMALL_ARCH}]"
+SSD_MODELS = ("mamba2-370m", "zamba2-2.7b", GRANITE_ARCH, SMALL_ARCH)
 SSD_SWEEP = tuple((t, chunk, h, p, n) for t, chunk in ((128, 32), (256, 64),
                                                         (192, 64))
                   for h, p, n in ((2, 16, 8), (3, 32, 16)))
@@ -1250,15 +1265,16 @@ def ssd_model_record(dev, card, arch, name="ssd_scan"):
 def check_ssd_scan(dev, card):
     """Phase 6: the SSD scan kernel against its plain version on the card,
     at the reference's sweep and at each of ``SSD_MODELS``' shapes;
-    returns the records of ``SSM_ARCH``'s shape and of ``GRANITE_ARCH``'s
-    (launches filled in by phases 7 and 22)."""
+    returns the records of ``SSM_ARCH``'s shape, of ``GRANITE_ARCH``'s and
+    of ``SMALL_ARCH``'s (launches filled in by phases 7, 22 and 24)."""
     for i, (t, chunk, h, p, n) in enumerate(SSD_SWEEP):
         ssd_check(ssd_inputs(dev, 2, t, h, p, n, i), chunk, SSD_TOL)
     print(f"ssd_scan: {len(SSD_SWEEP)} sweep cases (t, chunk, h, p, n) "
           f"{SSD_SWEEP} within {SSD_TOL}")
     records = []
     for arch in SSD_MODELS:
-        name = {SSM_ARCH: "ssd_scan", GRANITE_ARCH: GRANITE_K4}.get(arch)
+        name = {SSM_ARCH: "ssd_scan", GRANITE_ARCH: GRANITE_K4,
+                SMALL_ARCH: SMALL_K4}.get(arch)
         rec = ssd_model_record(dev, card, arch, name or "ssd_scan")
         if name:
             records.append(rec)
@@ -3554,6 +3570,115 @@ def granite_phase(dev, card, records):
     torch.cuda.empty_cache()
 
 
+# phase 24: granite-4.0-h-small cut as the benchmark cell cuts it
+# (bench/configs/granite-h-small-4plat.json: 20 layers, experts 0-8 of 72
+# held) on LM_B x LM_T tokens.  Its cut vector (42 positions) ends stage 0
+# after layer 5's attention mixer (its expert layer on stage 1), stage 1
+# after layer 11's expert layer and stage 2 after layer 16's Mamba2 mixer
+SMALL_LAYERS, SMALL_HELD = 20, (0, 9)
+SMALL_CUTS = (11, 24, 33)
+# the float partitioned forward against the model's forward through the
+# same kernels: the same operations in the same order, so bit-identical
+# expected; PART_TOL absorbs a change of algorithm.  Against the forward
+# through the plain scan, each position's largest |Δ| over the largest
+# |logit|, its median: the scan's sums in another order (granite-micro
+# reads 5.7e-6 at every position, phase 22); the few positions whose
+# expert choices a router near tie flips, and those after them, move by
+# up to ~1e-2, but not the median
+SMALL_MEDIAN_TOL = 1e-4
+
+
+def small_config():
+    """granite-4.0-h-small as the benchmark cell cuts it."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(SMALL_ARCH)
+    return dataclasses.replace(cfg, n_layers=SMALL_LAYERS,
+                               layer_types=cfg.layer_types[:SMALL_LAYERS],
+                               experts_held=SMALL_HELD)
+
+
+def granite_small_phase(dev, card, records):
+    """Phase 24: granite-4.0-h-small's partitioned forward on the card at
+    the cell's cut, float and fake-quantized, with the scan kernel's
+    launches read and the peak memory; fills in (or makes) the scan
+    kernel's record at its shape."""
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import fake_quant, ssd_scan
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving import PartitionedLMRunner
+
+    rec = next((r for r in records if r["name"] == SMALL_K4), None)
+    if rec is None:
+        rec = ssd_model_record(dev, card, SMALL_ARCH, SMALL_K4)
+        records.append(rec)
+    cfg = small_config()
+    mamba = cfg.layer_types.count("mamba")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, build_s = timed(lambda: build_model(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (LM_B, LM_T))).to(dev)}
+    specs = [QuantSpec(bits=b) for b in GRANITE_BITS]
+    with torch.no_grad():
+        want, mono_s = timed(lambda: model(batch, impl="cuda"))
+        runner = PartitionedLMRunner(model, SMALL_CUTS, impl="cuda")
+        ssd_scan.ssd_scan.launches = 0
+        (logits, _), fwd_s = timed(lambda: runner.forward(batch))
+        launches = ssd_scan.ssd_scan.launches
+        err = float((logits - want).abs().max() / want.abs().max())
+        top1 = logits.argmax(-1)
+        del want, runner
+        plain, ref_s = timed(lambda: model(batch, impl="ref"))
+        pos = ((logits - plain).abs().amax(-1) / plain.abs().max()).double()
+        med, worst = float(pos.median()), float(pos.max())
+        del logits, plain, pos
+        print(f"granite-small forward: {n_params / 1e9:.3f} B parameters "
+              f"(built in {build_s:.1f} s), {cfg.n_layers} layers ({mamba} "
+              f"Mamba2, {cfg.n_layers - mamba} attention, {cfg.n_layers} "
+              f"expert layers holding experts {cfg.experts_held[0]}.."
+              f"{sum(cfg.experts_held) - 1} of {cfg.n_experts}, top "
+              f"{cfg.top_k}), {LM_B} x {LM_T} tokens, cuts {SMALL_CUTS}: "
+              f"partitioned through the kernel {fwd_s:.3f} s ({launches} "
+              f"launches), the model through the kernel {mono_s:.3f} s "
+              f"(rel err {err:.3e}, bound {PART_TOL}) and through the plain "
+              f"scan {ref_s:.3f} s (a position's rel err: median "
+              f"{med:.3e}, bound {SMALL_MEDIAN_TOL}, largest {worst:.3e}) "
+              f"[{card}]")
+        assert launches == mamba, launches
+        assert err <= PART_TOL, err
+        assert med <= SMALL_MEDIAN_TOL, med
+        ssd_scan.ssd_scan.launches = 0
+        fake_quant.fake_quant_tensors.launches = 0
+        (logits, rep), q_s = timed(lambda: PartitionedLMRunner(
+            model, SMALL_CUTS, specs, link_quant=True,
+            impl="cuda").forward(batch))
+        q_launches = ssd_scan.ssd_scan.launches
+        fq = fake_quant.fake_quant_tensors.launches
+        agree = float((logits.argmax(-1) == top1).double().mean())
+        finite = bool(torch.isfinite(logits).all())
+        del logits, top1
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"granite-small fake-quantized: stages at {GRANITE_BITS} bits, "
+          f"links fake-quantized ({len(rep.link_bytes)} links), quantized "
+          f"and run in {q_s:.3f} s ({q_launches} launches, K7 {fq}: two a "
+          f"stage and two a link); top-1 agreement with the float forward "
+          f"{agree:.4f}; peak device memory {peak:.2f} GiB [{card}]")
+    assert q_launches == mamba and finite, (q_launches, finite)
+    n_stages = len(rep.latency_s)
+    assert fq == 2 * (2 * n_stages - 1), (fq, n_stages)
+    rec["launches"] = launches
+    rec["launches_in"] = (
+        f"phase 24's partitioned forward ({launches}, one a Mamba2 mixer) "
+        f"and its fake-quantized forward ({q_launches})")
+    del model
+    torch.cuda.empty_cache()
+
+
 # phase 23: K7 at the CNN oracle's stage shapes, the four stages of the
 # EfficientNet-B0 cut after blocks FQ_BLOCK_CUTS, and at one granite
 # stage's stacked leaf, its 20 MLPs' up-projections; then one scored cut
@@ -3731,6 +3856,7 @@ ALONE = {
     "21": lambda dev, card, records: examples_phase(dev, card),
     "22": granite_phase,
     "23": fake_quant_phase,
+    "24": granite_small_phase,
 }
 
 
@@ -3772,7 +3898,7 @@ def main(argv=None) -> int:
 
 
 def all_phases(dev, card):
-    """Phases 1-23; the kernels' records."""
+    """Phases 1-24; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
@@ -3803,6 +3929,7 @@ def all_phases(dev, card):
     examples_phase(dev, card)
     granite_phase(dev, card, records)
     fake_quant_phase(dev, card, records)
+    granite_small_phase(dev, card, records)
     return records
 
 

@@ -9,8 +9,15 @@ has none of them); each defaults to the behaviour every other config has:
 
 * ``layer_types``: the ``mixed`` family's mixer of each layer, ``"mamba"``
   or ``"attention"`` (IBM Granite 4.0-H: a Mamba2 mixer or a GQA attention
-  in each layer, each followed by the layer's own gated MLP); None for
-  every other family;
+  in each layer, each followed by the layer's own gated MLP of width
+  ``d_ff``, or, where the config has experts (``n_experts``), by an expert
+  layer: ``n_experts`` routed gated experts of width ``moe_d_ff``, top
+  ``top_k``, dropless, beside one shared gated MLP of width ``d_ff``); None
+  for every other family;
+* ``experts_held``: ``(first, count)``, the routed experts this device
+  holds of every expert layer (expert parallelism: the router keeps all
+  ``n_experts`` outputs, the layer computes its own experts' part); None
+  for all of them.  Read by the ``mixed`` family's expert layers;
 * ``embedding_multiplier``, ``residual_multiplier``, ``logits_scaling``:
   the token embeddings times the first, each residual branch times the
   second, the logits divided by the third (muP; read by the ``mixed``
@@ -35,9 +42,12 @@ class ModelConfig:
     ``"mamba"`` or ``"attention"``), ``embedding_multiplier``,
     ``residual_multiplier`` and ``logits_scaling`` (muP, the mixed family
     only), ``attention_scale`` (None: 1/sqrt(head_dim)), ``rope`` (False:
-    no positional encoding) and ``norm_eps`` (every RMSNorm's eps, 1e-6
-    by default).  Each defaults to the behaviour of the configs that have
-    no such field."""
+    no positional encoding), ``norm_eps`` (every RMSNorm's eps, 1e-6 by
+    default) and ``experts_held`` (the mixed family's held share of its
+    routed experts, ``(first, count)``; None: all).  Each defaults to the
+    behaviour of the configs that have no such field.  In the mixed family
+    ``n_experts`` > 0 puts an expert layer after every mixer in place of
+    the MLP (``d_ff`` then the shared expert's width)."""
 
     arch_id: str
     family: str              # dense | moe | ssm | hybrid | mixed | audio | vlm
@@ -93,6 +103,7 @@ class ModelConfig:
     attention_scale: Optional[float] = None
     rope: bool = True
     norm_eps: float = 1e-6
+    experts_held: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
         mixed = self.family == "mixed"
@@ -108,6 +119,19 @@ class ModelConfig:
                           self.logits_scaling) != (1.0, 1.0, 1.0):
             raise ValueError(f"{self.arch_id}: the multipliers are read by "
                              f"the mixed family only")
+        if mixed and self.n_experts and not (
+                0 < self.top_k <= self.n_experts and self.moe_d_ff):
+            raise ValueError(f"{self.arch_id}: the mixed family's expert "
+                             f"layer needs top_k in 1 .. n_experts and "
+                             f"moe_d_ff")
+        if self.experts_held is not None:
+            first, count = self.experts_held
+            if not mixed or not (self.n_experts and 0 <= first and
+                                 1 <= count <= self.n_experts - first):
+                raise ValueError(f"{self.arch_id}: experts_held "
+                                 f"{self.experts_held} is a (first, count) "
+                                 f"share of the mixed family's "
+                                 f"{self.n_experts} experts")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -165,6 +189,7 @@ class ModelConfig:
             n_patches=min(self.n_patches, 16) if self.n_patches else 0,
             mtp=min(self.mtp, 1),
             remat=False,
+            experts_held=None,
         )
 
 

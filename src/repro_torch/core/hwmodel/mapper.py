@@ -99,7 +99,11 @@ def decompose(layer: L.LayerInfo) -> Tuple[List[GemmAtom], int]:
         seq, d = layer.in_shape
         d_ff, top_k = a["d_ff"], a["top_k"]
         n_sh = a.get("n_shared", 0)
-        tokens = seq * (top_k + n_sh)
+        # rows of width d_ff: the held experts' share of the choices, and
+        # the shared experts' width in experts' widths
+        held = a.get("held", a["n_experts"])
+        sh_ff = a.get("shared_d_ff", n_sh * d_ff) if n_sh else 0
+        tokens = seq * top_k * held // a["n_experts"] + seq * sh_ff // d_ff
         atoms = [GemmAtom(a["n_experts"], d, seq, weight_resident=True),  # router
                  GemmAtom(d_ff, d, tokens), GemmAtom(d_ff, d, tokens),
                  GemmAtom(d, d_ff, tokens)]

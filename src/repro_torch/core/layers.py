@@ -185,16 +185,38 @@ def mlp_layer(name: str, d_model: int, d_ff: int, seq: int,
 
 
 def moe_layer(name: str, d_model: int, d_ff: int, seq: int, n_experts: int,
-              top_k: int, n_shared: int = 0, gated: bool = True) -> LayerInfo:
+              top_k: int, n_shared: int = 0, gated: bool = True,
+              held: Optional[int] = None,
+              shared_d_ff: Optional[int] = None) -> LayerInfo:
+    """An expert layer: ``n_experts`` routed experts of width ``d_ff``, top
+    ``top_k``, the router (d, E), and ``n_shared`` shared experts fused
+    into one FFN of width ``shared_d_ff`` (``n_shared * d_ff`` by default).
+    ``held``: the routed experts this platform holds (expert parallelism;
+    all by default): its parameters are theirs, the shared experts' and
+    the whole router's, and its products the router's, the shared
+    experts' and ``top_k * held / n_experts`` routed experts' a token, the
+    choices that fall on held experts under uniform routing (rounded down
+    over the sequence).  ``held`` and ``shared_d_ff`` are recorded in
+    ``attrs`` when given."""
     n_mats = 3 if gated else 2
     per_expert = n_mats * d_model * d_ff
-    params = (n_experts + n_shared) * per_expert + d_model * n_experts
-    active = (top_k + n_shared) * per_expert
+    n_held = n_experts if held is None else held
+    shared = (n_mats * d_model * shared_d_ff if shared_d_ff is not None
+              else n_shared * per_expert) if n_shared else 0
+    params = n_held * per_expert + shared + d_model * n_experts
+    routed = top_k * n_held * per_expert
+    active = routed // n_experts + shared
+    attrs = {"n_experts": n_experts, "top_k": top_k, "n_shared": n_shared,
+             "d_ff": d_ff, "active_params": active}
+    if held is not None:
+        attrs["held"] = held
+    if shared_d_ff is not None:
+        attrs["shared_d_ff"] = shared_d_ff
     return LayerInfo(name, MOE, (seq, d_model), (seq, d_model),
-                     params=params, macs=seq * (active + d_model * n_experts),
-                     attrs={"n_experts": n_experts, "top_k": top_k,
-                            "n_shared": n_shared, "d_ff": d_ff,
-                            "active_params": active})
+                     params=params,
+                     macs=seq * routed // n_experts
+                     + seq * (shared + d_model * n_experts),
+                     attrs=attrs)
 
 
 def ssm_layer(name: str, d_model: int, d_state: int, seq: int,

@@ -72,7 +72,8 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
         "get_config", "build_model", "model_graph",
     )),
     ("repro_torch.models.decoder", ("DecoderLM",)),
-    ("repro_torch.models.ssm_lm", ("SSMLM", "MixedLM")),
+    ("repro_torch.models.ssm_lm", ("SSMLM", "MixedLM", "MoeUnit")),
+    ("repro_torch.nn.moe", ("MoEFFN",)),
     ("repro_torch.models.convert", (
         "load_reference_params", "reference_params", "load_reference_cnn",
     )),

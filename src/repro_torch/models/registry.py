@@ -28,6 +28,7 @@ _CONFIG_MODULES = {
 # pairs, the parity tests) leaves them out
 _PORT_CONFIG_MODULES = {
     "granite-4.0-h-micro": "repro_torch.configs.granite_4_0_h_micro",
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
 }
 
 ARCH_IDS: List[str] = list(_CONFIG_MODULES)

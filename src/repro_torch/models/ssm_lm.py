@@ -33,6 +33,7 @@ the ``embedding_multiplier``, r the ``residual_multiplier``, s the
                      else Mamba2(RMSNorm(h)))                  # MixerUnit
         v = RMSNorm(h)
         h = h + r · W_down(silu(v W_gate) ⊙ v W_up)            # MlpUnit
+          (with experts: h + r · (MoE(v) + Shared(v))          # MoeUnit)
     logits = RMSNorm(h) Eᵀ / s                  (the head, tied or own)
     Attn(u):   q = u W_q, k = u W_k, v = u W_v (GQA; RoPE unless
                ``rope`` is False); causal softmax(q kᵀ · attention_scale) v,
@@ -42,13 +43,20 @@ the ``embedding_multiplier``, r the ``residual_multiplier``, s the
                dt = softplus(dt + dt_bias); A = -exp(A_log);
                y = SSD(x, dt, A, B, C; chunk) + D ⊙ x;
                out = RMSNorm(y ⊙ silu(z)) W_out
+    MoE(v):    the top ``top_k`` of the router logits v W_r (all
+               ``n_experts``), softmax over the chosen; the sum of each
+               chosen held expert's W_down(silu(v W_gate) ⊙ v W_up) times
+               its weight (dropless; a choice of an expert not held adds
+               nothing, ``experts_held``)
+    Shared(v): the shared gated MLP of width ``d_ff``
 
 (the multipliers placed as the public ``transformers`` ``GraniteMoeHybrid``
-model places them).  A layer's mixer and its MLP are modules of their own,
-``blocks[l].mix`` and ``blocks[l].ffn``: :meth:`MixedLM.units` lists them
-in the order of the partitioner's chain (:func:`ssm_graph`: ``Embed_0``,
-per layer ``SSM_l`` or ``Attention_l`` then ``Mlp_l``, ``Head_0``), so that
-a stage can end between a mixer and its MLP.  On a CUDA tensor with
+model places them).  A layer's mixer and its MLP or expert layer are
+modules of their own, ``blocks[l].mix`` and ``blocks[l].ffn``:
+:meth:`MixedLM.units` lists them in the order of the partitioner's chain
+(:func:`ssm_graph`: ``Embed_0``, per layer ``SSM_l`` or ``Attention_l``
+then ``Mlp_l`` or ``Moe_l``, ``Head_0``), so that a stage can end between
+a mixer and its MLP or expert layer.  On a CUDA tensor with
 ``impl`` ``"cuda"`` or ``"auto"`` every Mamba2 mixer of the cacheless
 forward takes the SSD scan kernel, and the attention without a window
 takes ``chunked_sdpa`` from 2048 tokens.  The family has no caches yet.
@@ -70,7 +78,9 @@ from repro_torch.models.decoder import (_DTYPES, TokenLM, block_out,
 from repro_torch.nn.attention import GQAAttention, init_cache
 from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.module import constant, normal_init
+from repro_torch.nn.moe import MoEFFN
 from repro_torch.nn.ssm import Mamba2Mixer, init_ssm_cache
+from repro_torch.obs.handle import NOOP_OBS
 
 FAMILIES = ("ssm", "hybrid")     # SSMLM's; MixedLM builds "mixed"
 
@@ -285,7 +295,7 @@ class MixerUnit(nn.Module):
                 scale=cfg.attention_scale, norm_eps=cfg.norm_eps, dtype=dt,
                 device=device, generator=generator)
 
-    def forward(self, x, *, positions=None, impl="ref"):
+    def forward(self, x, *, positions=None, impl="ref", obs=None):
         u = rms_norm(x, self.ln, self.eps)
         if self.kind == "mamba":
             y, _ = self.mixer(u, impl=impl)
@@ -297,7 +307,8 @@ class MixerUnit(nn.Module):
 class MlpUnit(nn.Module):
     """``h + r · W_down(silu(v W_gate) ⊙ v W_up)``, ``v = RMSNorm(h)``: a
     layer's own gated MLP.  Takes (and ignores) the mixer's keywords, so
-    that a stage calls every unit alike."""
+    that a stage calls every unit alike (as does the mixer unit with
+    ``obs``)."""
 
     kind = "mlp"
 
@@ -310,18 +321,56 @@ class MlpUnit(nn.Module):
         self.mlp = gated_mlp_init(cfg.d_model, cfg.d_ff, generator=generator,
                                   device=device, dtype=dt)
 
-    def forward(self, x, *, positions=None, impl="ref"):
+    def forward(self, x, *, positions=None, impl="ref", obs=None):
         return x + self.r * gated_mlp(self.mlp, rms_norm(x, self.ln, self.eps))
 
 
+MOE_ROWS = "moe_rows"   # counters .held / .routed: the expert layers' rows
+
+
+class MoeUnit(nn.Module):
+    """``h + r · (MoE(v) + Shared(v))``, ``v = RMSNorm(h)``: a layer's
+    expert layer (``moe``, a dropless :class:`~repro_torch.nn.moe.MoEFFN`
+    holding ``cfg.experts_held`` of the ``n_experts`` routed experts, its
+    shared expert of width ``d_ff``).  Takes the mixer's keywords as the
+    MLP unit does; ``obs`` switched on counts the rows the held experts
+    computed in ``moe_rows.held`` and the token-expert choices, tokens x
+    ``top_k``, in ``moe_rows.routed``."""
+
+    kind = "moe"
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dt = _DTYPES[cfg.dtype]
+        self.r, self.eps = cfg.residual_multiplier, cfg.norm_eps
+        self.ln = constant((cfg.d_model,), 1.0, device=device, dtype=dt)
+        self.moe = MoEFFN(cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                          cfg.top_k, cfg.n_shared, capacity_factor=None,
+                          held=cfg.experts_held, shared_d_ff=cfg.d_ff,
+                          dtype=dt, device=device, generator=generator)
+
+    def forward(self, x, *, positions=None, impl="ref", obs=None):
+        """``x`` (B, T, d) after the expert layer's residual branch."""
+        y, aux = self.moe(rms_norm(x, self.ln, self.eps))
+        obs = NOOP_OBS if obs is None else obs
+        if obs.enabled:
+            obs.metrics.counter(f"{MOE_ROWS}.held").inc(aux["rows"])
+            obs.metrics.counter(f"{MOE_ROWS}.routed").inc(
+                x.shape[0] * x.shape[1] * self.moe.k)
+        return x + self.r * y
+
+
 class MixedLayer(nn.Module):
-    """One layer of the mixed family: its mixer unit, then its MLP unit."""
+    """One layer of the mixed family: its mixer unit, then its MLP unit,
+    or its expert unit where the config has experts."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.mix = MixerUnit(cfg, kind, device=device, generator=generator)
-        self.ffn = MlpUnit(cfg, device=device, generator=generator)
+        ffn = MoeUnit if cfg.n_experts else MlpUnit
+        self.ffn = ffn(cfg, device=device, generator=generator)
 
     def forward(self, x, *, positions=None, impl="ref"):
         return self.ffn(self.mix(x, positions=positions, impl=impl))
@@ -364,8 +413,9 @@ class MixedLM(TokenLM):
                                     cfg.d_model ** -0.5, **init)
 
     def units(self) -> List[nn.Module]:
-        """Each layer's mixer unit and MLP unit, in order: the graph's
-        positions 1 .. 2L (position 0 the embedding, 2L + 1 the head)."""
+        """Each layer's mixer unit and MLP (or expert) unit, in order: the
+        graph's positions 1 .. 2L (position 0 the embedding, 2L + 1 the
+        head)."""
         return [u for blk in self.blocks for u in (blk.mix, blk.ffn)]
 
     def embed_tokens(self, batch, pos0=None):
@@ -410,8 +460,15 @@ def _mixed_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
                 cfg.resolved_head_dim, qkv_bias=cfg.qkv_bias,
                 qk_norm=cfg.qk_norm, window=cfg.window)
         prev = g.add(mixer, after=[prev]).name
-        prev = g.add(GL.mlp_layer(f"Mlp_{i}", cfg.d_model, cfg.d_ff, seq),
-                     after=[prev]).name
+        if cfg.n_experts:
+            held = cfg.experts_held
+            ffn = GL.moe_layer(f"Moe_{i}", cfg.d_model, cfg.moe_d_ff, seq,
+                               cfg.n_experts, cfg.top_k, cfg.n_shared,
+                               held=None if held is None else held[1],
+                               shared_d_ff=cfg.d_ff)
+        else:
+            ffn = GL.mlp_layer(f"Mlp_{i}", cfg.d_model, cfg.d_ff, seq)
+        prev = g.add(ffn, after=[prev]).name
     g.add(GL.lm_head_layer("Head_0", cfg.d_model, cfg.vocab, seq,
                            tied=cfg.tied_embeddings), after=[prev])
     return g
@@ -422,7 +479,9 @@ def ssm_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
     LM, from the configuration alone (no weights).  The mixed family's is
     a chain of 2L + 2 nodes: ``Embed_0``; per layer ``SSM_l`` (its
     convolution bias and ``D`` counted: the mixed family's mixers have
-    both) or ``Attention_l``, then ``Mlp_l``; ``Head_0``."""
+    both) or ``Attention_l``, then ``Mlp_l``, or ``Moe_l`` where the
+    config has experts (:func:`~repro_torch.core.layers.moe_layer` at the
+    held share); ``Head_0``."""
     if cfg.family == "mixed":
         return _mixed_graph(cfg, seq)
     hybrid = cfg.family == "hybrid"

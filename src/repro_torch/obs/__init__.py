@@ -49,7 +49,12 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   scan, by the path it takes: the SSD scan kernel or the plain chunked
   scan), ``fake_quant_tensors.cuda`` and ``fake_quant_tensors.ref`` (each
   stage's stacked leaves and each link, as the CNN runner counts them)
-  and ``oracle_positions`` (next-token positions scored);
+  and ``oracle_positions`` (next-token positions scored); for a model with
+  experts (granite-4.0-h-small) each ``oracle.stage`` also carries ``moe``
+  (the expert units it holds) and ``moe_ms`` (their device time, from CUDA
+  events read at the stage's sync; the host clock off a card), and the
+  expert units count ``moe_rows.held`` (the token-expert rows the held
+  experts computed) and ``moe_rows.routed`` (tokens x top-k);
 * ``OnlineRepartitioner``: its decisions (instants and counters).
 """
 

@@ -177,6 +177,33 @@ class PartitionedCNNRunner:
         return x, StageReport(lat, link_bytes)
 
 
+class _UnitTimer:
+    """One unit's time, read after the stage's sync: CUDA events on a CUDA
+    device (no synchronisation of their own), else the host clock (the
+    CPU runs in order)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.cuda:
+            self.end.record()
+        else:
+            self.t1 = time.perf_counter()
+
+    def ms(self) -> float:
+        """Milliseconds between start and stop (after a sync on CUDA)."""
+        if self.cuda:
+            return self.start.elapsed_time(self.end)
+        return 1e3 * (self.t1 - self.t0)
+
+
 class QuantizedBlock:
     """A block run on other parameters (``torch.func.functional_call``):
     called as the block is, so ``run_blocks`` takes it in the block's
@@ -243,14 +270,16 @@ class PartitionedLMRunner:
     A ``MixedLM`` (the mixed family) is split at the search's own
     positions: ``cuts`` is a cut vector over the model's chain
     (``to_graph``: position 0 the embedding, 1 .. 2L each layer's mixer
-    and MLP units, 2L + 1 the head), read as the cost model reads it:
-    platform k holds the positions ``cuts[k-1] + 1 .. cuts[k]`` (-1: none
-    before it), so a cut after a mixer puts that layer's MLP on the next
-    stage, and a platform that holds nothing drops out with its spec.  A
-    quantized stage's units are :func:`quantized_units`, each leaf stacked
-    over the stage's units of one kind (Mamba2 mixers, attention mixers,
-    MLPs); the embedding and the head stay float, and the head runs in
-    the last stage.  ``quant_specs`` has one entry a platform.
+    and MLP or expert units, 2L + 1 the head), read as the cost model
+    reads it: platform k holds the positions ``cuts[k-1] + 1 .. cuts[k]``
+    (-1: none before it), so a cut after a mixer puts that layer's MLP on
+    the next stage, and a platform that holds nothing drops out with its
+    spec.  A quantized stage's units are :func:`quantized_units`, each
+    leaf stacked over the stage's units of one kind (Mamba2 mixers,
+    attention mixers, MLPs, expert units: their held experts' leaves
+    stacked (L, H, ...)); the embedding and the head stay float, and the
+    head runs in the last stage.  ``quant_specs`` has one entry a
+    platform.
 
     ``impl`` is passed to every block or unit (``"cuda"``/``"auto"``: the
     kernels on a CUDA tensor).  ``obs`` (default off,
@@ -258,11 +287,16 @@ class PartitionedLMRunner:
     records on the ``oracle`` track one ``oracle.quantize`` a stage as it
     is built (``stage``, ``bits``, ``tensors``), and in :meth:`forward` one
     ``oracle.stage`` a stage (``stage``, ``mamba``, ``attention``: the
-    mixers it holds, ``tokens``) and one ``oracle.link`` a link fake-quant
-    (``bytes``), and counts each Mamba2 mixer's scan in
-    ``ssm_scan_calls.cuda`` (the kernel) or ``ssm_scan_calls.ref`` and the
-    tensors it fake-quantizes, stacked leaves and links, in
-    ``fake_quant_tensors.cuda`` (K7) or ``fake_quant_tensors.ref``.
+    mixers it holds, ``tokens``; with experts also ``moe``, the expert
+    units it holds, and ``moe_ms``, their time: CUDA events read after the
+    stage's sync on a card, the host clock elsewhere) and one
+    ``oracle.link`` a link fake-quant (``bytes``), and counts each Mamba2
+    mixer's scan in ``ssm_scan_calls.cuda`` (the kernel) or
+    ``ssm_scan_calls.ref``, the tensors it fake-quantizes, stacked leaves
+    and links, in ``fake_quant_tensors.cuda`` (K7) or
+    ``fake_quant_tensors.ref``, and (the expert units, given ``obs``) the
+    rows the held experts computed and the tokens x top-k in
+    ``moe_rows.held`` and ``moe_rows.routed``.
     """
 
     def __init__(self, model, cuts: Sequence[int],
@@ -371,29 +405,39 @@ class PartitionedLMRunner:
         m, obs = self.model, self.obs
         lat, link_bytes = [], []
         last = self.n_stages - 1
+        experts = bool(m.cfg.n_experts)
         x = positions = None
         for si, blocks in enumerate(self._blocks):
             t0 = time.perf_counter()
             if si == 0:
                 x, positions = m.embed_tokens(batch)
             kinds = self._kinds[si]
+            moe_times = []
             for unit, kind in zip(blocks, kinds):
                 if kind == "mamba" and obs.enabled:
                     obs.metrics.counter(
                         f"{SSM_SCAN_CALLS}."
                         f"{Mamba2Mixer.scan_impl(x, self.impl)}").inc()
-                x = unit(x, positions=positions, impl=self.impl)
+                timed = kind == "moe" and obs.enabled
+                if timed:
+                    moe_times.append(_UnitTimer(x.device))
+                x = unit(x, positions=positions, impl=self.impl, obs=obs)
+                if timed:
+                    moe_times[-1].stop()
             if si == last:
                 x = m.head_logits(x)
             sync(m.device)
             t1 = time.perf_counter()
             lat.append(t1 - t0)
             if obs.enabled:
-                obs.tracer.complete(
-                    "oracle.stage", track=TRACK, start=t0, end=t1,
-                    args={"stage": si, "mamba": kinds.count("mamba"),
-                          "attention": kinds.count("attention"),
-                          "tokens": x.shape[0] * x.shape[1]})
+                args = {"stage": si, "mamba": kinds.count("mamba"),
+                        "attention": kinds.count("attention"),
+                        "tokens": x.shape[0] * x.shape[1]}
+                if experts:
+                    args.update(moe=kinds.count("moe"), moe_ms=sum(
+                        (t.ms() for t in moe_times), 0.0))
+                obs.tracer.complete("oracle.stage", track=TRACK, start=t0,
+                                    end=t1, args=args)
             if si < last:
                 spec = self.quant_specs[si]
                 link_bytes.append(link_transfer_bytes(x.numel(), spec))

@@ -87,7 +87,8 @@ def close(got, want, atol=ATOL):
 
 # the port's own config fields, after the reference's (configs/base.py)
 PORT_FIELDS = ("layer_types", "embedding_multiplier", "residual_multiplier",
-               "logits_scaling", "attention_scale", "rope", "norm_eps")
+               "logits_scaling", "attention_scale", "rope", "norm_eps",
+               "experts_held")
 
 
 def reference_part(cfg):
