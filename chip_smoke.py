@@ -5,7 +5,7 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 ``--phases 18,19`` builds the kernels and runs only the listed phases of
-those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22, 23, 24), and
+those that stand alone (1, 3, 4, 17, 18, 19, 20, 21, 22, 23, 24, 25), and
 prints the kernels line of the records they make (their launches 0 unless
 a listed phase counts them: phase 3 for phase 1's).
 
@@ -137,7 +137,8 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     its own data size (32 x 32, 10 classes, eval set 256; 100 steps) and
     scores up to 8 cut vectors of a search over its graph on phase 3's
     chain (float top-1 above 0.30; a fresh runner over the model it
-    trained gives each score again bit for bit),
+    trained gives each score again bit for bit; K8 launches in the
+    scoring's and evaluations' forwards, none in QAT's steps),
     and QAT at 4 bits keeps the reference test's three gates;
 14. runs the launchers in-process: ``launch.train`` at full width for 4
     steps with a checkpoint, restored into a fresh model (every tensor and
@@ -278,10 +279,19 @@ builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and then:
     tie that the scans' rounding tips moves a few tokens' expert choices),
     with exactly 18 launches of the scan kernel; then the same cut
     fake-quantized at 16/16/8/8 bits (18 launches again, K7 two a stage
-    and two a link), and the peak device memory.
+    and two a link), and the peak device memory;
+25. holds the MBConv depthwise-unit kernel (K8) bit for bit against its
+    plain version (the block's chain of ops: BatchNorm, SiLU, depthwise
+    convolution, BatchNorm, SiLU, the squeeze-excite mean) at each of the
+    full-size EfficientNet-B0's 16 blocks on 256 images at 224, and times kernel,
+    plain version, the block's layers one by one (the ATen and cuDNN
+    chain, the yardstick, which the port no longer calls there) and the
+    bytes bound at each and over the forward; then scores one cut vector
+    of the oracle with K8's launches read (16, one a block) and no ATen
+    depthwise convolution in its trace.
 
 It prints one line per kernel, a JSON line ``{"kernels": [...]}``, the
-card's name and power limit (also beside every time of phases 6 to 24),
+card's name and power limit (also beside every time of phases 6 to 25),
 and as its last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result line; so does a machine without a CUDA
@@ -1839,16 +1849,17 @@ def campaign_path(dev, card, main_res):
 
 
 def all_kernels():
-    """The seven kernels' wrappers by name."""
-    from repro_torch.kernels import (fake_quant, pareto_rank, quant_matmul,
-                                     ssd_scan, window_attn)
+    """The eight kernels' wrappers by name."""
+    from repro_torch.kernels import (fake_quant, mbconv_dw, pareto_rank,
+                                     quant_matmul, ssd_scan, window_attn)
     return {"packed_domination": pareto_rank.packed_domination,
             "domination_counts": pareto_rank.domination_counts,
             "peel_fronts": pareto_rank.peel_fronts,
             "quant_matmul": quant_matmul.quant_matmul,
             "ssd_scan": ssd_scan.ssd_scan,
             "window_attn": window_attn.window_attn,
-            "fake_quant_tensors": fake_quant.fake_quant_tensors}
+            "fake_quant_tensors": fake_quant.fake_quant_tensors,
+            "mbconv_dw": mbconv_dw.mbconv_dw}
 
 
 def first_vs_rest(times, first):
@@ -2208,9 +2219,13 @@ def fakequant_path(dev, card, kernels):
 
     spec_q = QuantSpec(bits=QAT_BITS)
     acc_q = quantized_eval(model, vx, vy, spec_q)
+    k8_before = kernels["mbconv_dw"].launches
     _, qat_s = timed(lambda: qat_finetune(
         model, spec_q, adamw(QAT_LR), batch_iterator(ds, 64, start_seed=500),
         steps=QAT_STEPS))
+    # QAT's steps take the blocks' chain of ops (grad enabled): no K8
+    assert kernels["mbconv_dw"].launches == k8_before, (
+        kernels["mbconv_dw"].launches, k8_before)
     acc_qat = quantized_eval(model, vx, vy, spec_q)
     print(f"QAT at {QAT_BITS} bits: float {acc_fp:.4f}, quantized "
           f"{acc_q:.4f}, after {QAT_STEPS} steps of adamw({QAT_LR}) "
@@ -2220,17 +2235,20 @@ def fakequant_path(dev, card, kernels):
     assert acc_qat >= 0.9 * acc_q, (acc_qat, acc_q)
     launches = {name: k.launches for name, k in kernels.items()}
     fq = launches.pop("fake_quant_tensors")
+    k8 = launches.pop("mbconv_dw")
     assert fq > 0 and all(v == 0 for v in launches.values()), (fq, launches)
     print(f"cnn_fakequant training, scoring and QAT: launches {launches}, "
           f"fake_quant_tensors (K7: stage weights, links, QAT's forwards) "
-          f"{fq}")
+          f"{fq}, mbconv_dw (K8: the scoring's and evaluations' forwards, "
+          f"none in QAT's steps) {k8}")
 
 
 def train_phase(dev, card):
     """Phase 13: the training side at full width, every kernel's launches
     counted over the phase (0 in every train step; K1/K2 only in the
     search that picks the oracle's cut vectors; K7 in the oracle's
-    scoring and QAT's fake-quantized forwards)."""
+    scoring and QAT's fake-quantized forwards; K8 in the scoring's and
+    the evaluations' forwards, none in QAT's steps)."""
     kernels = all_kernels()
     torch.cuda.synchronize()
     for k in kernels.values():
@@ -3844,6 +3862,153 @@ def fake_quant_phase(dev, card, records):
     torch.cuda.empty_cache()
 
 
+# phase 25: K8 at the CNN oracle's 16 MBConv blocks, 256 images at 224
+# (each block's own input, so every plane size, k, stride and prologue
+# the cell runs), then one scored cut vector at FQ_CUTS
+MB_IMAGES = 256
+
+
+def is_k8(name):
+    return "mbconv_dw_kernel" in name
+
+
+def mbconv_dw_bytes(e, d):
+    """K8's bytes bound of a call: E read once, D and the plane means
+    written once."""
+    return 4 * (e.numel() + d.numel() + d.shape[0] * d.shape[1])
+
+
+def mbconv_dw_phase(dev, card, records):
+    """Phase 25: the MBConv depthwise-unit kernel (K8) bit for bit against
+    its plain version (the block's chain of ops) at each of
+    EfficientNet-B0's 16 blocks on 256 images, timed beside the plain
+    version, the block's
+    layers run one by one (the ATen and cuDNN chain it replaces, the
+    yardstick) and the bytes bound; one scored oracle vector with K8's
+    launches read and no ATen depthwise convolution left.  Appends K8's
+    record."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.graph import linearize
+    from repro_torch.core.quant import QuantSpec
+    from repro_torch.kernels import mbconv_dw, ops
+    from repro_torch.models.cnn.blocks import MBConv
+    from repro_torch.models.cnn.zoo import build_cnn
+    from repro_torch.nn.layers import global_avg_pool
+    from repro_torch.obs import Obs
+    from repro_torch.quantize.evaluate import cnn_measured_accuracy
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    model = build_cnn("efficientnet_b0").init_weights(g, dev)
+    draw_statistics(model, torch.randn((CNN_CALIB, 3, 224, 224),
+                                       generator=g, device=dev), g)
+    model.eval()
+    blocks = [b for _, b in model.blocks if isinstance(b, MBConv)]
+    inputs = []
+    hooks = [b.register_forward_pre_hook(lambda m, a: inputs.append(a[0]))
+             for b in blocks]
+    x = torch.randn((MB_IMAGES, 3, 224, 224), generator=g, device=dev)
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    rows, worst = [], 0.0
+    with torch.no_grad():
+        for i, (blk, xi) in enumerate(zip(blocks, inputs)):
+            e = blk.exp.conv(xi) if blk.exp is not None else xi
+            args = (e, blk.dw.conv.w, blk.dw.conv.stride,
+                    blk.dw.bn.inference(),
+                    blk.exp.bn.inference() if blk.exp is not None else None)
+            d, m = ops.mbconv_dw(*args, impl="cuda")
+            rd, rm = ops.mbconv_dw(*args, impl="ref")
+            err = max(float((d - rd).abs().max() / rd.abs().max()),
+                      float((m - rm).abs().max() / rm.abs().max()))
+            worst = max(worst, err)
+            # the chain's bits: cuDNN's BatchNorm, ATen's sum, SiLU, mean
+            assert torch.equal(d.view(torch.int32), rd.view(torch.int32)) \
+                and torch.equal(m.view(torch.int32),
+                                rm.view(torch.int32)), (i, err)
+
+            def layers(blk=blk, e=e):
+                y = F.silu(blk.exp.bn(e)) if blk.exp is not None else e
+                y = blk.dw(y)
+                return y, global_avg_pool(y)
+
+            ms = cuda_ms(lambda: ops.mbconv_dw(*args, impl="cuda"), 20)
+            plain = cuda_ms(lambda: ops.mbconv_dw(*args, impl="ref"), 5)
+            lib = cuda_ms(layers, 5)
+            b_ms, _ = bound(mbconv_dw_bytes(e, d), 0)
+            dev_ms, _ = kernel_device_ms(
+                lambda: ops.mbconv_dw(*args, impl="cuda"), 1, is_k8)
+            rows.append((ms, plain, lib, b_ms, dev_ms))
+            share = ("not measured" if dev_ms is None
+                     else f"{100 * b_ms / dev_ms:.1f} %")
+            print(f"  mbconv_dw block {i} ({tuple(e.shape)}, k "
+                  f"{blk.dw.conv.k}, stride {blk.dw.conv.stride}, prologue "
+                  f"{blk.exp is not None}): kernel {ms:.4f} ms (device "
+                  f"{dev_ms if dev_ms is None else round(dev_ms, 4)}), plain "
+                  f"{plain:.4f} ms, the block's layers (library) {lib:.4f} "
+                  f"ms, bound {b_ms:.4f} ms (bytes), roofline share {share}, "
+                  f"max rel err {err:.2e} [{card}]")
+            del e, d, m, rd, rm
+    del inputs
+    tot = [sum(r[j] for r in rows) for j in range(4)]
+    dev_tot = (None if any(r[4] is None for r in rows)
+               else sum(r[4] for r in rows))
+    print(f"mbconv_dw: one forward's 16 launches at {MB_IMAGES} images: "
+          f"kernel {tot[0]:.4f} ms (device "
+          f"{dev_tot if dev_tot is None else round(dev_tot, 4)}), plain "
+          f"{tot[1]:.4f} ms, the blocks' layers {tot[2]:.4f} ms, bytes "
+          f"bound {tot[3]:.4f} ms [{card}]")
+
+    # one scored vector of the oracle, every stage quantized
+    schedule = linearize(model.to_graph(), "min_memory")
+    qspecs = [QuantSpec(b) for b in (16, 16, 8, 8)]
+    y = torch.zeros(MB_IMAGES, dtype=torch.int64, device=dev)
+    obs = Obs.on()
+    measure = cnn_measured_accuracy(model, schedule, x, y, qspecs, obs=obs)
+    before = mbconv_dw.mbconv_dw.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        measure(FQ_CUTS)
+        torch.cuda.synchronize()
+    launches = mbconv_dw.mbconv_dw.launches - before
+    counts = obs.metrics.snapshot()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    k8 = [e for e in kernels if is_k8(e.key)]
+    aten_dw = [e.key for e in kernels if "conv_depthwise2d" in e.key]
+    vec_k8 = sum(e.self_device_time_total for e in k8) / 1e3
+    vec_all = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"mbconv_dw: one oracle vector at cuts {FQ_CUTS} ({MB_IMAGES} "
+          f"images): K8 launches {launches} ({sum(e.count for e in k8)} in "
+          f"the trace, {vec_k8:.4f} ms of the device's {vec_all:.4f} ms), "
+          f"mbconv_dw.cuda {counts.get('mbconv_dw.cuda')}, .ref "
+          f"{counts.get('mbconv_dw.ref', 0)}, ATen depthwise kernels "
+          f"{len(aten_dw)} [{card}]")
+    assert launches == 16, launches
+    assert counts["mbconv_dw.cuda"] == 16, counts
+    assert "mbconv_dw.ref" not in counts, counts
+    assert not aten_dw, aten_dw
+    records.append(dict(
+        name="mbconv_dw", route="cuda",
+        source="src/repro_torch/kernels/csrc/mbconv_dw.cu",
+        replaces="none (repro/models/cnn/blocks.py's MBConv, fused by XLA)",
+        shape=f"EfficientNet-B0's 16 MBConv depthwise units at "
+              f"{MB_IMAGES} images: kernel "
+              f"{[round(r[0], 4) for r in rows]} ms (device "
+              f"{[r[4] and round(r[4], 4) for r in rows]}), plain "
+              f"{[round(r[1], 4) for r in rows]} ms, bound "
+              f"{[round(r[3], 4) for r in rows]} ms; one oracle vector: K8 "
+              f"{vec_k8:.4f} ms of the device's {vec_all:.4f} ms",
+        launches=launches,
+        launches_in=f"one oracle vector ({launches}: one a MBConv block)",
+        max_abs_err=worst, ms=tot[0], plain_ms=tot[1], bound_ms=tot[3],
+        bound_by="bytes", library_ms=tot[2], device_ms=dev_tot))
+    del model, x
+    torch.cuda.empty_cache()
+
+
 # the phases that stand alone (``--phases``): what each needs of no other
 ALONE = {
     "1": lambda dev, card, records: records.extend(check_kernels(dev)),
@@ -3857,6 +4022,7 @@ ALONE = {
     "22": granite_phase,
     "23": fake_quant_phase,
     "24": granite_small_phase,
+    "25": mbconv_dw_phase,
 }
 
 
@@ -3898,7 +4064,7 @@ def main(argv=None) -> int:
 
 
 def all_phases(dev, card):
-    """Phases 1-24; the kernels' records."""
+    """Phases 1-25; the kernels' records."""
     records = check_kernels(dev)
     check_ranking(dev)
     res = main_path(dev, records)
@@ -3930,6 +4096,7 @@ def all_phases(dev, card):
     granite_phase(dev, card, records)
     fake_quant_phase(dev, card, records)
     granite_small_phase(dev, card, records)
+    mbconv_dw_phase(dev, card, records)
     return records
 
 

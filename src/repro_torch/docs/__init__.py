@@ -49,7 +49,7 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     )),
     ("repro_torch.kernels.ops", (
         "packed_domination", "domination_counts", "window_attn", "ssd_scan",
-        "quant_matmul", "fake_quant_tensors",
+        "quant_matmul", "fake_quant_tensors", "mbconv_dw",
     )),
     ("repro_torch.serve", (
         "SlotScheduler", "PipelineServeEngine", "ReplicaRouter", "Request",

@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("pareto_rank.cu", "window_attn.cu", "ssd_scan.cu",
-           "quant_matmul.cu", "fake_quant.cu")
+           "quant_matmul.cu", "fake_quant.cu", "mbconv_dw.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,5 +1,6 @@
 """Kernel dispatch for the Pareto-ranking, attention, SSD-scan,
-fake-quant product and per-tensor fake-quantization primitives.
+fake-quant product, per-tensor fake-quantization and MBConv depthwise-unit
+primitives.
 
 ``impl`` resolution: ``'cuda'`` launches the hand-written kernel (the
 tensors must lie on a CUDA device, else it raises), ``'ref'`` runs the
@@ -14,6 +15,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import fake_quant as _fq
+from repro_torch.kernels import mbconv_dw as _mb
 from repro_torch.kernels import pareto_rank as _kern
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref as _ref
@@ -167,3 +169,22 @@ def fake_quant_tensors(xs: Sequence[torch.Tensor], spec, *,
     if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
         return list(_fq.StraightThrough.apply(spec, *xs))
     return _fq.fake_quant_tensors(xs, spec)
+
+
+# -- mbconv_dw --------------------------------------------------------------------
+
+def mbconv_dw(e: torch.Tensor, w: torch.Tensor, stride: int, bn: Sequence,
+              pre: Optional[Sequence] = None, *, impl: str = "auto"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MBConv depthwise unit: with ``pre`` the expansion's inference
+    BatchNorm and SiLU on ``e`` (N, C, H, W) float32 (the expansion
+    convolution's raw output), then the k x k depthwise convolution by
+    ``w`` (C, 1, k, k; k 3 or 5) at ``stride`` (1 or 2) padded k // 2,
+    ``bn``'s BatchNorm and SiLU; ``bn`` and ``pre`` are (running mean,
+    running variance, scale, bias, eps).  Returns (D, D's mean over each
+    plane (N, C)).  The kernel (K8) does it in one launch, bit for bit
+    the chain of ops on the card, with no gradient; ``ref`` is that
+    chain."""
+    if resolve_impl(impl, e) == "ref":
+        return _ref.mbconv_dw(e, w, stride, bn, pre)
+    return _mb.mbconv_dw(e, w, stride, bn, pre)

@@ -23,6 +23,11 @@ Quantized half: :func:`quant_matmul`, the fake-quant int8 product that
 ``kernels/csrc/fake_quant.cu`` computes for many tensors in two launches,
 here the chain of ATen ops on each tensor (:func:`scale_zp` and
 :func:`fake_quant`, which ``core.quant`` calls on every route).
+
+CNN half: :func:`mbconv_dw`, the MBConv depthwise unit that
+``kernels/csrc/mbconv_dw.cu`` computes in one pass, here the chain of ops
+the block runs (BatchNorm, SiLU, depthwise convolution, BatchNorm, SiLU,
+the squeeze-excite mean).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 # -- pareto_rank ---------------------------------------------------------------
@@ -274,3 +280,23 @@ def fake_quant_tensors(xs, spec) -> list:
                          "channel")
     return [fake_quant(x, *scale_zp(x.min(), x.max(), spec), spec)
             for x in xs]
+
+
+# -- mbconv_dw ----------------------------------------------------------------------
+
+def mbconv_dw(e: torch.Tensor, w: torch.Tensor, stride: int, bn,
+              pre=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MBConv depthwise unit as the block's chain of ops: with ``pre``
+    the expansion's inference BatchNorm and SiLU on ``e`` (N, C, H, W),
+    then the k x k depthwise convolution by ``w`` (C, 1, k, k) at
+    ``stride``, padded k // 2, and ``bn``'s BatchNorm and SiLU.  ``bn`` and
+    ``pre`` are (running mean, running variance, scale, bias, eps).
+    Returns (D, D's mean over each plane, (N, C))."""
+    if pre is not None:
+        e = F.silu(F.batch_norm(e, pre[0], pre[1], pre[2], pre[3], False,
+                                0.0, pre[4]))
+    k = w.shape[-1]
+    d = F.conv2d(e, w, None, stride, k // 2, 1, e.shape[1])
+    d = F.silu(F.batch_norm(d, bn[0], bn[1], bn[2], bn[3], False, 0.0,
+                            bn[4]))
+    return d, d.mean(dim=(2, 3))

@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.core import layers as GL
 from repro_torch.core.graph import LayerGraph
+from repro_torch.kernels import ops
 from repro_torch.nn.layers import BatchNorm2d, Conv2d, SqueezeExcite, max_pool
 
 
@@ -206,7 +207,14 @@ class Inception(nn.Module):
 
 
 class MBConv(nn.Module):
-    """EfficientNet MBConv with SE and silu."""
+    """EfficientNet MBConv with SE and silu.
+
+    The depthwise unit (the expansion's BatchNorm and SiLU, the depthwise
+    convolution, its BatchNorm and SiLU, the squeeze-excite mean) runs as
+    one call of ``kernels.ops.mbconv_dw`` in eval mode with grad disabled:
+    the hand-written kernel K8 on a CUDA tensor, its plain version (the
+    same chain of ops) on the CPU.  In training mode (batch statistics) or
+    with grad enabled the block runs its layers one by one."""
 
     def __init__(self, cin, cout, k, stride, expand, se_ratio=0.25):
         super().__init__()
@@ -219,9 +227,23 @@ class MBConv(nn.Module):
         self.cout = cout
         self.mid = mid
 
+    def dw_route(self, x: torch.Tensor) -> str:
+        """Where the depthwise unit runs on ``x``: ``"cuda"`` (K8) or
+        ``"ref"`` (the chain of ops, as one call or layer by layer)."""
+        return ("cuda" if x.is_cuda and not self.training
+                and not torch.is_grad_enabled() else "ref")
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.exp(x) if self.exp is not None else x
-        y = self.proj(self.se(self.dw(y)))
+        if self.training or torch.is_grad_enabled():
+            y = self.exp(x) if self.exp is not None else x
+            y = self.proj(self.se(self.dw(y)))
+        else:
+            e = self.exp.conv(x) if self.exp is not None else x
+            y, pooled = ops.mbconv_dw(
+                e, self.dw.conv.w, self.dw.conv.stride,
+                self.dw.bn.inference(),
+                self.exp.bn.inference() if self.exp is not None else None)
+            y = self.proj(self.se.excite(y, pooled))
         return y + x if self.skip else y
 
     def emit(self, gb, cin, hw, after):

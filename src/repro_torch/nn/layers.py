@@ -153,6 +153,11 @@ class BatchNorm2d(nn.Module):
         self.mean.zero_()
         self.var.fill_(1.0)
 
+    def inference(self) -> tuple:
+        """(running mean, running variance, scale, bias, eps): what the
+        eval-mode forward normalises with."""
+        return self.mean, self.var, self.scale, self.bias, self.eps
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale,
@@ -192,9 +197,14 @@ class SqueezeExcite(nn.Module):
         self.fc1 = Dense(c, reduced)
         self.fc2 = Dense(reduced, c)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = torch.sigmoid(self.fc2(F.silu(self.fc1(global_avg_pool(x)))))
+    def excite(self, x: torch.Tensor, pooled: torch.Tensor) -> torch.Tensor:
+        """``x`` scaled by its channels' gates, from ``pooled``, x's mean
+        over each plane (N, C)."""
+        s = torch.sigmoid(self.fc2(F.silu(self.fc1(pooled))))
         return x * s[:, :, None, None]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.excite(x, global_avg_pool(x))
 
 
 # activation modules ---------------------------------------------------------

@@ -40,7 +40,9 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   counters ``fake_quant_tensors.cuda`` and ``fake_quant_tensors.ref`` (each
   tensor the runner fake-quantizes, a stage's weights and each link's
   activation, by the path it takes: the fake-quant kernel pair K7 or the
-  plain chain of ATen ops);
+  plain chain of ATen ops), ``mbconv_dw.cuda`` and ``mbconv_dw.ref``
+  (each MBConv block the runner runs, by its depthwise unit's route: the
+  kernel K8 or the plain chain of ops);
 * the LM oracle (``obs=`` of ``lm_measured_accuracy`` and, for the mixed
   family, ``PartitionedLMRunner``; track ``oracle``): the same spans, each
   ``oracle.stage`` with ``stage``, ``mamba`` and ``attention`` (the mixers

@@ -40,6 +40,8 @@ from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.serving.engine import sync
 
 TRACK = "oracle"     # the partitioned runners' spans' track
+# counters .cuda / .ref: MBConv blocks run, by their depthwise unit's route
+MBCONV_DW = "mbconv_dw"
 SSM_SCAN_CALLS = "ssm_scan_calls"   # counters .cuda / .ref: Mamba2 scans
 
 def def4_throughput(stage_latencies: Sequence[float],
@@ -97,7 +99,10 @@ class PartitionedCNNRunner:
     ``oracle.link`` a link fake-quant (``bytes``), and counts the tensors
     it fake-quantizes, weights and links, in ``fake_quant_tensors.cuda``
     (K7) or ``fake_quant_tensors.ref`` (the chain), by the route
-    :func:`~repro_torch.core.quant.quantize_tensors` takes.
+    :func:`~repro_torch.core.quant.quantize_tensors` takes, and the MBConv
+    blocks it runs in ``mbconv_dw.cuda`` (their depthwise unit through
+    K8) or ``mbconv_dw.ref`` (the chain of ops), by the block's
+    ``dw_route``.
     """
 
     def __init__(self, model, cuts: Sequence[int],
@@ -143,6 +148,9 @@ class PartitionedCNNRunner:
 
     def _run_stage(self, i: int, x: torch.Tensor) -> torch.Tensor:
         for (_, b), p in zip(self.stage_blocks[i], self.stage_params[i]):
+            if self.obs.enabled and hasattr(b, "dw_route"):
+                self.obs.metrics.counter(
+                    f"{MBCONV_DW}.{b.dw_route(x)}").inc()
             x = b(x) if p is None else functional_call(b, p, (x,))
         return x
 

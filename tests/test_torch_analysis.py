@@ -492,6 +492,7 @@ def test_rpt202_evaluates_the_wrappers_list_forms(tmp_path):
 def test_kernel_wrappers_are_the_five_counted_ones():
     assert kernel_wrappers(str(KERNELS)) == [
         "repro_torch.kernels.fake_quant.fake_quant_tensors",
+        "repro_torch.kernels.mbconv_dw.mbconv_dw",
         "repro_torch.kernels.pareto_rank.domination_counts",
         "repro_torch.kernels.pareto_rank.packed_domination",
         "repro_torch.kernels.pareto_rank.peel_fronts",

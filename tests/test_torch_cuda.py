@@ -8,6 +8,7 @@ on a machine that has no JAX:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -20,8 +21,9 @@ from repro_torch.core.quant import (QuantSpec, calibrate,  # noqa: E402
                                     compute_scale_zp, quantize_tensor,
                                     quantize_tensors)
 from repro_torch.core.quant import fake_quant as fake_quant_chain  # noqa: E402
-from repro_torch.kernels import (fake_quant, ops, pareto_rank,  # noqa: E402
-                                 quant_matmul, ref, ssd_scan, window_attn)
+from repro_torch.kernels import (fake_quant, mbconv_dw, ops,  # noqa: E402
+                                 pareto_rank, quant_matmul, ref, ssd_scan,
+                                 window_attn)
 from repro_torch import testing  # noqa: E402
 from repro_torch.models.decoder import DecoderLM  # noqa: E402
 from repro_torch.models.cnn.zoo import build_cnn, reduced_cnn  # noqa: E402
@@ -662,6 +664,144 @@ def test_oracle_vector_runs_k7_twice_a_stage_and_a_link(cuda_device):
     snap = obs.metrics.snapshot()
     assert snap["fake_quant_tensors.cuda"] == 82 + stages - 1
     assert "fake_quant_tensors.ref" not in snap
+
+
+# -- mbconv_dw (K8) -------------------------------------------------------------
+
+# EfficientNet-B0's 16 depthwise units at 224: (channels, input plane, k,
+# stride, prologue: the expansion's BatchNorm and SiLU on load)
+MB_SHAPES = [(32, 112, 3, 1, False), (96, 112, 3, 2, True),
+             (144, 56, 3, 1, True), (144, 56, 5, 2, True),
+             (240, 28, 5, 1, True), (240, 28, 3, 2, True),
+             (480, 14, 3, 1, True), (480, 14, 3, 1, True),
+             (480, 14, 5, 1, True), (672, 14, 5, 1, True),
+             (672, 14, 5, 1, True), (672, 14, 5, 2, True),
+             (1152, 7, 5, 1, True), (1152, 7, 5, 1, True),
+             (1152, 7, 5, 1, True), (1152, 7, 3, 1, True)]
+
+
+def mb_args(n, c, h, k, pro, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    def bn():
+        var = torch.rand(c, generator=g, device=device) * 3 + 0.1
+        return (t(c), var, torch.rand(c, generator=g, device=device) + 0.5,
+                t(c) * 0.5, 1e-5)
+
+    return t(n, c, h, h) * 2 + 0.3, t(c, 1, k, k) * 0.4, bn(), \
+        (bn() if pro else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i", range(len(MB_SHAPES)))
+def test_mbconv_dw_kernel_matches_plain_version(cuda_device, i):
+    """K8 at each of the CNN oracle's 16 block shapes (batch 8) against the
+    block's chain of ops on the card: D and the plane means bit for bit
+    (cuDNN's BatchNorm, ATen's depthwise sum, SiLU and mean order), one
+    launch."""
+    c, h, k, stride, pro = MB_SHAPES[i]
+    e, w, bn, pre = mb_args(8, c, h, k, pro, cuda_device, i)
+    before = mbconv_dw.mbconv_dw.launches
+    d, m = ops.mbconv_dw(e, w, stride, bn, pre)
+    assert mbconv_dw.mbconv_dw.launches == before + 1
+    want_d, want_m = ops.mbconv_dw(e, w, stride, bn, pre, impl="ref")
+    assert torch.equal(d.view(torch.int32), want_d.view(torch.int32))
+    assert torch.equal(m.view(torch.int32), want_m.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_mbconv_dw_kernel_refuses_float64(cuda_device):
+    """A float64 CUDA tensor on the K8 route raises before any launch (no
+    fall back to the chain), from the wrapper and from the block."""
+    e, w, bn, pre = mb_args(2, 8, 14, 3, True, cuda_device, 0)
+    before = mbconv_dw.mbconv_dw.launches
+    with pytest.raises(TypeError, match="float32"):
+        ops.mbconv_dw(e.double(), w, 1, bn, pre)
+    model = reduced_cnn("efficientnet_b0").init_weights(
+        torch.Generator(device=cuda_device).manual_seed(0),
+        cuda_device).eval().double()
+    with torch.no_grad(), pytest.raises(TypeError, match="float32"):
+        model(torch.zeros((1, 3, 32, 32), dtype=torch.float64,
+                          device=cuda_device))
+    assert mbconv_dw.mbconv_dw.launches == before
+
+
+@pytest.mark.cuda
+def test_training_and_grad_take_the_chain_on_the_card(cuda_device):
+    """QAT's route: with grad enabled, or in training mode, no block
+    launches K8."""
+    model = reduced_cnn("efficientnet_b0").init_weights(
+        torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    x = torch.randn((4, 3, 32, 32), device=cuda_device, requires_grad=True)
+    before = mbconv_dw.mbconv_dw.launches
+    model.eval()
+    model(x).sum().backward()
+    assert x.grad is not None
+    model.train()
+    with torch.no_grad():
+        model(x)
+    assert mbconv_dw.mbconv_dw.launches == before
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    assert mbconv_dw.mbconv_dw.launches == before + 16
+
+
+@pytest.mark.cuda
+def test_oracle_vector_runs_k8_sixteen_times(cuda_device):
+    """One scored cut vector of the CNN oracle at full size: K8 launches
+    16 times (``mbconv_dw.cuda`` 16, no ``.ref``) and ATen's depthwise
+    convolution no more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.graph import linearize
+    from repro_torch.obs import Obs
+    from repro_torch.quantize.evaluate import cnn_measured_accuracy
+    torch.backends.cudnn.allow_tf32 = False
+    model = effnet_b0(cuda_device)
+    schedule = linearize(model.to_graph(), "min_memory")
+    specs = [QuantSpec(b) for b in (16, 16, 8, 8)]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((8, 3, 224, 224), generator=g, device=cuda_device)
+    y = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    obs = Obs.on()
+    measure = cnn_measured_accuracy(model, schedule, x, y, specs, obs=obs)
+    before = mbconv_dw.mbconv_dw.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        measure((20, 90, 150))
+        torch.cuda.synchronize()
+    assert mbconv_dw.mbconv_dw.launches == before + 16
+    snap = obs.metrics.snapshot()
+    assert snap["mbconv_dw.cuda"] == 16 and "mbconv_dw.ref" not in snap
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+    assert not [n for n in names if "conv_depthwise2d" in n], names
+    assert sum(e.count for e in prof.key_averages()
+               if "mbconv_dw_kernel" in e.key) == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cuts", [[2], [4, 9], [1, 7, 12]])
+def test_cnn_runner_through_k8_against_the_chain(cuda_device, cuts,
+                                                 monkeypatch):
+    """The partitioned runner's logits through K8 against the same runner
+    with every block on the chain of ops, at full size: within 1e-4 of
+    the largest logit (in fact bit for bit)."""
+    from repro_torch.models.cnn import blocks
+    torch.backends.cudnn.allow_tf32 = False
+    model = effnet_b0(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    x = torch.randn((8, 3, 224, 224), generator=g, device=cuda_device)
+    runner = PartitionedCNNRunner(model, cuts)
+    got, _ = runner.run(x)
+    chain_route = functools.partial(ops.mbconv_dw, impl="ref")
+    monkeypatch.setattr(blocks.ops, "mbconv_dw", chain_route)
+    want, _ = runner.run(x)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
 
 
 @pytest.mark.cuda

@@ -455,4 +455,4 @@ def test_runner_counts_fake_quant_tensors_under_the_documented_names(
         [(0, 4), (4, 10), (10, 15), (15, 19)], specs) if s is not None
         for _, blk in effnet_b0.blocks[a:b] for p in blk.parameters())
     assert obs.metrics.snapshot() == {f"{FAKE_QUANT_TENSORS}.ref":
-                                      weights + 2}
+                                      weights + 2, "mbconv_dw.ref": 16}

@@ -75,6 +75,8 @@ inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); retu
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __int_as_float(int32_t i) { float f; std::memcpy(&f, &i, 4); return f; }
 inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+inline unsigned __umulhi(unsigned a, unsigned b) { return (unsigned)(((uint64_t)a * b) >> 32); }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline int atomicAdd(int32_t* a, int32_t v) { return __atomic_fetch_add(a, v, __ATOMIC_RELAXED); }
 inline uint32_t atomicOr(uint32_t* a, uint32_t v) { return __atomic_fetch_or(a, v, __ATOMIC_RELAXED); }
 template <class T> inline T __ldg(const T* p) { return *p; }
@@ -123,6 +125,15 @@ template <class T> inline T shim_shfl(T v, int src) {
 }
 inline int __shfl_sync(unsigned, int v, int src) { return shim_shfl(v, src % 32); }
 inline int __shfl_xor_sync(unsigned, int v, int m) { return shim_shfl(v, (threadIdx.x % 32) ^ m); }
+inline float __shfl_down_sync(unsigned, float v, int d, int w = 32) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float* buf = &g_block->shfl[warp * 32];
+  buf[lane] = v;
+  warp_sync();
+  const float r = lane % w + d < w ? buf[lane + d] : v;
+  warp_sync();
+  return r;
+}
 inline float __shfl_xor_sync(unsigned, float v, int m, int w = 32) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   float* buf = &g_block->shfl[warp * 32];

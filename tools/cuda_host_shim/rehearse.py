@@ -14,7 +14,8 @@ barrier of all their threads, ``__shfl_sync``, ``__all_sync``,
 ``atomicOr``, ``__ldcg`` and the occupancy queries of a card of three
 multiprocessors) and what ``quant_matmul.cu`` uses (``__byte_perm``,
 ``__ldg``, ``cudaGetDevice``); ``fake_quant.cu`` (K7) needs only
-``__grid_constant__`` besides.  The library is
+``__grid_constant__`` besides, ``mbconv_dw.cu`` (K8) ``__umulhi``,
+``__shfl_down_sync`` and ``rsqrtf`` (the host's 1 / sqrt).  The library is
 built with AddressSanitizer, so a read past a buffer stops the run.  The
 kernels are then held against their plain PyTorch versions at small
 shapes, the int8 product bit for bit against
@@ -22,7 +23,10 @@ shapes, the int8 product bit for bit against
 call, not a measurement (the shim sums each TF32 ``mma`` in double and
 rounds to nearest; the card does not; its int8 ``mma`` is exact, as the
 card's).  K7 is held bit for bit against the ATen chain as the card runs
-it (:func:`card_chain`).
+it (:func:`card_chain`), K8 against the block's chain of ops within 1e-5
+of the largest output (the host's expf, the CPU's BatchNorm and mean) and
+its plane means bit for bit against ATen's CUDA mean order on its own D
+(:func:`card_mean`).
 
     LD_PRELOAD=$(g++ -print-file-name=libasan.so) ASAN_OPTIONS=detect_leaks=0 \\
         PYTHONPATH=src python3 tools/cuda_host_shim/rehearse.py [out_dir]
@@ -289,6 +293,112 @@ def fake_quant(lib, sizes, spec, seed, skew=0, special=None):
     return ok
 
 
+def mean_plan(nc, hw):
+    """ATen's reduction config of a float mean over nc planes of hw values
+    (``Reduce.cuh``'s ``setReduceConfig``), as K8's ``mean_plan``: (loads
+    of 4, lanes a row, rows, a row's first load, the step between a lane's
+    loads)."""
+    def last_pow2(n):
+        return 1 << (n.bit_length() - 1)
+    dim0 = hw // 4 if hw >= 128 else hw
+    dim0_pow2 = last_pow2(dim0) if dim0 < 512 else 512
+    dim1_pow2 = last_pow2(nc) if nc < 512 else 512
+    bw = min(dim0_pow2, 32)
+    bh = min(dim1_pow2, 512 // bw)
+    bw = min(dim0_pow2, 512 // bh)
+    step = bw
+    if -(-hw // step) >= min(bh * 16, 256):
+        return hw >= 128, bw, bh, step, step * bh
+    return hw >= 128, bw, 1, 0, step
+
+
+def card_mean(d):
+    """Each (n, c) plane's mean of d as ATen's CUDA mean kernel sums it:
+    each lane's four accumulators over its loads, combined, a halving tree
+    over each row's lanes and one over the rows, times the float factor
+    num_outputs / numel (every step a float32 add, so the host gives the
+    card's bits).  Planes that start on 16 bytes only."""
+    n, c, h, w = d.shape
+    hw = h * w
+    assert hw % 4 == 0 or hw < 128
+    vec, bw, ny, im1, step = mean_plan(n * c, hw)
+    flat = d.reshape(n * c, hw)
+    zero = torch.zeros(n * c)
+    lanes = torch.zeros((n * c, ny, bw))
+    for y in range(ny):
+        for x in range(bw):
+            acc = [zero.clone() for _ in range(4)]
+            idx = x + y * im1
+            if vec:
+                while idx * 4 + 3 < hw:
+                    for i in range(4):
+                        acc[i] = acc[i] + flat[:, idx * 4 + i]
+                    idx += step
+                tail = hw - hw % 4 + x
+                if (ny == 1 or y == 0) and tail < hw:
+                    acc[0] = acc[0] + flat[:, tail]
+            else:
+                while idx + 3 * step < hw:
+                    for i in range(4):
+                        acc[i] = acc[i] + flat[:, idx + i * step]
+                    idx += 4 * step
+                for i in range(4):
+                    if idx >= hw:
+                        break
+                    acc[i] = acc[i] + flat[:, idx]
+                    idx += step
+            lanes[:, y, x] = ((acc[0] + acc[1]) + acc[2]) + acc[3]
+    off = bw // 2
+    while off:
+        lanes[:, :, :off] = lanes[:, :, :off] + lanes[:, :, off:2 * off]
+        off //= 2
+    off = ny // 2
+    while off:
+        lanes[:, :off, 0] = lanes[:, :off, 0] + lanes[:, off:2 * off, 0]
+        off //= 2
+    factor = torch.tensor(n * c, dtype=torch.float32) / torch.tensor(
+        n * c * hw, dtype=torch.float32)
+    return (lanes[:, 0, 0] * factor).view(n, c)
+
+
+def mbconv_dw(lib, n, c, h, w, k, stride, pro, seed, skew=0):
+    """K8 on e (n, c, h, w) starting ``skew`` floats into its buffer (off
+    16 bytes when skew % 4: the scalar loads), D and the plane means
+    against ``ref.mbconv_dw`` relative to their largest magnitude."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale
+                                 + shift).astype(np.float32))
+
+    def bn():
+        var = torch.from_numpy(rng.uniform(0.1, 3.0, c).astype(np.float32))
+        return (t(c), var, t(c, scale=0.3, shift=1.0), t(c, scale=0.5), 1e-5)
+
+    e = t(n * c * h * w + skew, scale=2.0, shift=0.3)[skew:].view(n, c, h, w)
+    wt = t(c, 1, k, k, scale=0.4)
+    post, pre = bn(), bn() if pro else None
+    want_d, want_m = ref.mbconv_dw(e, wt, stride, post, pre)
+    d = torch.full_like(want_d, float("nan"))
+    pooled = torch.full_like(want_m, float("nan"))
+    pre_args = ([x.data_ptr() for x in pre[:4]] + [pre[4]] if pro
+                else [None] * 4 + [0.0])
+    code = lib.mbconv_dw_launch(
+        e.data_ptr(), wt.data_ptr(), d.data_ptr(), pooled.data_ptr(),
+        *pre_args, *(x.data_ptr() for x in post[:4]), post[4], n, c, h, w,
+        k, stride, int(pro), None)
+    err_d = float((d - want_d).abs().max() / want_d.abs().max())
+    err_m = float((pooled - want_m).abs().max() / want_m.abs().max())
+    # the means of the kernel's own D in ATen's CUDA order: bit for bit
+    exact = same_bits(pooled, card_mean(d))
+    ok = code == 0 and err_d <= 1e-5 and err_m <= 1e-5 and exact
+    print(f"mbconv_dw n {n} c {c} {h}x{w} k {k} stride {stride} prologue "
+          f"{int(pro)} skew {skew}: D {err_d:.2e}, means {err_m:.2e} of "
+          f"their largest, means {'bit for bit' if exact else 'NOT'} "
+          f"ATen's order{'' if ok else '  FAILED'}", flush=True)
+    return ok
+
+
 def main() -> int:
     out = Path(sys.argv[1]) if len(sys.argv) > 1 else Path(tempfile.mkdtemp())
     out.mkdir(parents=True, exist_ok=True)
@@ -313,8 +423,32 @@ def main() -> int:
                                      + [i_] * 4 + [p_])
     fq.fake_quant_scratch_floats.argtypes = [p_, i_]
     fq.fake_quant_scratch_floats.restype = ctypes.c_longlong
+    mb = build(CSRC / "mbconv_dw.cu", out / "mbconv_dw.so")
+    f_ = ctypes.c_float
+    mb.mbconv_dw_launch.argtypes = ([p_] * 8 + [f_] + [p_] * 4 + [f_]
+                                    + [i_] * 7 + [p_])
+    # EfficientNet-B0's 16 depthwise shapes (its planes, k, stride,
+    # prologue) at few channels, then odd planes, ragged runs, stride 2 on
+    # odd sizes, rectangles and unaligned starts
+    ok = [mbconv_dw(mb, n, c, h, h, k, s, pro, seed=i)
+          for i, (n, c, h, k, s, pro) in enumerate((
+              (1, 2, 112, 3, 1, False), (1, 2, 112, 3, 2, True),
+              (1, 3, 56, 3, 1, True), (1, 3, 56, 5, 2, True),
+              (1, 4, 28, 5, 1, True), (1, 4, 28, 3, 2, True),
+              (2, 9, 14, 3, 1, True), (2, 9, 14, 5, 1, True),
+              (2, 9, 14, 5, 2, True), (2, 33, 7, 5, 1, True),
+              (2, 33, 7, 3, 1, True), (1, 5, 7, 3, 2, True),
+              (1, 5, 7, 5, 2, False), (1, 3, 13, 5, 2, True),
+              (3, 7, 9, 3, 1, True), (1, 40, 1, 3, 1, True),
+              (1, 3, 2, 5, 2, True)))]
+    ok += [mbconv_dw(mb, 2, 3, 9, 11, 3, 1, True, seed=20),
+           mbconv_dw(mb, 1, 5, 15, 6, 5, 2, True, seed=21),
+           mbconv_dw(mb, 2, 9, 14, 14, 5, 1, True, seed=22, skew=1),
+           mbconv_dw(mb, 3, 5, 7, 7, 3, 2, True, seed=23, skew=3),
+           mbconv_dw(mb, 3, 7, 12, 12, 3, 1, True, seed=24),
+           mbconv_dw(mb, 2, 6, 8, 4, 5, 2, False, seed=25)]
     Q = quant.QuantSpec
-    ok = [fake_quant(fq, sizes, spec, seed=i, skew=skew, special=special)
+    ok += [fake_quant(fq, sizes, spec, seed=i, skew=skew, special=special)
           for i, (sizes, spec, skew, special) in enumerate((
               ((1, 3, 4, 5, 100, 1000, 8193, 20000), Q(8), 0, None),
               ((7, 64, 8192, 16385), Q(16), 1, None),
