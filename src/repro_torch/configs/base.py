@@ -17,7 +17,8 @@ has none of them); each defaults to the behaviour every other config has:
 * ``experts_held``: ``(first, count)``, the routed experts this device
   holds of every expert layer (expert parallelism: the router keeps all
   ``n_experts`` outputs, the layer computes its own experts' part); None
-  for all of them.  Read by the ``mixed`` family's expert layers;
+  for all of them.  Read by the ``mixed`` family's expert layers and by
+  the ``moe`` family's on the ``noaux_tc`` route;
 * ``embedding_multiplier``, ``residual_multiplier``, ``logits_scaling``:
   the token embeddings times the first, each residual branch times the
   second, the logits divided by the third (muP; read by the ``mixed``
@@ -25,13 +26,42 @@ has none of them); each defaults to the behaviour every other config has:
 * ``attention_scale``: the softmax scale of the attention scores, None for
   1/sqrt(head_dim); ``rope``: rotary position embeddings on q and k
   (False: no positional encoding);
-* ``norm_eps``: the eps of every RMSNorm of the LM families.
+* ``norm_eps``: the eps of every RMSNorm of the LM families;
+* ``rope_scaling``: YaRN's scaling of MLA's rotary frequencies and of its
+  softmax scale (:class:`RopeScaling`; DeepSeek-V3), None for plain RoPE;
+* ``n_group``, ``topk_group``, ``routed_scaling_factor``: the ``moe``
+  family's ``noaux_tc`` route (DeepSeek-V3) when ``n_group`` >= 1: sigmoid
+  scores plus each layer's correction bias choose the experts, within
+  the best ``topk_group`` of ``n_group`` equal groups (a group scored by
+  the sum of its two best), top ``top_k``, dropless; the chosen experts'
+  unbiased scores, renormalised, times ``routed_scaling_factor`` weigh
+  them.  ``n_group`` 0 (the default) keeps the family's capacity route;
+* ``graph_mla``: the layer graph counts an MLA layer as MLA
+  (``core.layers.mla_layer``: its latent projections, decompressions and
+  causal core); False keeps the JAX package's count, which takes MLA for
+  GQA at ``n_heads`` x ``head_dim`` (its twins' graphs equal its own).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN (arXiv:2309.00071) as DeepSeek-V3's ``config.json`` states it
+    under ``rope_scaling``: the rotary frequencies of the context ``factor``
+    times ``original_max_position_embeddings``, and the scales ``mscale``
+    and ``mscale_all_dim`` (``nn.attention.yarn_inv_freq`` and
+    ``yarn_mscale`` give the equations)."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,9 +73,13 @@ class ModelConfig:
     ``residual_multiplier`` and ``logits_scaling`` (muP, the mixed family
     only), ``attention_scale`` (None: 1/sqrt(head_dim)), ``rope`` (False:
     no positional encoding), ``norm_eps`` (every RMSNorm's eps, 1e-6 by
-    default) and ``experts_held`` (the mixed family's held share of its
-    routed experts, ``(first, count)``; None: all).  Each defaults to the
-    behaviour of the configs that have no such field.  In the mixed family
+    default), ``experts_held`` (the held share of the routed experts,
+    ``(first, count)``; None: all), ``rope_scaling`` (MLA's YaRN, None:
+    plain RoPE) and the ``noaux_tc`` route's ``n_group``, ``topk_group``
+    and ``routed_scaling_factor`` (``n_group`` 0: the moe family's
+    capacity route) and ``graph_mla`` (the graph counts MLA as MLA, not
+    as GQA).  Each defaults to the behaviour of the configs that have no
+    such field.  In the mixed family
     ``n_experts`` > 0 puts an expert layer after every mixer in place of
     the MLP (``d_ff`` then the shared expert's width)."""
 
@@ -104,6 +138,11 @@ class ModelConfig:
     rope: bool = True
     norm_eps: float = 1e-6
     experts_held: Optional[Tuple[int, int]] = None
+    rope_scaling: Optional[RopeScaling] = None
+    n_group: int = 0
+    topk_group: int = 0
+    routed_scaling_factor: float = 1.0
+    graph_mla: bool = False
 
     def __post_init__(self):
         mixed = self.family == "mixed"
@@ -124,14 +163,38 @@ class ModelConfig:
             raise ValueError(f"{self.arch_id}: the mixed family's expert "
                              f"layer needs top_k in 1 .. n_experts and "
                              f"moe_d_ff")
+        noaux = self.n_group > 0
+        if noaux:
+            e, g = self.n_experts, self.n_group
+            if self.family != "moe" or not (
+                    e % g == 0 and e // g >= 2
+                    and 1 <= self.topk_group <= g
+                    and 0 < self.top_k <= self.topk_group * e // g):
+                raise ValueError(
+                    f"{self.arch_id}: the noaux_tc route takes the moe "
+                    f"family's n_experts in n_group equal groups of at "
+                    f"least 2, topk_group in 1 .. n_group and top_k in 1 "
+                    f".. topk_group x the group's experts")
+        elif (self.topk_group, self.routed_scaling_factor) != (0, 1.0):
+            raise ValueError(f"{self.arch_id}: topk_group and "
+                             f"routed_scaling_factor are read by the "
+                             f"noaux_tc route (n_group >= 1) only")
         if self.experts_held is not None:
             first, count = self.experts_held
-            if not mixed or not (self.n_experts and 0 <= first and
-                                 1 <= count <= self.n_experts - first):
+            if not (mixed or noaux) or not (
+                    self.n_experts and 0 <= first and
+                    1 <= count <= self.n_experts - first):
                 raise ValueError(f"{self.arch_id}: experts_held "
                                  f"{self.experts_held} is a (first, count) "
-                                 f"share of the mixed family's "
-                                 f"{self.n_experts} experts")
+                                 f"share of the {self.n_experts} experts of "
+                                 f"the mixed family or of the moe family's "
+                                 f"noaux_tc route")
+        if self.rope_scaling is not None and not self.use_mla:
+            raise ValueError(f"{self.arch_id}: rope_scaling (YaRN) is read "
+                             f"by MLA only")
+        if self.graph_mla and not self.use_mla:
+            raise ValueError(f"{self.arch_id}: graph_mla counts MLA layers; "
+                             f"the config has none")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -190,6 +253,9 @@ class ModelConfig:
             mtp=min(self.mtp, 1),
             remat=False,
             experts_held=None,
+            # 4 experts in 2 groups, the best one kept
+            n_group=min(self.n_group, 2),
+            topk_group=min(self.topk_group, 1),
         )
 
 

@@ -202,10 +202,11 @@ def _cnn_fakequant_measure(graph=None, schedule=None, system=None,
 def _lm_fakequant_measure(graph=None, schedule=None, system=None,
                           device="cuda", *, name: str, seq: int,
                           batch: int = 1, reduced: bool = False):
-    """Built-in measured oracle for an LM of the mixed family: the registry
-    model ``name`` (``reduced()`` when asked) on the search's ``device``,
-    weights drawn from a generator seeded 0, ``batch`` sequences of ``seq``
-    tokens drawn uniformly from the vocabulary by the same generator,
+    """Built-in measured oracle for an LM of the mixed or moe family: the
+    registry model ``name`` (``reduced()`` when asked) on the search's
+    ``device``, weights drawn from a generator seeded 0, ``batch``
+    sequences of ``seq`` tokens drawn uniformly from the vocabulary by the
+    same generator,
     the labels the float model's top-1 at each next-token position, and
     per cut vector the partitioned fake-quant inference
     (``repro_torch.quantize.evaluate.lm_measured_accuracy``), weights at

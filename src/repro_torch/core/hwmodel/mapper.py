@@ -117,6 +117,17 @@ def decompose(layer: L.LayerInfo) -> Tuple[List[GemmAtom], int]:
                  GemmAtom(hd, ctx, seq * h, weight_resident=False),  # p·v
                  GemmAtom(d, h * hd, seq)]                         # out proj
         return atoms, seq * h * ctx  # softmax
+    if op == L.MLA:
+        seq, d = layer.in_shape
+        h, ql, kvl = a["n_heads"], a["q_lora_rank"], a["kv_lora_rank"]
+        nope, rd, vd = a["qk_nope_dim"], a["qk_rope_dim"], a["v_head_dim"]
+        atoms = [GemmAtom(ql + kvl + rd, d, seq),                 # latents
+                 GemmAtom(h * (nope + rd), ql, seq),               # W_uq
+                 GemmAtom(h * (nope + vd), kvl, seq),              # W_uk, W_uv
+                 GemmAtom(seq, nope + rd, seq * h, weight_resident=False),
+                 GemmAtom(vd, seq, seq * h, weight_resident=False),
+                 GemmAtom(d, h * vd, seq)]                         # out proj
+        return atoms, seq * h * seq  # softmax
     if op == L.SSM:
         seq, d = layer.in_shape
         d_in, d_st = a["d_inner"], a["d_state"]

@@ -33,9 +33,11 @@ ATTENTION = "Attention"       # fused decoder-attention block node (LLM graphs)
 SSM = "SSM"                   # fused Mamba2 mixer node
 MOE = "MoE"                   # fused MoE FFN node
 MLP = "Mlp"                   # fused transformer FFN node
+MLA = "MLA"                   # fused multi-head latent attention node
 IDENTITY = "Identity"
 
-MACCY_OPS = frozenset({CONV, GEMM, DWCONV, ATTENTION, SSM, MOE, MLP, EMBED})
+MACCY_OPS = frozenset({CONV, GEMM, DWCONV, ATTENTION, SSM, MOE, MLP, EMBED,
+                       MLA})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -175,6 +177,32 @@ def attention_layer(name: str, d_model: int, n_heads: int, n_kv: int,
                             "window": window, "qk_norm": qk_norm})
 
 
+def mla_layer(name: str, d_model: int, n_heads: int, seq: int,
+              q_lora_rank: int, kv_lora_rank: int, qk_nope_dim: int,
+              qk_rope_dim: int, v_head_dim: int) -> LayerInfo:
+    """Multi-head latent attention (DeepSeek-V2/V3), decompressed as a
+    prefill runs it: the latent projections ``W_dq`` (d, q_lora),
+    ``W_dkv`` (d, kv_lora) and the shared rope key ``W_kr`` (d, qk_rope)
+    with the two latent norms, the decompressions ``W_uq`` (q_lora, H x
+    (qk_nope + qk_rope)), ``W_uk`` (kv_lora, H x qk_nope) and ``W_uv``
+    (kv_lora, H x v), and ``W_o`` (H x v, d).  Its products: every
+    projection at every token, and the causal core, q kᵀ at qk_nope +
+    qk_rope and p v at v over the seq (seq + 1) / 2 pairs of each head."""
+    h, qk = n_heads, qk_nope_dim + qk_rope_dim
+    proj = (d_model * (q_lora_rank + kv_lora_rank + qk_rope_dim)
+            + q_lora_rank * h * qk + kv_lora_rank * h * qk_nope_dim
+            + kv_lora_rank * h * v_head_dim + h * v_head_dim * d_model)
+    params = proj + q_lora_rank + kv_lora_rank
+    core = seq * (seq + 1) // 2 * h * (qk + v_head_dim)
+    return LayerInfo(name, MLA, (seq, d_model), (seq, d_model),
+                     params=params, macs=seq * proj + core,
+                     attrs={"n_heads": h, "q_lora_rank": q_lora_rank,
+                            "kv_lora_rank": kv_lora_rank,
+                            "qk_nope_dim": qk_nope_dim,
+                            "qk_rope_dim": qk_rope_dim,
+                            "v_head_dim": v_head_dim})
+
+
 def mlp_layer(name: str, d_model: int, d_ff: int, seq: int,
               gated: bool = True) -> LayerInfo:
     n_mats = 3 if gated else 2
@@ -187,7 +215,8 @@ def mlp_layer(name: str, d_model: int, d_ff: int, seq: int,
 def moe_layer(name: str, d_model: int, d_ff: int, seq: int, n_experts: int,
               top_k: int, n_shared: int = 0, gated: bool = True,
               held: Optional[int] = None,
-              shared_d_ff: Optional[int] = None) -> LayerInfo:
+              shared_d_ff: Optional[int] = None,
+              router_bias: bool = False) -> LayerInfo:
     """An expert layer: ``n_experts`` routed experts of width ``d_ff``, top
     ``top_k``, the router (d, E), and ``n_shared`` shared experts fused
     into one FFN of width ``shared_d_ff`` (``n_shared * d_ff`` by default).
@@ -197,13 +226,15 @@ def moe_layer(name: str, d_model: int, d_ff: int, seq: int, n_experts: int,
     experts' and ``top_k * held / n_experts`` routed experts' a token, the
     choices that fall on held experts under uniform routing (rounded down
     over the sequence).  ``held`` and ``shared_d_ff`` are recorded in
-    ``attrs`` when given."""
+    ``attrs`` when given.  ``router_bias``: the router's correction bias
+    (E,) among the parameters (DeepSeek-V3's ``noaux_tc`` route)."""
     n_mats = 3 if gated else 2
     per_expert = n_mats * d_model * d_ff
     n_held = n_experts if held is None else held
     shared = (n_mats * d_model * shared_d_ff if shared_d_ff is not None
               else n_shared * per_expert) if n_shared else 0
-    params = n_held * per_expert + shared + d_model * n_experts
+    params = (n_held * per_expert + shared + d_model * n_experts
+              + (n_experts if router_bias else 0))
     routed = top_k * n_held * per_expert
     active = routed // n_experts + shared
     attrs = {"n_experts": n_experts, "top_k": top_k, "n_shared": n_shared,

@@ -67,11 +67,11 @@ PUBLIC_API: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
         "validate_chrome_trace", "percentile", "latency_summary",
         "mean_tail",
     )),
-    ("repro_torch.configs.base", ("ModelConfig",)),
+    ("repro_torch.configs.base", ("ModelConfig", "RopeScaling")),
     ("repro_torch.models.registry", (
         "get_config", "build_model", "model_graph",
     )),
-    ("repro_torch.models.decoder", ("DecoderLM",)),
+    ("repro_torch.models.decoder", ("DecoderLM", "AttnUnit", "FfnUnit")),
     ("repro_torch.models.ssm_lm", ("SSMLM", "MixedLM", "MoeUnit")),
     ("repro_torch.nn.moe", ("MoEFFN",)),
     ("repro_torch.models.convert", (

@@ -27,7 +27,16 @@ rest MoE blocks (``blocks_moe``); ``aux`` holds the MoE stack's
 ``lb_loss``, ``z_loss`` and ``dropped``, each the mean over its blocks.
 With ``cfg.mtp`` (DeepSeek-V3) the ``mtp_block`` stack and ``mtp_proj``
 give ``aux["mtp_logits"]`` when ``train`` is set.  ``cfg.use_mla`` puts
-multi-head latent attention in every block.
+multi-head latent attention in every block (with ``cfg.rope_scaling``,
+YaRN's).  With ``cfg.n_group`` the MoE blocks route by ``noaux_tc``,
+dropless over ``cfg.experts_held`` (``nn.moe.MoEFFN``; their ``aux`` is
+empty).
+
+:meth:`DecoderLM.units` splits every block into an attention unit and an
+FFN unit (:class:`AttnUnit`, kind ``"mla"`` or ``"attention"``;
+:class:`FfnUnit`, kind ``"mlp"`` or ``"moe"``) on the block's own
+parameters: the chain of the partitioner's graph, which the partitioned
+runner cuts for the moe family (``serving.pipeline``).
 
 Caches keep the reference's stacked layout, one entry a stack:
 ``{"dense": {"k": (L, B, S, Kv, hd), "v": ..., "pos": (L,)}, "moe":
@@ -91,7 +100,8 @@ def mla_config(cfg: ModelConfig) -> MLAConfig:
         d_model=cfg.d_model, n_heads=cfg.n_heads, q_lora_rank=cfg.q_lora_rank,
         kv_lora_rank=cfg.kv_lora_rank, qk_nope_dim=cfg.qk_nope_dim,
         qk_rope_dim=cfg.qk_rope_dim, v_head_dim=cfg.v_head_dim,
-        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps)
+        rope_theta=cfg.rope_theta, norm_eps=cfg.norm_eps,
+        rope_scaling=cfg.rope_scaling)
 
 
 class DecoderBlock(nn.Module):
@@ -118,7 +128,15 @@ class DecoderBlock(nn.Module):
                 window=cfg.window, rope_theta=cfg.rope_theta,
                 mrope_sections=cfg.mrope_sections, rope=cfg.rope,
                 scale=cfg.attention_scale, norm_eps=cfg.norm_eps, **init)
-        if kind == "moe":
+        if kind == "moe" and cfg.n_group:
+            # the noaux_tc route, dropless over the held share
+            self.moe = MoEFFN(d, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
+                              cfg.n_shared, capacity_factor=None,
+                              router_scale=cfg.routed_scaling_factor,
+                              sigmoid_gate=True, held=cfg.experts_held,
+                              n_group=cfg.n_group,
+                              topk_group=cfg.topk_group, **init)
+        elif kind == "moe":
             self.moe = MoEFFN(d, cfg.moe_d_ff, cfg.n_experts, cfg.top_k,
                               cfg.n_shared, sigmoid_gate=cfg.sigmoid_gate,
                               **init)
@@ -137,9 +155,73 @@ class DecoderBlock(nn.Module):
         if self.kind == "moe":
             lanes = cache is not None and cache["pos"].dim() > 0
             f, aux = self.moe(h, lanes=lanes)
+            if self.moe.cap_f is None:
+                aux = {}        # the dropless route's row count: no loss term
         else:
             f, aux = gated_mlp(self.mlp, h), {}
         return x + f, new_cache, aux
+
+
+MOE_ROWS = "moe_rows"   # counters .held / .routed: the expert layers' rows
+
+
+def count_moe_rows(obs, aux: Dict, tokens: int, k: int) -> None:
+    """With ``obs`` switched on: ``aux["rows"]``, the rows a dropless
+    expert layer's held experts computed, in ``moe_rows.held``, and the
+    token-expert choices, ``tokens`` x top-``k``, in ``moe_rows.routed``."""
+    if obs is not None and obs.enabled:
+        obs.metrics.counter(f"{MOE_ROWS}.held").inc(aux["rows"])
+        obs.metrics.counter(f"{MOE_ROWS}.routed").inc(tokens * k)
+
+
+class AttnUnit(nn.Module):
+    """``h + attn(RMSNorm(h))``: a decoder block's attention half on the
+    block's own ``ln1`` and ``attn`` (no copies; ``ln`` and ``attn``
+    here).  ``kind``: ``"mla"`` or ``"attention"`` (GQA).  Takes the
+    keywords every chain unit takes, ``obs`` unread."""
+
+    def __init__(self, blk: DecoderBlock):
+        super().__init__()
+        self.kind = ("mla" if isinstance(blk.attn, MLAAttention)
+                     else "attention")
+        self.eps = blk.eps
+        self.ln = blk.ln1
+        self.attn = blk.attn
+
+    def forward(self, x, *, positions=None, impl="ref", obs=None):
+        """``x`` (B, T, d) after the attention's residual branch, as
+        :class:`DecoderBlock` computes it without a cache."""
+        a, _ = self.attn(rms_norm(x, self.ln, self.eps), positions=positions,
+                         impl=impl)
+        return x + a
+
+
+class FfnUnit(nn.Module):
+    """``h + f(RMSNorm(h))``: a decoder block's FFN half on the block's own
+    ``ln2`` and ``mlp`` (``kind`` ``"mlp"``) or ``moe`` (``"moe"``): no
+    copies.  On the dropless route an ``obs`` switched on counts the held
+    experts' rows (:func:`count_moe_rows`)."""
+
+    def __init__(self, blk: DecoderBlock):
+        super().__init__()
+        self.kind = "moe" if blk.kind == "moe" else "mlp"
+        self.eps = blk.eps
+        self.ln = blk.ln2
+        if self.kind == "moe":
+            self.moe = blk.moe
+        else:
+            self.mlp = blk.mlp
+
+    def forward(self, x, *, positions=None, impl="ref", obs=None):
+        """``x`` (B, T, d) after the FFN's residual branch, as
+        :class:`DecoderBlock` computes it."""
+        h = rms_norm(x, self.ln, self.eps)
+        if self.kind == "mlp":
+            return x + gated_mlp(self.mlp, h)
+        f, aux = self.moe(h)
+        if self.moe.cap_f is None:
+            count_moe_rows(obs, aux, x.shape[0] * x.shape[1], self.moe.k)
+        return x + f
 
 
 def block_out(blk: nn.Module, x: torch.Tensor, **kw) -> torch.Tensor:
@@ -328,6 +410,14 @@ class DecoderLM(TokenLM):
             self.mtp_proj = normal_init((2 * cfg.d_model, cfg.d_model),
                                         (2 * cfg.d_model) ** -0.5, **init)
 
+    def units(self) -> List[nn.Module]:
+        """Each block's attention unit and FFN unit, in order, on the
+        blocks' own parameters (:class:`AttnUnit`, :class:`FfnUnit`, made
+        anew at each call): the graph's positions 1 .. 2L (position 0 the
+        embedding, 2L + 1 the head), the partitioned runner's chain."""
+        return [u for blk in self.blocks
+                for u in (AttnUnit(blk), FfnUnit(blk))]
+
     def stacks(self) -> List[Tuple[str, Sequence[DecoderBlock]]]:
         """The reference's block stacks in order, by cache key: ``dense``
         (the first ``n_dense`` blocks) and ``moe`` (the rest), each where it
@@ -446,20 +536,35 @@ class DecoderLM(TokenLM):
 
 def lm_graph(cfg: ModelConfig, seq: int) -> LayerGraph:
     """The partitioner's per-block layer graph of a decoder LM, from the
-    configuration alone (no weights)."""
+    configuration alone (no weights): ``Embed_0``, per layer
+    ``Attention_l`` then ``Mlp_l`` or ``MoE_l``, ``Head_0``, the chain of
+    :meth:`DecoderLM.units`.  With ``cfg.graph_mla`` an MLA layer is
+    :func:`~repro_torch.core.layers.mla_layer`; without it the JAX
+    package's count, which takes MLA for GQA.  An expert node counts the
+    held share and the ``noaux_tc`` route's correction bias."""
+    mla = cfg.use_mla and cfg.graph_mla
+    held = None if cfg.experts_held is None else cfg.experts_held[1]
     g = LayerGraph(name=cfg.arch_id)
     prev = g.add(GL.embed_layer("Embed_0", cfg.vocab * max(cfg.n_codebooks, 1),
                                 cfg.d_model, seq)).name
     for i in range(cfg.n_layers):
         kind = "moe" if (cfg.family == "moe" and i >= cfg.first_dense) else "dense"
-        attn = GL.attention_layer(
-            f"Attention_{i}", cfg.d_model, cfg.n_heads or 1,
-            cfg.n_kv or 1, seq, cfg.resolved_head_dim,
-            qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm, window=cfg.window)
+        if mla:
+            attn = GL.mla_layer(
+                f"Attention_{i}", cfg.d_model, cfg.n_heads, seq,
+                cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_nope_dim,
+                cfg.qk_rope_dim, cfg.v_head_dim)
+        else:
+            attn = GL.attention_layer(
+                f"Attention_{i}", cfg.d_model, cfg.n_heads or 1,
+                cfg.n_kv or 1, seq, cfg.resolved_head_dim,
+                qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm,
+                window=cfg.window)
         prev = g.add(attn, after=[prev]).name
         if kind == "moe":
             ffn = GL.moe_layer(f"MoE_{i}", cfg.d_model, cfg.moe_d_ff, seq,
-                               cfg.n_experts, cfg.top_k, cfg.n_shared)
+                               cfg.n_experts, cfg.top_k, cfg.n_shared,
+                               held=held, router_bias=cfg.n_group > 0)
         else:
             ffn = GL.mlp_layer(f"Mlp_{i}", cfg.d_model, cfg.d_ff, seq)
         prev = g.add(ffn, after=[prev]).name

@@ -29,6 +29,7 @@ _CONFIG_MODULES = {
 _PORT_CONFIG_MODULES = {
     "granite-4.0-h-micro": "repro_torch.configs.granite_4_0_h_micro",
     "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+    "deepseek-v3": "repro_torch.configs.deepseek_v3",
 }
 
 ARCH_IDS: List[str] = list(_CONFIG_MODULES)

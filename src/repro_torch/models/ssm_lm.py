@@ -73,14 +73,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import layers as GL
 from repro_torch.core.graph import LayerGraph
 from repro_torch.models.decoder import (_DTYPES, TokenLM, block_out,
-                                        gated_mlp, gated_mlp_init,
-                                        remat_block)
+                                        count_moe_rows, gated_mlp,
+                                        gated_mlp_init, remat_block)
 from repro_torch.nn.attention import GQAAttention, init_cache
 from repro_torch.nn.layers import rms_norm
 from repro_torch.nn.module import constant, normal_init
 from repro_torch.nn.moe import MoEFFN
 from repro_torch.nn.ssm import Mamba2Mixer, init_ssm_cache
-from repro_torch.obs.handle import NOOP_OBS
 
 FAMILIES = ("ssm", "hybrid")     # SSMLM's; MixedLM builds "mixed"
 
@@ -325,9 +324,6 @@ class MlpUnit(nn.Module):
         return x + self.r * gated_mlp(self.mlp, rms_norm(x, self.ln, self.eps))
 
 
-MOE_ROWS = "moe_rows"   # counters .held / .routed: the expert layers' rows
-
-
 class MoeUnit(nn.Module):
     """``h + r · (MoE(v) + Shared(v))``, ``v = RMSNorm(h)``: a layer's
     expert layer (``moe``, a dropless :class:`~repro_torch.nn.moe.MoEFFN`
@@ -353,11 +349,7 @@ class MoeUnit(nn.Module):
     def forward(self, x, *, positions=None, impl="ref", obs=None):
         """``x`` (B, T, d) after the expert layer's residual branch."""
         y, aux = self.moe(rms_norm(x, self.ln, self.eps))
-        obs = NOOP_OBS if obs is None else obs
-        if obs.enabled:
-            obs.metrics.counter(f"{MOE_ROWS}.held").inc(aux["rows"])
-            obs.metrics.counter(f"{MOE_ROWS}.routed").inc(
-                x.shape[0] * x.shape[1] * self.moe.k)
+        count_moe_rows(obs, aux, x.shape[0] * x.shape[1], self.moe.k)
         return x + self.r * y
 
 

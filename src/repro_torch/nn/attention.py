@@ -59,12 +59,62 @@ def rope_freqs(head_dim: int, theta: float = 10000.0,
     return 1.0 / (theta ** exps)
 
 
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention factor ``0.1 · mscale · ln(factor) + 1`` (1 where
+    ``factor`` <= 1)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_inv_freq(head_dim: int, theta: float, scaling,
+                  device=None) -> torch.Tensor:
+    """YaRN's rotary frequencies (hd/2,) for ``scaling`` (a
+    ``configs.base.RopeScaling``): with f_i = theta^(-2i/hd) the plain
+    frequencies, d(r) = hd · ln(L / (2π r)) / (2 ln theta) the half-dim
+    that turns r times over the original length L, low = max(floor(
+    d(beta_fast)), 0) and high = min(ceil(d(beta_slow)), hd - 1), the
+    ramp ρ_i = clamp((i - low) / (high - low), 0, 1) and its complement
+    μ_i = 1 - ρ_i::
+
+        inv_freq_i = 1 / (factor · theta^(2i/hd)) · (1 - μ_i) + f_i · μ_i
+
+    (the fast dims below ``low`` extrapolated, the slow ones above ``high``
+    interpolated by ``factor``; the terms formed as the published
+    ``modeling_deepseek.py`` forms them)."""
+    length = scaling.original_max_position_embeddings
+
+    def turns_dim(r):
+        return (head_dim * math.log(length / (r * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(turns_dim(scaling.beta_fast)), 0)
+    high = min(math.ceil(turns_dim(scaling.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, device=device, dtype=torch.float32)
+             - low) / (high - low)).clamp(0, 1)
+    extra = rope_freqs(head_dim, theta, device=device)
+    exps = torch.arange(0, head_dim, 2, device=device,
+                        dtype=torch.float32) / head_dim
+    inter = 1.0 / (scaling.factor * theta ** exps)
+    keep = 1.0 - ramp
+    return inter * (1 - keep) + extra * keep
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x: (B, T, H, hd); positions: (B, T) integer positions."""
-    freqs = rope_freqs(x.shape[-1], theta, device=x.device)     # (hd/2,)
+               theta: float = 10000.0, scaling=None) -> torch.Tensor:
+    """x: (B, T, H, hd); positions: (B, T) integer positions.
+    ``scaling``: YaRN's (a ``configs.base.RopeScaling``): its frequencies
+    (:func:`yarn_inv_freq`), and cos and sin times ``yarn_mscale(factor,
+    mscale) / yarn_mscale(factor, mscale_all_dim)``."""
+    if scaling is None:
+        freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (hd/2,)
+    else:
+        freqs = yarn_inv_freq(x.shape[-1], theta, scaling, device=x.device)
     ang = positions[..., None].float() * freqs                  # (B, T, hd/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        cos, sin = cos * m, sin * m
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin,
                       x2 * cos + x1 * sin], dim=-1).to(x.dtype)
@@ -119,13 +169,30 @@ def sdpa(q, k, v, mask, scale: Optional[float] = None) -> torch.Tensor:
     return out.reshape(b, t, h, vd)
 
 
+SCORE_CHUNK_BYTES = 1 << 30   # one sequence's (H, chunk, S) scores, at most
+
+
+def score_chunk(chunk_q: int, heads: int, keys: int) -> int:
+    """``chunk_q`` halved while one sequence's float32 scores (``heads``,
+    chunk, ``keys``) pass ``SCORE_CHUNK_BYTES``: at DeepSeek-V3's 128
+    heads over 16k keys a 512-query chunk would be 4 GiB, and the few such
+    blocks alive at once must find room in the card's caching allocator
+    among the other transients (its stage copies); 128 queries make 1 GiB.
+    At 32 heads over 8k keys (granite) 512 queries stay."""
+    while chunk_q % 2 == 0 and heads * chunk_q * keys * 4 > SCORE_CHUNK_BYTES:
+        chunk_q //= 2
+    return chunk_q
+
+
 def chunked_sdpa(q, k, v, window: Optional[int] = None,
                  chunk_q: int = 512,
                  scale: Optional[float] = None) -> torch.Tensor:
     """Memory-bounded causal attention: a loop over query chunks.
 
     Never materializes the (T, T) score matrix: per step it is
-    (chunk_q, S), so long prefills need O(T * chunk) intermediates.
+    (chunk_q, S), so long prefills need O(T * chunk) intermediates.  On a
+    card the chunk is :func:`score_chunk`'s; elsewhere (the CPU, the
+    ``meta`` device of a dry run) it is ``chunk_q``.
     q: (B,T,H,hd); k/v: (B,S,Kv,hd-like); ``scale`` as :func:`sdpa`'s.  The softmax runs in float32,
     or in q's dtype when the installed rules say ``softmax_dtype ==
     "compute"`` (``--opt softmax_low``), as the reference's.
@@ -136,6 +203,8 @@ def chunked_sdpa(q, k, v, window: Optional[int] = None,
     group = h // kv
     if t % chunk_q:
         chunk_q = t  # fallback: single chunk
+    if q.is_cuda:
+        chunk_q = score_chunk(chunk_q, h, s)
     k_pos = torch.arange(s, device=q.device)
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
@@ -348,6 +417,7 @@ class MLAConfig:
     v_head_dim: int = 128
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6          # the latents' RMSNorms (the port's own)
+    rope_scaling: Optional[object] = None   # YaRN (the port's own)
 
 
 def init_mla_cache(batch: int, capacity: int, cfg: MLAConfig,
@@ -392,7 +462,13 @@ class MLAAttention(nn.Module):
     use the decompressed form; decode with a cache uses the absorbed form
     (the query projected into the latent space, attention over
     kv_lora_rank dimensions).  Weights in the reference's (in, out)
-    layout."""
+    layout.
+
+    With ``cfg.rope_scaling`` (YaRN, DeepSeek-V3) the rotary part of q and
+    k turns at YaRN's frequencies with cos and sin scaled
+    (:func:`apply_rope`), and the softmax scale is ``(qk_nope + qk_rope)^-½
+    · yarn_mscale(factor, mscale_all_dim)²`` on every path; without it the
+    scale is ``(qk_nope + qk_rope)^-½`` as in the reference."""
 
     def __init__(self, cfg: MLAConfig, *, dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
@@ -416,6 +492,10 @@ class MLAAttention(nn.Module):
                                 c.kv_lora_rank ** -0.5, **init)
         self.wo = normal_init((h * c.v_head_dim, d),
                               (h * c.v_head_dim) ** -0.5, **init)
+        rs = c.rope_scaling
+        # None: sdpa's own 1/sqrt(qk), bit for bit the reference's
+        self.scale = None if rs is None else (
+            qk ** -0.5 * yarn_mscale(rs.factor, rs.mscale_all_dim) ** 2)
 
     def _latents(self, x, positions):
         c = self.cfg
@@ -424,10 +504,10 @@ class MLAAttention(nn.Module):
         q = (cq @ self.w_uq).reshape(b, t, c.n_heads,
                                      c.qk_nope_dim + c.qk_rope_dim)
         q_nope, q_rope = q[..., :c.qk_nope_dim], q[..., c.qk_nope_dim:]
-        q_rope = apply_rope(q_rope, positions, c.rope_theta)
+        q_rope = apply_rope(q_rope, positions, c.rope_theta, c.rope_scaling)
         ckv = rms_norm(x @ self.w_dkv, self.kv_norm, c.norm_eps)  # (B,T,r)
         k_rope = apply_rope((x @ self.w_kr)[:, :, None, :], positions,
-                            c.rope_theta)[:, :, 0]              # (B,T,rd)
+                            c.rope_theta, c.rope_scaling)[:, :, 0]  # (B,T,rd)
         return q_nope, q_rope, ckv, k_rope
 
     def forward(self, x: torch.Tensor, *,
@@ -454,9 +534,10 @@ class MLAAttention(nn.Module):
                 b, t, c.n_heads, c.qk_rope_dim)], dim=-1)
             q = torch.cat([q_nope, q_rope], dim=-1)
             if t >= 2048:
-                y = chunked_sdpa(q, k, v)
+                y = chunked_sdpa(q, k, v, scale=self.scale)
             else:
-                y = sdpa(q, k, v, causal_mask(positions, positions))
+                y = sdpa(q, k, v, causal_mask(positions, positions),
+                         self.scale)
         else:
             # absorbed decode path: attention in the latent space
             pos = cache["pos"]
@@ -468,7 +549,8 @@ class MLAAttention(nn.Module):
             kr_all = cache["kr"].to(x.dtype)
             w_uk = self.w_uk.reshape(c.kv_lora_rank, c.n_heads, c.qk_nope_dim)
             q_lat = torch.einsum("bthn,rhn->bthr", q_nope, w_uk)
-            scale = 1.0 / math.sqrt(c.qk_nope_dim + c.qk_rope_dim)
+            scale = (1.0 / math.sqrt(c.qk_nope_dim + c.qk_rope_dim)
+                     if self.scale is None else self.scale)
             scores = (torch.einsum("bthr,bsr->bhts", q_lat, ckv_all)
                       + torch.einsum("bthn,bsn->bhts", q_rope, kr_all))
             kpos = torch.arange(ckv_all.shape[1], device=x.device)

@@ -32,7 +32,18 @@ Two options of the port's own, for an expert layer split over devices
   exactly its rows, and the weighted rows added back.  No choice is
   dropped.  Its ``aux`` is ``{"rows": ...}``, the number of rows the
   held experts computed (a host int): no training loss reads it.
-  Softmax gating only.
+  With ``sigmoid_gate`` and ``n_group`` >= 1 the dropless route chooses
+  by DeepSeek-V3's ``noaux_tc`` gate instead (``router_bias`` (E,), the
+  correction bias, a parameter of the layer):
+
+  1. s = sigmoid(logits) in float32; c = s + router_bias;
+  2. the experts in ``n_group`` equal groups, each scored by the sum of
+     its two best c;
+  3. the best ``topk_group`` groups kept, the top-k of c within them;
+  4. the weights s of the chosen over their sum, times ``router_scale``.
+
+  The bias moves the choice, never a weight.  The held experts compute
+  their rows as on the softmax route.
 
 Differences from the reference:
 
@@ -124,7 +135,9 @@ class MoEFFN(nn.Module):
     over all E, and a choice of an expert not held adds nothing.
     ``capacity_factor``: the capacity route (choices past an expert's
     slots dropped), or with None the dropless route: the top-k of the
-    logits and the softmax over the chosen, each held expert's product on
+    logits and the softmax over the chosen, or with ``sigmoid_gate`` the
+    ``noaux_tc`` gate over ``n_group`` groups, best ``topk_group``
+    (``router_bias``, the module docstring), each held expert's product on
     exactly its rows (one read of their counts to the host)."""
 
     def __init__(self, d_model: int, d_ff: int, n_experts: int, top_k: int,
@@ -132,6 +145,7 @@ class MoEFFN(nn.Module):
                  router_scale: float = 1.0, sigmoid_gate: bool = False, *,
                  held: Optional[Tuple[int, int]] = None,
                  shared_d_ff: Optional[int] = None,
+                 n_group: int = 0, topk_group: int = 0,
                  dtype=torch.float32, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -145,12 +159,23 @@ class MoEFFN(nn.Module):
         if not (0 <= first and 1 <= count <= n_experts - first):
             raise ValueError(f"held {held} is no share of {n_experts} "
                              f"experts")
-        if capacity_factor is None and sigmoid_gate:
-            raise ValueError("the dropless route gates by softmax")
+        self.n_group, self.topk_group = n_group, topk_group
+        noaux = capacity_factor is None and sigmoid_gate
+        if noaux != (n_group > 0) or n_group and not (
+                n_experts % n_group == 0 and n_experts // n_group >= 2
+                and 1 <= topk_group <= n_group
+                and top_k <= topk_group * n_experts // n_group):
+            raise ValueError("the dropless route gates by softmax, or by "
+                             "sigmoid in n_group >= 1 groups of at least 2 "
+                             "experts (noaux_tc, top_k within topk_group "
+                             "groups); the capacity route takes no groups")
         d, ff, e = d_model, d_ff, n_experts
         std = d ** -0.5
         init = dict(generator=generator, device=device, dtype=dtype)
         self.router = normal_init((d, e), std, **init)
+        if n_group:
+            self.router_bias = nn.Parameter(torch.zeros(
+                e, dtype=dtype, device=device))
         self.w_gate = normal_init((count, d, ff), std, **init)
         self.w_up = normal_init((count, d, ff), std, **init)
         self.w_down = normal_init((count, ff, d), ff ** -0.5, **init)
@@ -219,8 +244,13 @@ class MoEFFN(nn.Module):
         docstring); ``aux`` holds only ``rows``."""
         b, t, d = x.shape
         logits = (x @ self.router).float()                     # (b, t, E)
-        top, idx = torch.topk(logits, self.k, dim=-1)          # (b, t, k)
-        wk = (torch.softmax(top, dim=-1) * self.router_scale).to(x.dtype)
+        if self.n_group:
+            wk, idx = self._noaux_tc(logits)
+            wk = wk.to(x.dtype)
+        else:
+            top, idx = torch.topk(logits, self.k, dim=-1)      # (b, t, k)
+            wk = (torch.softmax(top, dim=-1)
+                  * self.router_scale).to(x.dtype)
         flat = x.reshape(-1, d)
         first, count = self.held
         # each held choice keyed by its expert, the rest by the sink
@@ -244,3 +274,20 @@ class MoEFFN(nn.Module):
         if self.sh:
             y = y + gated_ffn(x, self.sh_gate, self.sh_up, self.sh_down)
         return y, {"rows": s}
+
+    def _noaux_tc(self, logits: torch.Tensor):
+        """The ``noaux_tc`` gate of the module docstring on float32
+        ``logits`` (b, t, E): the weights (b, t, k), float32, and the
+        chosen experts (b, t, k)."""
+        s = torch.sigmoid(logits)
+        c = s + self.router_bias.float()
+        g = self.n_group
+        grouped = c.unflatten(-1, (g, self.e // g))         # (b, t, G, E/G)
+        group_score = grouped.topk(2, dim=-1).values.sum(-1)
+        best = group_score.topk(self.topk_group, dim=-1).indices
+        kept = torch.zeros_like(group_score, dtype=torch.bool).scatter_(
+            -1, best, True)
+        c = grouped.masked_fill(~kept[..., None], float("-inf")).flatten(-2)
+        idx = torch.topk(c, self.k, dim=-1).indices
+        w = s.gather(-1, idx)
+        return w / w.sum(-1, keepdim=True) * self.router_scale, idx

@@ -44,7 +44,8 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   (each MBConv block the runner runs, by its depthwise unit's route: the
   kernel K8 or the plain chain of ops);
 * the LM oracle (``obs=`` of ``lm_measured_accuracy`` and, for the mixed
-  family, ``PartitionedLMRunner``; track ``oracle``): the same spans, each
+  and moe families, ``PartitionedLMRunner``; track ``oracle``): the same
+  spans, each
   ``oracle.stage`` with ``stage``, ``mamba`` and ``attention`` (the mixers
   it holds) and ``tokens``, the head in the last; the counters
   ``ssm_scan_calls.cuda`` and ``ssm_scan_calls.ref`` (each Mamba2 mixer's
@@ -56,7 +57,11 @@ Where the handle is threaded and what it records with ``Obs.on()``:
   (the expert units it holds) and ``moe_ms`` (their device time, from CUDA
   events read at the stage's sync; the host clock off a card), and the
   expert units count ``moe_rows.held`` (the token-expert rows the held
-  experts computed) and ``moe_rows.routed`` (tokens x top-k);
+  experts computed) and ``moe_rows.routed`` (tokens x top-k); for a model
+  with multi-head latent attention (deepseek-v3) each ``oracle.stage``
+  also carries ``mla`` (the MLA units it holds) and ``mla_ms`` (their
+  device time, read as ``moe_ms`` is), and its dropless expert units
+  count the same two counters;
 * ``OnlineRepartitioner``: its decisions (instants and counters).
 """
 

@@ -4,8 +4,9 @@
 vector it executes the *partitioned, fake-quantized* CNN on a validation set
 (weights at each platform's bit width, link activations quantized to the
 producer's width) and returns top-1 accuracy.  ``lm_measured_accuracy`` is
-its twin for an LM of the mixed family: the share of next-token positions
-at which the partitioned, fake-quantized model's top-1 is the label.
+its twin for an LM of the mixed or moe family: the share of next-token
+positions at which the partitioned, fake-quantized model's top-1 is the
+label.
 
 ``qat_finetune`` runs quantization-aware training: every forward quantizes
 the parameters with straight-through gradients, so the float master weights
@@ -31,7 +32,8 @@ from repro_torch.obs.handle import NOOP_OBS, Obs
 from repro_torch.optim.optimizers import (Optimizer, apply_updates,
                                           clip_by_global_norm, stacked_grads,
                                           stacked_params)
-from repro_torch.serving.pipeline import (TRACK, PartitionedCNNRunner,
+from repro_torch.serving.pipeline import (CHAIN_FAMILIES, TRACK,
+                                          PartitionedCNNRunner,
                                           PartitionedLMRunner)
 from repro_torch.training.train_lib import cross_entropy
 
@@ -129,7 +131,8 @@ def lm_measured_accuracy(model, schedule, tokens, labels,
                          quant_specs: Sequence[QuantSpec],
                          link_quant: bool = True,
                          obs: Optional[Obs] = None):
-    """accuracy_fn(cuts) for the explorer on a ``MixedLM``: the twin of
+    """accuracy_fn(cuts) for the explorer on a ``MixedLM`` or a moe-family
+    ``DecoderLM`` (the chains of ``PartitionedLMRunner``): the twin of
     :func:`cnn_measured_accuracy`.
 
     Each cut vector (positions of ``schedule``, the model's chain) runs
@@ -149,9 +152,10 @@ def lm_measured_accuracy(model, schedule, tokens, labels,
     ``oracle_positions``.  ``repro_torch.core.accuracy`` registers it as
     the measured oracle ``lm_fakequant`` (an ``AccuracySpec`` of kind
     ``measured``: the registry model, reduced or not, at ``seq`` tokens)."""
-    if model.cfg.family != "mixed":
+    if model.cfg.family not in CHAIN_FAMILIES:
         raise ValueError(f"{model.cfg.arch_id}: lm_measured_accuracy scores "
-                         f"the mixed family, not {model.cfg.family!r}")
+                         f"the mixed family and the moe family, not "
+                         f"{model.cfg.family!r}")
     obs = NOOP_OBS if obs is None else obs
     names = [layer.name for layer in schedule]
     if names != list(model.to_graph(1).nodes):

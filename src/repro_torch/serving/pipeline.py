@@ -8,9 +8,10 @@ activation crossing each link to the producer's width: the measured-
 accuracy oracle of the explorer (``quantize.evaluate``).
 :class:`PartitionedLMRunner` splits a decoder LM the same way, each
 stage's weights calibrated over the stage's stacked layers, as the
-reference calibrates them, and a mixed-family LM (Granite 4.0-H) at the
-search's own positions, a stage boundary falling between a layer's mixer
-and its MLP too.
+reference calibrates them, and a mixed-family LM (Granite 4.0-H) or a
+moe-family LM (DeepSeek-V3) at the search's own positions, a stage
+boundary falling between a layer's mixer (or attention) and its MLP or
+expert layer too.
 
 On one device the stages run in turn; the throughput model (Def. 4) comes
 from per-stage timings.  With quantization off the partitioned output
@@ -43,6 +44,8 @@ TRACK = "oracle"     # the partitioned runners' spans' track
 # counters .cuda / .ref: MBConv blocks run, by their depthwise unit's route
 MBCONV_DW = "mbconv_dw"
 SSM_SCAN_CALLS = "ssm_scan_calls"   # counters .cuda / .ref: Mamba2 scans
+# families split at the search's positions, over ``model.units()``
+CHAIN_FAMILIES = ("mixed", "moe")
 
 def def4_throughput(stage_latencies: Sequence[float],
                     link_latencies: Sequence[float] = ()) -> float:
@@ -270,34 +273,38 @@ class PartitionedLMRunner:
     stages only, so build a new runner after it.  With ``link_quant`` the
     activation leaving a quantized
     stage is fake-quantized to its width (per tensor), as it would cross
-    the link.  It takes the dense, vlm and audio families, as the
-    reference's runner does, and a moe model raises as there; stage 0
-    embeds the batch by family (``DecoderLM.embed_batch``: codebooks,
-    vision embeddings, M-RoPE positions).
+    the link.  It takes the dense, vlm and audio families block by block,
+    as the reference's runner does; stage 0 embeds the batch by family
+    (``DecoderLM.embed_batch``: codebooks, vision embeddings, M-RoPE
+    positions).
 
-    A ``MixedLM`` (the mixed family) is split at the search's own
-    positions: ``cuts`` is a cut vector over the model's chain
-    (``to_graph``: position 0 the embedding, 1 .. 2L each layer's mixer
-    and MLP or expert units, 2L + 1 the head), read as the cost model
+    A ``MixedLM`` (the mixed family) or a moe-family ``DecoderLM`` is
+    split at the search's own positions: ``cuts`` is a cut vector over
+    the model's chain (``model.units()``, the nodes of ``to_graph``:
+    position 0 the embedding, 1 .. 2L each layer's mixer or attention unit
+    and its MLP or expert unit, 2L + 1 the head), read as the cost model
     reads it: platform k holds the positions ``cuts[k-1] + 1 .. cuts[k]``
     (-1: none before it), so a cut after a mixer puts that layer's MLP on
     the next stage, and a platform that holds nothing drops out with its
     spec.  A quantized stage's units are :func:`quantized_units`, each
     leaf stacked over the stage's units of one kind (Mamba2 mixers,
-    attention mixers, MLPs, expert units: their held experts' leaves
-    stacked (L, H, ...)); the embedding and the head stay float, and the
-    head runs in the last stage.  ``quant_specs`` has one entry a
+    attention mixers, MLA units, MLPs, expert units: their held experts'
+    leaves stacked (L, H, ...), the correction bias (L, E) of the
+    ``noaux_tc`` route too); the embedding and the head stay float, and
+    the head runs in the last stage.  ``quant_specs`` has one entry a
     platform.
 
     ``impl`` is passed to every block or unit (``"cuda"``/``"auto"``: the
     kernels on a CUDA tensor).  ``obs`` (default off,
-    :data:`~repro_torch.obs.NOOP_OBS`): switched on, a mixed model's runner
-    records on the ``oracle`` track one ``oracle.quantize`` a stage as it
-    is built (``stage``, ``bits``, ``tensors``), and in :meth:`forward` one
-    ``oracle.stage`` a stage (``stage``, ``mamba``, ``attention``: the
-    mixers it holds, ``tokens``; with experts also ``moe``, the expert
-    units it holds, and ``moe_ms``, their time: CUDA events read after the
-    stage's sync on a card, the host clock elsewhere) and one
+    :data:`~repro_torch.obs.NOOP_OBS`): switched on, a chain runner (mixed
+    or moe family) records on the ``oracle`` track one ``oracle.quantize``
+    a stage as it is built (``stage``, ``bits``, ``tensors``), and in
+    :meth:`forward` one ``oracle.stage`` a stage (``stage``, ``mamba``,
+    ``attention``: the mixers it holds, ``tokens``; with experts also
+    ``moe``, the expert units it holds, and ``moe_ms``, their time: CUDA
+    events read after the stage's sync on a card, the host clock
+    elsewhere; with MLA also ``mla``, the MLA units it holds, and
+    ``mla_ms``, their time, read alike) and one
     ``oracle.link`` a link fake-quant (``bytes``), and counts each Mamba2
     mixer's scan in ``ssm_scan_calls.cuda`` (the kernel) or
     ``ssm_scan_calls.ref``, the tensors it fake-quantizes, stacked leaves
@@ -312,16 +319,17 @@ class PartitionedLMRunner:
                  link_quant: bool = False, *, impl: str = "ref",
                  obs: Optional[Obs] = None):
         cfg = model.cfg
-        if cfg.family not in ("dense", "vlm", "audio", "mixed"):
+        if cfg.family not in ("dense", "vlm", "audio") + CHAIN_FAMILIES:
             raise ValueError(f"{cfg.arch_id}: the LM pipeline runner "
                              f"supports homogeneous block stacks and the "
-                             f"mixed family, not the {cfg.family} family")
+                             f"mixed and moe families' chains, not the "
+                             f"{cfg.family} family")
         self.model = model
         self.cuts = list(cuts)
         self.link_quant = link_quant
         self.impl = impl
         self.obs = NOOP_OBS if obs is None else obs
-        if cfg.family == "mixed":
+        if cfg.family in CHAIN_FAMILIES:
             self._init_chain(quant_specs)
             return
         bounds = [0] + [c + 1 for c in self.cuts] + [cfg.n_layers]
@@ -338,7 +346,7 @@ class PartitionedLMRunner:
                 for (a, b), spec in zip(self.ranges, self.quant_specs)]
 
     def _init_chain(self, quant_specs) -> None:
-        """A mixed model's stages: ``ranges`` over ``model.units()``, the
+        """A chain model's stages: ``ranges`` over ``model.units()``, the
         platforms that hold a node and their specs."""
         units = self.model.units()
         head = len(units) + 1
@@ -387,11 +395,11 @@ class PartitionedLMRunner:
     def forward(self, batch) -> Tuple[torch.Tensor, StageReport]:
         """Logits of ``batch`` through the stages in turn, with each
         stage's wall time (embedding in stage 0; the head in none, as the
-        reference times it, but in the last stage for the mixed family,
-        where the cost model puts it) and the bytes each link carries at
-        the producing stage's width."""
+        reference times it, but in the last stage for a chain, where the
+        cost model puts it) and the bytes each link carries at the
+        producing stage's width."""
         m = self.model
-        if m.cfg.family == "mixed":
+        if m.cfg.family in CHAIN_FAMILIES:
             return self._forward_chain(batch)
         dev = m.device
         lat, link_bytes = [], []
@@ -413,25 +421,25 @@ class PartitionedLMRunner:
         m, obs = self.model, self.obs
         lat, link_bytes = [], []
         last = self.n_stages - 1
-        experts = bool(m.cfg.n_experts)
+        experts, mla = bool(m.cfg.n_experts), m.cfg.use_mla
         x = positions = None
         for si, blocks in enumerate(self._blocks):
             t0 = time.perf_counter()
             if si == 0:
                 x, positions = m.embed_tokens(batch)
             kinds = self._kinds[si]
-            moe_times = []
+            times = {"moe": [], "mla": []}
             for unit, kind in zip(blocks, kinds):
                 if kind == "mamba" and obs.enabled:
                     obs.metrics.counter(
                         f"{SSM_SCAN_CALLS}."
                         f"{Mamba2Mixer.scan_impl(x, self.impl)}").inc()
-                timed = kind == "moe" and obs.enabled
-                if timed:
-                    moe_times.append(_UnitTimer(x.device))
+                timer = (_UnitTimer(x.device)
+                         if kind in times and obs.enabled else None)
                 x = unit(x, positions=positions, impl=self.impl, obs=obs)
-                if timed:
-                    moe_times[-1].stop()
+                if timer is not None:
+                    timer.stop()
+                    times[kind].append(timer)
             if si == last:
                 x = m.head_logits(x)
             sync(m.device)
@@ -441,9 +449,11 @@ class PartitionedLMRunner:
                 args = {"stage": si, "mamba": kinds.count("mamba"),
                         "attention": kinds.count("attention"),
                         "tokens": x.shape[0] * x.shape[1]}
-                if experts:
-                    args.update(moe=kinds.count("moe"), moe_ms=sum(
-                        (t.ms() for t in moe_times), 0.0))
+                for kind, on in (("moe", experts), ("mla", mla)):
+                    if on:
+                        args[kind] = kinds.count(kind)
+                        args[f"{kind}_ms"] = sum(
+                            (t.ms() for t in times[kind]), 0.0)
                 obs.tracer.complete("oracle.stage", track=TRACK, start=t0,
                                     end=t1, args=args)
             if si < last:

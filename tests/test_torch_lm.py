@@ -88,7 +88,8 @@ def close(got, want, atol=ATOL):
 # the port's own config fields, after the reference's (configs/base.py)
 PORT_FIELDS = ("layer_types", "embedding_multiplier", "residual_multiplier",
                "logits_scaling", "attention_scale", "rope", "norm_eps",
-               "experts_held")
+               "experts_held", "rope_scaling", "n_group", "topk_group",
+               "routed_scaling_factor", "graph_mla")
 
 
 def reference_part(cfg):
@@ -397,15 +398,18 @@ def test_quantized_stage_step_matches_runner(lm):
 
 
 def test_runner_rejects_moe_and_a_wrong_number_of_specs(lm):
-    """The reference's runner takes homogeneous stacks (dense, vlm, audio):
-    a moe model raises, as its assertion does."""
+    """The reference's runner takes homogeneous stacks (dense, vlm, audio)
+    and refuses a moe model by its assertion; the port's cuts a moe model
+    at the search's positions (its chain of units), so there a moe model
+    raises only on a wrong number of specs, as a dense one does."""
     _, _, tm = lm
     with pytest.raises(ValueError, match="3 quant specs for 2 stages"):
         PartitionedLMRunner(tm, [0], [QuantSpec(8)] * 3)
     moe = registry.build_model(registry.get_config(
         "deepseek-moe-16b").reduced(), device="cpu")
-    with pytest.raises(ValueError, match="moe"):
-        PartitionedLMRunner(moe, [0], [QuantSpec(8), None])
+    with pytest.raises(ValueError, match="3 quant specs for 2 platforms"):
+        PartitionedLMRunner(moe, [0], [QuantSpec(8)] * 3)
+    assert PartitionedLMRunner(moe, [0], [QuantSpec(8), None]).n_stages == 2
     jm = jreg.build_model(jreg.get_config("deepseek-moe-16b").reduced())
     with pytest.raises(AssertionError):
         jpipeline.PartitionedLMRunner(jm, {}, [0])
